@@ -2,25 +2,42 @@
 
     python3 chip_smoke.py [--out FILE]
 
-Builds the co-designed deform conv kernel (codenet_torch/csrc/deform_fwd.cu)
-with nvcc, holds it against its plain PyTorch version at the shapes the
-served model gives it and at ragged ones, times both, then serves the
-flagship ctdet ShuffleNetV2-DCN 1x at 256^2 with flip-test through
-CtdetDetector: per-image requests and a batch-32 request, scored with the
-port's VOC evaluator. Every phase prints one JSON line; a phase that fails
-ends the script with a non-zero exit. The last two lines are the kernel
+Builds the co-designed deform conv kernels (codenet_torch/csrc/
+deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
+against its plain PyTorch version at the shapes the model gives it and at
+ragged ones, timing both. Then it drives the port's paths at full width
+(ctdet ShuffleNetV2-DCN 1x, 256^2):
+
+- serving: flip-test per-image requests and a batch-32 request through
+  CtdetDetector, scored with the port's VOC evaluator;
+- FP32 training: one step card vs CPU at batch 4, then timed steps at
+  batch 32 on port-sampler batches of synthetic frames;
+- W4A8 QAT: the trained weights saved and reloaded through the port's
+  checkpoint, one step card vs CPU at batch 4, timed steps at batch 32,
+  and a fake-quant CtdetDetector eval;
+- the CLIs: `cli.main` (train, checkpoint, LR drop, final eval) and
+  `cli.quant_main` from its checkpoint.
+
+Every phase prints one JSON line; a phase that fails ends the script with
+a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 
-Weights are random (seeded): BN running stats are set from a random batch
-and the deform scale predictors are redrawn, so that s is fractional and
-partly outside the maps. TF32 is off throughout: the parity phases compare
-FP32 against FP32.
+Weights are random (seeded): for serving, BN running stats are set from a
+random batch and the deform scale predictors are redrawn, so that s is
+fractional and partly outside the maps; training starts from the port's
+init (s == 1), its card-vs-CPU parity step from that init with the BN
+biases raised (conditioned_init). Images are synthetic frames held in
+memory (the dataset's `load_image` is overridden; the card's machine has
+no cv2). TF32 is off throughout: the parity phases compare FP32 against
+FP32.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import subprocess
 import sys
@@ -36,12 +53,28 @@ SEED = 0
 MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
 BATCHES = [2, 128]
+BWD_BATCHES = [32, 128]
+TRAIN_BATCH = 32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# card vs CPU on one train / QAT step: loss, and gradients (relative L2
+# over all parameters; the median tensor and each deform-block tensor
+# relative to its max)
+STEP_TOL = 5e-3
+# the FP32 parity step's start: BN biases raised by this
+# (conditioned_init)
+BN_SHIFT = 3.0
+DEFORM_PARAMS = tuple("deconv_layers.{}.{}.".format(4 * i, part)
+                      for i in range(3)
+                      for part in ("conv_scale", "conv", "conv_channel"))
 # memory rate (B/s) and fp32 CUDA-core peak (FLOP/s) by card name
 # (NVIDIA data sheets); the first match wins, SXM is the default
 CARD_PEAKS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
               ("PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
 FLOPS_PER_OUT = 90  # 9 taps x (4 corner mul-adds + 1 tap-weight mul-add)
+# backward, per element of x: 9 taps x (4-corner sample 8, g*w 1, 4 col2im
+# products and adds 8, dw FMA 2) + 8 off-centre taps x (4-corner d/ds 8,
+# ds FMA 2)
+BWD_FLOPS_PER_ELEM = 9 * (8 + 1 + 8 + 2) + 8 * (8 + 2)
 
 _lines = []
 
@@ -118,12 +151,13 @@ def phase_env():
 
 def phase_build():
     from codenet_torch.ops import deform_cuda as DC
-    info = DC.build()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "so": str(Path(info["path"]).relative_to(ROOT)),
-          "nvcc_s": round(info["seconds"], 3), "cached": info["cached"],
-          "ptxas": ptxas})
+    for name, info in DC.build().items():
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name,
+              "so": str(Path(info["path"]).relative_to(ROOT)),
+              "nvcc_s": round(info["seconds"], 3), "cached": info["cached"],
+              "ptxas": ptxas})
 
 
 def _case(shape, n, dtype, gen):
@@ -173,6 +207,75 @@ def phase_kernels(bw, flops):
                 rows.append(row)
                 if launched != 1 or not err <= TOL[dtype]:
                     raise SystemExit("kernel check failed: {}".format(row))
+    return rows
+
+
+def _bwd_case(shape, n, dtype, gen):
+    """x, s, w, g for the backward: s fractional, a quarter of it rounded
+    to integers and a quarter exactly at the clamp bounds -7 and 8."""
+    h, w, c = shape
+    x = torch.randn(n, h, w, c, generator=gen)
+    s = torch.rand(n, h, w, 1, generator=gen) * 19.0 - 9.0
+    pick = torch.randint(0, 4, s.shape, generator=gen)
+    bounds = torch.where(torch.rand(s.shape, generator=gen) < 0.5, -7.0, 8.0)
+    s = torch.where(pick == 0, s.round(), torch.where(pick == 1, bounds, s))
+    wt = torch.randn(3, 3, 1, c, generator=gen) * 0.2
+    g = torch.randn(n, h, w, c, generator=gen)
+    return (x.to("cuda", dtype), s.cuda(), wt.to("cuda", dtype),
+            g.to("cuda", dtype))
+
+
+def phase_kernel_bwd(bw, flops):
+    """Backward kernel vs the plain backward at every shape, batch, dtype:
+    error of dx, ds and dw relative to each output's max."""
+    from codenet_torch.ops import deform_cuda as DC
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rows = []
+    for shape in MODEL_SHAPES + RAGGED_SHAPES:
+        for n in BWD_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, s, wt, g = _bwd_case(shape, n, dtype, gen)
+                before = DC.BWD_LAUNCHES
+                got = DC.codesign_deform_conv_bwd(x, s, wt, g)
+                torch.cuda.synchronize()
+                launched = DC.BWD_LAUNCHES - before
+                ref = DC.codesign_deform_conv_bwd_plain(x, s, wt, g)
+                errs = {}
+                for name, a, b in zip(("dx", "ds", "dw"), got, ref):
+                    scale = float(b.float().abs().max())
+                    errs[name] = float((a.float() - b.float()).abs().max())
+                    errs[name + "_rel"] = errs[name] / scale
+                at_bounds = (s == -7.0) | (s == 8.0)
+                ds_at_bounds = float(got[1][at_bounds].abs().max())
+                ms = graph_time_ms(
+                    lambda: DC.codesign_deform_conv_bwd(x, s, wt, g), 50)
+                plain_ms = graph_time_ms(
+                    lambda: DC.codesign_deform_conv_bwd_plain(x, s, wt, g),
+                    3)
+                elems = x.numel()
+                npos = s.numel()
+                # what the op must move: x, g, s and w read once, dx (x's
+                # type), ds and dw written once; the kernel's f32 dx buffer
+                # and the zeroing its atomics need count in `ms` only
+                nbytes = 3 * elems * x.element_size() + 2 * npos * 4 \
+                    + 2 * 9 * shape[2] * wt.element_size()
+                t_bytes = nbytes / bw * 1e3
+                t_ops = elems * BWD_FLOPS_PER_ELEM / flops * 1e3
+                row = {"phase": "kernel_bwd", "shape": list(shape), "n": n,
+                       "dtype": str(dtype).split(".")[-1], **errs,
+                       "ds_at_bounds": ds_at_bounds, "tol_rel": TOL[dtype],
+                       "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                       "bound_us": max(t_bytes, t_ops) * 1e3,
+                       "bound_by": "bytes" if t_bytes >= t_ops
+                       else "operations",
+                       "model_shape": shape in MODEL_SHAPES}
+                emit(row)
+                rows.append(row)
+                worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
+                if launched != 1 or not worst <= TOL[dtype] \
+                        or ds_at_bounds != 0.0:
+                    raise SystemExit("kernel_bwd check failed: {}".format(
+                        row))
     return rows
 
 
@@ -327,6 +430,311 @@ def phase_detector(model, device="cuda"):
     return launches
 
 
+class SmokeData:
+    """A synthetic VOC set for the training phases: `n_train` + `n_val`
+    frames (synthetic_frames) held in memory, their annotations written
+    under exp/ (the layout data/datasets.py::PascalVOC reads), and every
+    dataset's `load_image` overridden to return the in-memory frames."""
+
+    def __init__(self, n_train=64, n_val=8):
+        from codenet_torch.data.datasets import BaseDataset
+        frames, gt = synthetic_frames(n_train + n_val)
+        self.frames = {img["id"]: f for img, f in zip(gt["images"], frames)}
+        self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
+        ann_dir = self.data_dir / "voc" / "annotations"
+        ann_dir.mkdir(parents=True, exist_ok=True)
+        for name, ids in (("trainval0712", range(1, n_train + 1)),
+                          ("test2007", range(n_train + 1,
+                                             n_train + n_val + 1))):
+            keep = set(ids)
+            split = dict(gt, images=[i for i in gt["images"]
+                                     if i["id"] in keep],
+                         annotations=[a for a in gt["annotations"]
+                                      if a["image_id"] in keep])
+            (ann_dir / "pascal_{}.json".format(name)).write_text(
+                json.dumps(split))
+        frames_by_id = self.frames
+        BaseDataset.load_image = \
+            lambda ds, index: frames_by_id[ds.images[index]]
+
+    def args(self, batch, *extra):
+        return ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                "--input_res", "256", "--batch_size", str(batch),
+                "--num_workers", "8", "--data_dir", str(self.data_dir),
+                *extra]
+
+    def opt(self, batch, *extra):
+        from codenet_torch import config as cfg
+        return cfg.update_dataset_info_and_set_heads(
+            cfg.parse(self.args(batch, *extra)), cfg.DATASET_SPECS["pascal"])
+
+    def dataset(self, opt, split="train"):
+        from codenet_torch.data.datasets import get_dataset
+        return get_dataset("pascal", "ctdet")(opt, split)
+
+
+def grads_vs(model, ref_model):
+    """Relative L2 error of all parameter gradients; each tensor's error
+    relative to that tensor's max (floored at 1e-5 of the largest
+    gradient: a BN bias before a train-mode BN has a gradient of rounding
+    noise only): the median, the worst, and those of the deform blocks'
+    tensors (scale predictor, deform weight, mixer) one by one."""
+    num = den = 0.0
+    per = {}
+    ref = {n: p.grad.detach().double().cpu()
+           for n, p in ref_model.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    for name, p in model.named_parameters():
+        a = p.grad.detach().double().cpu()
+        b = ref[name]
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+        per[name] = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-5 * gmax)
+    worst = max(per, key=per.get)
+    return {"grad_rel_l2": (num / den) ** 0.5,
+            "grad_tensor_rel_median": float(np.median(list(per.values()))),
+            "grad_tensor_rel_max": per[worst], "grad_tensor_worst": worst,
+            "deform_tensor_rel": {n: e for n, e in per.items()
+                                  if n.startswith(DEFORM_PARAMS)}}
+
+
+def conditioned_init(opt):
+    """The port's seeded init (s == 1 in every deform block) with every BN
+    bias raised by BN_SHIFT but those before the heads' last convs.
+
+    At the init's zero biases a random network this deep with train-mode
+    BN is chaotic in f32, so two correct devices disagree as much as f32
+    does from f64. Measured with tools_torch/step_conditioning.py on this
+    script's batch (CPU, 256^2, batch 4), f32 against f64: 5.1% relative
+    L2 over all gradients from the plain init (median tensor 4.2%, deform
+    blocks up to 13%), 7.9e-5 from this one (median 2.3e-4, deform blocks
+    up to 4.2e-4). Raised by 3, nearly every ReLU is on its linear side;
+    what stays ill-conditioned are a few BN biases whose gradients nearly
+    cancel (the worst 5.5% of its own small max). The BNs before the
+    heads' last convs keep their biases, so the heatmap logits stay off
+    the loss's sigmoid clamp."""
+    from codenet_torch.models import create_model
+    model = create_model(opt.arch, opt.heads, opt.head_conv, device="cpu",
+                         generator=torch.Generator().manual_seed(opt.seed))
+    keep = {head + ".4" for head in opt.heads}
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.BatchNorm2d) and name not in keep:
+                m.bias.add_(BN_SHIFT)
+    return model.state_dict()
+
+
+def step_parity(data, state_dict, qspec=None):
+    """One train step at batch 4 on the card and on the CPU from the same
+    weights and batch: the loss, the gradients over all parameters, the
+    median tensor and each deform-block tensor (grads_vs), each held at
+    STEP_TOL; the step's kernel launches."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.ops import deform_cuda as DC
+    opt = data.opt(4)
+    batch = next(iter(DataLoader(data.dataset(opt), 4, shuffle=True,
+                                 num_workers=4, seed=1)))
+    card = Trainer(opt, qspec=qspec, device="cuda")
+    cpu = Trainer(opt, qspec=qspec, device="cpu")
+    card.model.load_state_dict(state_dict)
+    cpu.model.load_state_dict(state_dict)
+    card.init()
+    cpu.init()
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    got = card.train_step(batch_to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    launches = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    ref = cpu.train_step(batch_to_device(batch, "cpu"))
+    err = grads_vs(card.model, cpu.model)
+    out = {"loss_card": float(got["loss"]), "loss_cpu": float(ref["loss"]),
+           "loss_rel": abs(float(got["loss"]) - float(ref["loss"]))
+           / abs(float(ref["loss"])),
+           "launches_fwd_bwd": list(launches), **err}
+    ok = (launches == (3, 3) and out["loss_rel"] <= STEP_TOL
+          and err["grad_rel_l2"] <= STEP_TOL
+          and err["grad_tensor_rel_median"] <= STEP_TOL
+          and len(err["deform_tensor_rel"]) == 12
+          and max(err["deform_tensor_rel"].values()) <= STEP_TOL)
+    return out, ok
+
+
+def timed_steps(trainer, batches):
+    """Train steps on the card, each timed with CUDA events; per-step
+    deform launches and losses."""
+    from codenet_torch.engine.trainer import batch_to_device
+    from codenet_torch.ops import deform_cuda as DC
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the counts are this path's own
+    ms, losses, per_step = [], [], []
+    for batch in batches:
+        dev = batch_to_device(batch, "cuda")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        start.record()
+        stats = trainer.train_step(dev)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(stats["loss"]))
+        per_step.append([DC.LAUNCHES - before[0],
+                         DC.BWD_LAUNCHES - before[1]])
+    steady = float(np.median(ms[1:]))
+    return {"steps": len(batches), "batch": TRAIN_BATCH, "ms_per_step": ms,
+            "ms_per_step_steady_median": steady,
+            "img_per_s": TRAIN_BATCH / steady * 1e3, "losses": losses,
+            "launches_fwd": DC.LAUNCHES, "launches_bwd": DC.BWD_LAUNCHES,
+            "launches_per_step": per_step}
+
+
+def phase_train(data):
+    """FP32 training: one step card vs CPU at batch 4; then 12 steps at
+    batch 32 on port-sampler batches, the loader timed separately."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer
+    opt = data.opt(TRAIN_BATCH)
+    parity, ok = step_parity(data, conditioned_init(opt))
+    emit({"phase": "train_parity", "batch": 4, "bn_shift": BN_SHIFT,
+          **parity, "tol": STEP_TOL})
+    if not ok:
+        raise SystemExit("train parity check failed")
+
+    loader = DataLoader(data.dataset(opt), TRAIN_BATCH, shuffle=True,
+                        num_workers=opt.num_workers, seed=opt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < 12:
+        batches.extend(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    batches = batches[:12]
+    trainer = Trainer(opt, device="cuda")
+    trainer.init()
+    run = timed_steps(trainer, batches)
+    emit({"phase": "train", **run, "loader_ms_per_batch": loader_ms,
+          "loader_workers": opt.num_workers})
+    if not np.all(np.isfinite(run["losses"])) or any(
+            s != [3, 3] for s in run["launches_per_step"]):
+        raise SystemExit("train check failed")
+    return trainer, batches, run
+
+
+def phase_qat(data, fp32_trainer, batches):
+    """QAT: the FP32 weights through the port's checkpoint into the
+    quantized model, one step card vs CPU at batch 4, 6 timed steps at
+    batch 32 (ranges finite and moving), and a fake-quant CtdetDetector
+    eval of the 8 val frames."""
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    path = str(ROOT / "exp" / "chip_smoke" / "fp32.pth")
+    checkpoint.save_model(path, 1, fp32_trainer.model,
+                          fp32_trainer.optimizer)
+    qspec = QuantSpec()
+    opt = data.opt(TRAIN_BATCH)
+    trainer = Trainer(opt, qspec=qspec, device="cuda")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, epoch = checkpoint.load_model(path, trainer.model)
+    missing = sum(ln.startswith("No param") for ln in log.getvalue()
+                  .splitlines())
+    trainer.init()
+
+    parity, ok = step_parity(data, trainer.model.state_dict(), qspec)
+    emit({"phase": "qat_parity", "batch": 4, **parity, "tol": STEP_TOL})
+    if not ok:
+        raise SystemExit("qat parity check failed")
+
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()
+              if k.endswith(("x_min", "x_max"))}
+    run = timed_steps(trainer, batches[:6])
+    after = {k: v for k, v in trainer.model.state_dict().items()
+             if k in before}
+    finite = all(bool(torch.isfinite(v).all()) for v in after.values())
+    moved = sum(not torch.equal(after[k], before[k]) for k in before
+                if k.endswith("x_max"))
+
+    eval_opt = data.opt(1, "--flip_test", "--resume-quantize")
+    det = CtdetDetector(eval_opt, state_dict=trainer.model.state_dict(),
+                        device="cuda")
+    val = data.dataset(eval_opt, "val")
+    DC.LAUNCHES = 0
+    dets = [det.run(val.load_image(i))["results"] for i in range(len(val))]
+    eval_launches = DC.LAUNCHES
+    n_dets = [int(sum(len(v) for v in r.values())) for r in dets]
+    dets_finite = all(np.isfinite(v).all() for r in dets for v in r.values())
+    emit({"phase": "qat", "checkpoint_epoch": epoch,
+          "ranges_missing_in_fp32_ckpt": missing, **run,
+          "ranges_finite": finite, "ranges_moved": moved,
+          "eval_images": len(dets), "eval_dets": n_dets,
+          "eval_launches": eval_launches})
+    if (missing != 110 or not finite or moved != 55
+            or not np.all(np.isfinite(run["losses"]))
+            or any(s != [3, 3] for s in run["launches_per_step"])
+            or eval_launches != 3 * len(dets) or not dets_finite):
+        raise SystemExit("qat check failed")
+    return run, eval_launches
+
+
+def phase_cli(data):
+    """python -m codenet_torch.cli.main then cli.quant_main from its
+    checkpoint, 2 iterations each at batch 32, each ending in its
+    detection eval of the val frames."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import quant_main
+    from codenet_torch.ops import deform_cuda as DC
+    common = ["--num_epochs", "1", "--num_iters", "2", "--lr_step", "1",
+              "--val_intervals", "-1", "--print_iter", "1"]
+    out = {"phase": "cli"}
+    for name, fn, extra in (
+            ("main", cli_main.main, ["--exp_id", "chip_smoke_fp32"]),
+            ("quant_main", quant_main.main,
+             ["--exp_id", "chip_smoke_qat", "--load_model",
+              str(ROOT / "exp" / "ctdet" / "chip_smoke_fp32"
+                  / "model_last.pth")])):
+        DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            fn(data.args(TRAIN_BATCH, *common, *extra))
+        text = log.getvalue()
+        losses = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in text.splitlines()
+                  if ln.startswith("train epoch")]
+        ap = [ln for ln in text.splitlines() if "Mean AP" in ln]
+        out[name] = {"seconds": time.perf_counter() - t0, "losses": losses,
+                     "lr_dropped": "Drop LR to" in text,
+                     "mean_ap_line": ap[-1].strip() if ap else None,
+                     "launches_fwd": DC.LAUNCHES,
+                     "launches_bwd": DC.BWD_LAUNCHES}
+        if (len(losses) != 2 or not np.all(np.isfinite(losses)) or not ap
+                or DC.BWD_LAUNCHES != 6):
+            emit(out)
+            raise SystemExit("cli {} check failed".format(name))
+    emit(out)
+
+
+def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
+    """One entry of the kernels line: times summed over the three
+    deconv-stage calls the path gives the kernel (`shapes_of` picks the
+    rows)."""
+    path = [r for r in rows if shapes_of(r)]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(max(r.get(k, 0.0) for k in
+                                   ("max_abs_err", "dx", "ds", "dw"))
+                               for r in rows),
+            "ms": sum(r["ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
+            "bound_ms": sum(r["bound_us"] for r in path) / 1e3,
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in path) else "operations",
+            "library_ms": None}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -342,32 +750,44 @@ def main(argv=None):
     bw, flops = card_peaks(torch.cuda.get_device_name(0))
     phase_build()
     rows = phase_kernels(bw, flops)
+    bwd_rows = phase_kernel_bwd(bw, flops)
     model = build_served_model()
     phase_model(model)
-    launches = phase_detector(model)
+    serve_launches = phase_detector(model)
+    data = SmokeData()
+    fp32, batches, train_run = phase_train(data)
+    qat_run, qat_eval_launches = phase_qat(data, fp32, batches)
+    phase_cli(data)
 
-    served = [r for r in rows if r["model_shape"] and r["n"] == 2
-              and r["dtype"] == "float32"]
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
-    line = next(i + 1 for i, ln in enumerate(
-        pallas.read_text().splitlines()) if ln.startswith("def _fwd_kernel"))
+    lines = pallas.read_text().splitlines()
+
+    def replaces(fn):
+        line = next(i + 1 for i, ln in enumerate(lines)
+                    if ln.startswith("def {}(".format(fn)))
+        return "{}:{}".format(pallas.relative_to(ROOT), line)
+
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "card": smi})
-    emit({"kernels": [{
-        "name": "codesign_deform_fwd",
-        "route": "cuda",
-        "source": "codenet_torch/csrc/deform_fwd.cu",
-        "replaces": "{}:{}".format(pallas.relative_to(ROOT), line),
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # one served forward (flip-test batch 2, f32): the three deconv
-        # launches summed
-        "ms": sum(r["ms"] for r in served),
-        "plain_ms": sum(r["plain_ms"] for r in served),
-        "bound_ms": sum(r["bound_us"] for r in served) / 1e3,
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                   for r in served) else "operations",
-        "library_ms": None}]})
+    emit(smi)
+    emit({"kernels": [
+        # forward: one served forward (flip-test batch 2, f32); launches
+        # over the serving, training, QAT and fake-quant eval paths
+        kernel_line_entry(
+            "codesign_deform_fwd", "codenet_torch/csrc/deform_fwd.cu",
+            replaces("_fwd_kernel"),
+            serve_launches + train_run["launches_fwd"]
+            + qat_run["launches_fwd"] + qat_eval_launches, rows,
+            lambda r: r["model_shape"] and r["n"] == 2
+            and r["dtype"] == "float32"),
+        # backward: one train step's three calls (batch 32, f32); launches
+        # over the FP32 and QAT training paths
+        kernel_line_entry(
+            "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
+            replaces("_bwd_kernel"),
+            train_run["launches_bwd"] + qat_run["launches_bwd"], bwd_rows,
+            lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
+            and r["dtype"] == "float32")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
-"""PyTorch/CUDA port of codenet-tpu: CoDeNet's ctdet detector served on an
-NVIDIA Hopper card, with a hand-written CUDA kernel for the co-designed
-deformable convolution (``ops/deform_cuda.py``, ``csrc/deform_fwd.cu``).
+"""PyTorch/CUDA port of codenet-tpu: CoDeNet's ctdet detector trained (FP32,
+then W4A8 QAT) and served on an NVIDIA Hopper card, with hand-written CUDA
+kernels for the co-designed deformable convolution's forward and backward
+(``ops/deform_cuda.py``, ``csrc/deform_fwd.cu``, ``csrc/deform_bwd.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or ``--gpus -1`` on the command line); on ``cuda`` a missing card raises.

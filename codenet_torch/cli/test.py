@@ -23,7 +23,7 @@ import numpy as np
 
 from .. import config as cfg
 from ..data.datasets import get_dataset
-from ..engine.detector import detector_factory, imread
+from ..engine.detector import detector_factory
 from ..utils.meters import AverageMeter
 
 _TIMERS = ["tot", "load", "pre", "net", "dec", "post", "merge"]
@@ -38,11 +38,6 @@ def _setup(opt):
     return opt, Dataset(opt, split)
 
 
-def _image_path(dataset, img_id):
-    img_info = dataset.coco.loadImgs(ids=[img_id])[0]
-    return os.path.join(dataset.img_dir, img_info["file_name"])
-
-
 def _log(ind, num_iters, avg_time_stats):
     if ind % 100 == 0:
         print("[{}/{}] ".format(ind, num_iters)
@@ -54,7 +49,7 @@ def _prefetch(dataset, detector, opt, q):
     try:
         for ind in range(len(dataset)):
             img_id = dataset.images[ind]
-            image = imread(_image_path(dataset, img_id))
+            image = dataset.load_image(ind)
             images, meta = {}, {}
             for scale in opt.test_scales:
                 images[scale], meta[scale] = detector.pre_process(image,
@@ -105,7 +100,7 @@ def test(opt):
     avg_time_stats = {t_: AverageMeter() for t_ in _TIMERS}
     for ind in range(len(dataset)):
         img_id = dataset.images[ind]
-        ret = detector.run(_image_path(dataset, img_id))
+        ret = detector.run(dataset.load_image(ind))
         results[img_id] = ret["results"]
         for t_ in avg_time_stats:
             avg_time_stats[t_].update(ret[t_])
@@ -133,7 +128,7 @@ def batched_test(opt):
     def load_one(ind):
         img_id = dataset.images[ind]
         t0 = time.time()
-        image = imread(_image_path(dataset, img_id))
+        image = dataset.load_image(ind)
         t1 = time.time()
         images, meta = detector.pre_process(image, 1.0)
         with stage_lock:

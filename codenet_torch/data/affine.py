@@ -1,9 +1,10 @@
-"""Affine geometry: the test-time coordinate contract.
+"""Affine geometry: the coordinate contract of training and test.
 
 The reference's 3-point affine construction (lib/utils/image.py:14-61),
-shared by input warping and detection back-projection, solved in closed
-form in numpy, plus a torch bilinear `warp_affine` that takes the place of
-cv2.warpAffine in the detector's letterbox pre-process.
+shared by input warping, target placement and detection back-projection,
+solved in closed form in numpy; a torch bilinear `warp_affine` that takes
+the place of cv2.warpAffine in the detector's letterbox pre-process and the
+training sampler; and the CornerNet `gaussian_radius` of the ctdet targets.
 """
 
 from __future__ import annotations
@@ -126,3 +127,45 @@ def warp_affine(image, trans_inv, out_h, out_w):
     top = sample(y0i, x0i) * (1 - fx) + sample(y0i, x0i + 1) * fx
     bot = sample(y0i + 1, x0i) * (1 - fx) + sample(y0i + 1, x0i + 1) * fx
     return top * (1 - fy) + bot * fy
+
+
+def invert_affine(trans):
+    """Inverse of a 2x3 affine (cv2.invertAffineTransform), float64."""
+    m = np.vstack([np.asarray(trans, np.float64), [0.0, 0.0, 1.0]])
+    return np.linalg.inv(m)[:2]
+
+
+def warp_affine_u8(image, trans_inv, out_h, out_w):
+    """`warp_affine` of a uint8 (H, W, C) numpy image on the CPU, rounded
+    (half to even) and clamped back to uint8 numpy: the stand-in for
+    cv2.warpAffine(INTER_LINEAR, borderValue=0) on a machine without cv2.
+    OpenCV 5.0 gives the same pixels; builds that snap coordinates to
+    1/32 px and interpolate in fixed point differ by a few levels at
+    edges."""
+    warped = warp_affine(torch.from_numpy(np.ascontiguousarray(image))
+                         .float(), trans_inv, out_h, out_w)
+    return warped.round_().clamp_(0, 255).to(torch.uint8).numpy()
+
+
+def gaussian_radius(det_size, min_overlap=0.7):
+    """CornerNet min-IoU-preserving radius (reference image.py:90-110)."""
+    height, width = det_size
+
+    a1 = 1
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    sq1 = np.sqrt(b1 ** 2 - 4 * a1 * c1)
+    r1 = (b1 + sq1) / 2
+
+    a2 = 4
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    sq2 = np.sqrt(b2 ** 2 - 4 * a2 * c2)
+    r2 = (b2 + sq2) / 2
+
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    sq3 = np.sqrt(b3 ** 2 - 4 * a3 * c3)
+    r3 = (b3 + sq3) / 2
+    return min(r1, r2, r3)

@@ -1,9 +1,10 @@
-"""Dataset classes: metadata, annotation indexing, results I/O, eval entry.
+"""Dataset classes: metadata, annotation indexing, image reading, results
+I/O, eval entry.
 
-The evaluation half of reference lib/datasets/dataset/pascal.py on top of
-the self-contained CocoIndex and the in-process VOC evaluator. Only Pascal
-VOC is served so far; the training samplers come with the training path
-(ROADMAP.md).
+Reference lib/datasets/dataset/pascal.py on top of the self-contained
+CocoIndex and the in-process VOC evaluator, composed with the ctdet
+training sampler (data/samplers.py) as the reference's dataset factory
+does. Only Pascal VOC with ctdet is ported so far (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import os
 
 import numpy as np
 
+from ..engine.detector import imread
 from .coco_io import CocoIndex
+from .samplers import CTDetSampler
 
 
 class BaseDataset:
@@ -24,9 +27,17 @@ class BaseDataset:
     std = None
     max_objs = 50
 
+    # PCA lighting stats shared by all CenterNet datasets
+    _eig_val = np.array([0.2141788, 0.01817699, 0.00341571], dtype=np.float32)
+    _eig_vec = np.array([
+        [-0.58752847, -0.69563484, 0.41340352],
+        [-0.5832747, 0.00994535, -0.81221408],
+        [-0.56089297, 0.71832671, 0.41158938]], dtype=np.float32)
+
     def __init__(self, opt, split):
         self.opt = opt
         self.split = split
+        self._data_rng = np.random.RandomState(123)
         self.coco = CocoIndex(self.annot_path)
         self.images = self._image_ids()
         self.num_samples = len(self.images)
@@ -37,6 +48,13 @@ class BaseDataset:
 
     def __len__(self):
         return self.num_samples
+
+    def load_image(self, index):
+        """BGR uint8 (H, W, 3) pixels of image `index`: every reader of
+        the dataset's images (sampler, eval) goes through here."""
+        img_id = self.images[index]
+        file_name = self.coco.loadImgs(ids=[img_id])[0]["file_name"]
+        return imread(os.path.join(self.img_dir, file_name))
 
 
 class PascalVOC(BaseDataset):
@@ -97,10 +115,13 @@ DATASET_FACTORY = {
 
 
 def get_dataset(dataset, task):
-    """The eval dataset class for (dataset, task) (reference
-    dataset_factory.py:31-34, without the training sampler mixin)."""
+    """The dataset class for (dataset, task): the dataset's metadata with
+    the task sampler mixed in (reference dataset_factory.py:31-34)."""
     if task != "ctdet" or dataset not in DATASET_FACTORY:
         raise NotImplementedError(
-            "codenet_torch serves ctdet on pascal so far; {} / {} is "
+            "codenet_torch has ctdet on pascal so far; {} / {} is "
             "queued in ROADMAP.md".format(task, dataset))
-    return DATASET_FACTORY[dataset]
+
+    class Dataset(DATASET_FACTORY[dataset], CTDetSampler):
+        pass
+    return Dataset

@@ -1,0 +1,126 @@
+"""Batched, prefetching data loader (the JAX package's data/loader.py,
+without the sharded-cache routing).
+
+A pool of `num_workers` threads maps the numpy sampler, stacks samples
+into fixed-shape numpy dicts and prefetches ahead of the device. Batch
+order is the same at any worker count: workers take batch numbers from a
+queue and publish into per-batch slots that the consumer drains in order.
+Each batch draws from its own np.random.RandomState seeded with
+SeedSequence((seed, epoch, batch)), the JAX loader's stream, so the same
+seed gives the same batches in both packages.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+
+def _stack_samples(samples):
+    """Stack a list of sample dicts into one batch dict (meta as a list)."""
+    out = {}
+    for k in samples[0]:
+        if k == "meta":
+            out["meta"] = [s["meta"] for s in samples]
+        else:
+            out[k] = np.stack([s[k] for s in samples], axis=0)
+    return out
+
+
+def batch_rng(seed, epoch, b):
+    """The per-batch stream of batch `b` in `epoch`."""
+    return np.random.RandomState(np.random.SeedSequence(
+        (seed & 0xFFFFFFFF, epoch, b)).generate_state(1)[0])
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size, shuffle=False, num_workers=4,
+                 drop_last=None, seed=0, prefetch=3):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        # static shapes: drop the ragged last batch when training
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batches(self):
+        """This epoch's batches of dataset indices (advances the shuffle
+        stream, as iterating does)."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        batches = []
+        for i in range(0, len(order), self.batch_size):
+            idx = order[i:i + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                continue
+            batches.append(idx)
+        return batches
+
+    def __iter__(self):
+        batches = self._batches()
+        n_workers = min(self.num_workers, max(1, len(batches)))
+        # at most prefetch + n_workers batches in flight: ordered delivery
+        # buffers every earlier batch, so this bounds memory
+        todo = queue.Queue()
+        done = {}  # batch number -> batch dict | Exception
+        done_cv = threading.Condition()
+        stop = threading.Event()
+        max_inflight = self.prefetch + n_workers
+        for b in range(min(max_inflight, len(batches))):
+            todo.put(b)
+        next_admit = min(max_inflight, len(batches))
+        epoch = self._epoch
+        self._epoch += 1
+
+        def worker():
+            while not stop.is_set():
+                try:
+                    b = todo.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if b is None:
+                    break
+                try:
+                    brng = batch_rng(self.seed, epoch, b)
+                    result = _stack_samples(
+                        [self.dataset.get_sample(j, rng=brng)
+                         for j in batches[b]])
+                except Exception as e:  # handed to the consumer
+                    result = e
+                with done_cv:
+                    done[b] = result
+                    done_cv.notify_all()
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(n_workers)]
+        for t in threads:
+            t.start()
+        try:
+            for b in range(len(batches)):
+                with done_cv:
+                    while b not in done:
+                        done_cv.wait(timeout=1.0)
+                    item = done.pop(b)
+                if isinstance(item, Exception):
+                    raise item
+                if next_admit < len(batches):
+                    todo.put(next_admit)
+                    next_admit += 1
+                yield item
+        finally:
+            stop.set()
+            for _ in threads:
+                todo.put(None)

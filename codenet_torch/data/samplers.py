@@ -1,0 +1,169 @@
+"""ctdet training targets (the JAX package's data/samplers.py:28-257;
+reference lib/datasets/sample/ctdet.py:30-146), host numpy.
+
+`CTDetSampler.get_sample(index, rng)` returns fixed-shape numpy arrays
+ready to batch: the warped uint8 image with 7 floats of colour-aug state
+(normalised and augmented on the device, data/device_aug.py) and the sparse
+object list the device renders the heatmap from. Draws come from `rng` in
+the JAX sampler's order, so the same per-batch RandomState gives the same
+sample. The warp is the port's torch `warp_affine_u8`, not cv2 (the card's
+machine has no cv2); images come from the dataset's `load_image`, which a
+caller may override (e.g. with in-memory frames).
+
+Not ported: the host-normalised path (--host_normalize), the dense targets
+of --mse_loss and --dense_wh, and the HBM image cache; they raise.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from .affine import (affine_transform, gaussian_radius, get_affine_transform,
+                     invert_affine, warp_affine_u8)
+from .device_aug import draw_color_aug_params, identity_aug_params
+
+_UNPORTED = {"host_normalize": "--host_normalize", "mse_loss": "--mse_loss",
+             "dense_wh": "--dense_wh", "device_cache": "--device_cache"}
+
+
+def check_sampler_opt(opt):
+    for flag, name in _UNPORTED.items():
+        if getattr(opt, flag, False):
+            raise NotImplementedError(
+                "{} is queued in ROADMAP.md; the port's sampler ships "
+                "uint8 images and sparse ctdet targets".format(name))
+
+
+def finish_input(sampler, inp_u8, is_train, rng):
+    """Input tail, device mode: 'input_u8' plus the colour-aug state (the
+    trainer runs device_aug.device_preprocess on the card)."""
+    if is_train and not sampler.opt.no_color_aug:
+        perm, alphas, light = draw_color_aug_params(
+            rng, sampler._eig_val, sampler._eig_vec, py_random=rng)
+    else:
+        perm, alphas, light = identity_aug_params()
+    return {"aug_perm": np.int32(perm), "aug_alphas": alphas,
+            "aug_light": light, "input_u8": np.ascontiguousarray(inp_u8)}
+
+
+def coco_box_to_bbox(box):
+    return np.array([box[0], box[1], box[0] + box[2], box[1] + box[3]],
+                    dtype=np.float32)
+
+
+def get_border(border, size):
+    """Random-crop border heuristic (reference sample/ctdet.py:24-28)."""
+    i = 1
+    while size - border // i <= border // i:
+        i *= 2
+    return border // i
+
+
+class CTDetSampler:
+    """2D-box detection targets (reference sample/ctdet.py:30-146)."""
+
+    def get_sample(self, index, rng=None):
+        """One sample; `rng` (np.random.RandomState) draws the crop, flip
+        and colour aug, by default the dataset's own stream."""
+        check_sampler_opt(self.opt)
+        rng = rng if rng is not None else self._data_rng
+        img_id = self.images[index]
+        anns = self.coco.loadAnns(ids=self.coco.getAnnIds(imgIds=[img_id]))
+        img = self.load_image(index)
+        height, width = img.shape[0], img.shape[1]
+        num_objs = min(len(anns), self.max_objs)
+        c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+        if self.opt.keep_res:
+            input_h = (height | self.opt.pad) + 1
+            input_w = (width | self.opt.pad) + 1
+            s = np.array([input_w, input_h], dtype=np.float32)
+        else:
+            s = max(height, width) * 1.0
+            input_h, input_w = self.opt.input_h, self.opt.input_w
+
+        flipped = False
+        if self.split == "train":
+            if not self.opt.not_rand_crop:
+                s = s * rng.choice(np.arange(0.6, 1.4, 0.1))
+                w_border = get_border(128, width)
+                h_border = get_border(128, height)
+                c[0] = rng.randint(low=w_border, high=width - w_border)
+                c[1] = rng.randint(low=h_border, high=height - h_border)
+            else:
+                sf = self.opt.scale
+                cf = self.opt.shift
+                c[0] += s * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+                c[1] += s * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+                s = s * np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
+            if rng.random() < self.opt.flip:
+                flipped = True
+                img = img[:, ::-1, :]
+                c[0] = width - c[0] - 1
+
+        trans_input = get_affine_transform(c, s, 0, [input_w, input_h])
+        inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_h,
+                                input_w)
+        ret = finish_input(self, inp_u8, self.split == "train", rng)
+
+        output_h = input_h // self.opt.down_ratio
+        output_w = input_w // self.opt.down_ratio
+        num_classes = self.num_classes
+        trans_output = get_affine_transform(c, s, 0, [output_w, output_h])
+
+        hm_ct = np.zeros((self.max_objs, 2), dtype=np.int32)
+        hm_radius = np.zeros((self.max_objs,), dtype=np.int32)
+        hm_cls = np.zeros((self.max_objs,), dtype=np.int32)
+        wh = np.zeros((self.max_objs, 2), dtype=np.float32)
+        reg = np.zeros((self.max_objs, 2), dtype=np.float32)
+        ind = np.zeros((self.max_objs,), dtype=np.int64)
+        reg_mask = np.zeros((self.max_objs,), dtype=np.uint8)
+        cat_spec_wh = np.zeros((self.max_objs, num_classes * 2),
+                               dtype=np.float32)
+        cat_spec_mask = np.zeros((self.max_objs, num_classes * 2),
+                                 dtype=np.uint8)
+
+        gt_det = []
+        for k in range(num_objs):
+            ann = anns[k]
+            bbox = coco_box_to_bbox(ann["bbox"])
+            cls_id = int(self.cat_ids[ann["category_id"]])
+            if flipped:
+                bbox[[0, 2]] = width - bbox[[2, 0]] - 1
+            bbox[:2] = affine_transform(bbox[:2], trans_output)
+            bbox[2:] = affine_transform(bbox[2:], trans_output)
+            bbox[[0, 2]] = np.clip(bbox[[0, 2]], 0, output_w - 1)
+            bbox[[1, 3]] = np.clip(bbox[[1, 3]], 0, output_h - 1)
+            h, w = bbox[3] - bbox[1], bbox[2] - bbox[0]
+            if h > 0 and w > 0:
+                radius = gaussian_radius((math.ceil(h), math.ceil(w)))
+                radius = max(0, int(radius))
+                ct = np.array([(bbox[0] + bbox[2]) / 2,
+                               (bbox[1] + bbox[3]) / 2], dtype=np.float32)
+                ct_int = ct.astype(np.int32)
+                hm_ct[k] = ct_int
+                hm_radius[k] = radius
+                hm_cls[k] = cls_id
+                wh[k] = 1.0 * w, 1.0 * h
+                ind[k] = ct_int[1] * output_w + ct_int[0]
+                reg[k] = ct - ct_int
+                reg_mask[k] = 1
+                cat_spec_wh[k, cls_id * 2: cls_id * 2 + 2] = wh[k]
+                cat_spec_mask[k, cls_id * 2: cls_id * 2 + 2] = 1
+                gt_det.append([ct[0] - w / 2, ct[1] - h / 2,
+                               ct[0] + w / 2, ct[1] + h / 2, 1, cls_id])
+
+        ret.update(reg_mask=reg_mask, ind=ind, wh=wh, hm_ct=hm_ct,
+                   hm_radius=hm_radius, hm_cls=hm_cls)
+        if self.opt.cat_spec_wh:
+            ret.update(cat_spec_wh=cat_spec_wh, cat_spec_mask=cat_spec_mask)
+            del ret["wh"]
+        if self.opt.reg_offset:
+            ret["reg"] = reg
+        if self.opt.debug > 0 or not self.split == "train":
+            gt_det = np.array(gt_det, dtype=np.float32) if gt_det \
+                else np.zeros((1, 6), dtype=np.float32)
+            ret["meta"] = {"c": c, "s": s, "gt_det": gt_det,
+                           "img_id": img_id}
+        return ret

@@ -1,18 +1,25 @@
-"""Checkpoint loading with the reference's tolerant semantics.
+"""Checkpoints: save, and load with the reference's tolerant semantics.
 
-Reference lib/models/model.py:35-69: strip DataParallel prefixes and load
-shape-mismatch-tolerantly with printed warnings. Two formats:
+Reference lib/models/model.py:35-100: strip DataParallel prefixes and load
+shape-mismatch-tolerantly with printed warnings. Two formats load:
 
 - a JAX package ``.ckpt``: the pickle of {epoch, variables, opt_state}
   (the JAX package's engine/checkpoint.py:42-60). ``opt_state`` holds optax
   NamedTuples; unpickling those would import optax and then jax, so a
   restricted unpickler maps every class outside numpy to an inert stub,
   and only ``epoch`` and ``variables`` are kept;
-- a reference ``.pth``/``.pt``: ``torch.load(weights_only=True)``.
+- a ``.pth``/``.pt`` (the reference's, or this package's own):
+  ``torch.load(weights_only=True)``.
+
+`save_model` writes the port's ``.pth``: {epoch, state_dict[, optimizer,
+quant]}, where ``quant`` is the QAT recipe (w_bit, a_bit, percentiles,
+act_clamp) that `adopt_quant_recipe` hands to a later quantized load.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import pickle
 
 import torch
@@ -61,10 +68,14 @@ def read_jax_ckpt(path):
     return int(payload.get("epoch", 0)), variables
 
 
+def _read_pth(path):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def read_checkpoint(path):
     """(epoch, state_dict in the reference layout) from a .ckpt or .pth."""
     if path.endswith((".pth", ".pt")):
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = _read_pth(path)
         sd = payload.get("state_dict", payload)
         epoch = int(payload.get("epoch", 0)) if "state_dict" in payload \
             else 0
@@ -110,3 +121,52 @@ def load_model(path, model, strict=False):
             print(msg)
     model.load_state_dict(out)
     return model, epoch
+
+
+# QuantSpec fields a checkpoint records and `--resume-quantize` adopts
+RECIPE_FIELDS = ("w_bit", "a_bit", "wt_percentile", "act_percentile",
+                 "act_clamp")
+
+
+def save_model(path, epoch, model, optimizer=None, qspec=None):
+    """Write {epoch, state_dict[, optimizer, quant]} to a .pth (reference
+    model.py:91-100), atomically: a crash mid-write never leaves a partial
+    model_last."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"epoch": int(epoch),
+               "state_dict": {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()}}
+    if optimizer is not None:
+        payload["optimizer"] = optimizer.state_dict()
+    if qspec is not None:
+        recipe = dataclasses.asdict(qspec)
+        payload["quant"] = {k: recipe[k] for k in RECIPE_FIELDS}
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def adopt_quant_recipe(opt, path):
+    """Set opt's quantization flags from the recipe recorded in a port
+    .pth (a QAT checkpoint evaluated with other flags loses accuracy);
+    returns the recipe, or None when the checkpoint has none."""
+    if not path.endswith((".pth", ".pt")):
+        return None
+    recipe = _read_pth(path).get("quant")
+    if not recipe:
+        return None
+    for key in RECIPE_FIELDS:
+        if key in recipe and getattr(opt, key, None) != recipe[key]:
+            print("quant recipe from {}: {} = {}".format(path, key,
+                                                        recipe[key]))
+            setattr(opt, key, recipe[key])
+    return recipe
+
+
+def resume_lr(base_lr, lr_step, start_epoch):
+    """LR after resuming at `start_epoch` (reference model.py:78-84)."""
+    lr = base_lr
+    for step in lr_step:
+        if start_epoch >= step:
+            lr *= 0.1
+    return lr

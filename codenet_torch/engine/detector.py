@@ -8,9 +8,11 @@ cv2), then on the model's device forward -> sigmoid -> flip-test averaging
 base_detector.py:93-155 ({tot, load, pre, net, dec, post, merge}); on a
 card each stage ends in ``torch.cuda.synchronize``.
 
-Served so far: ctdet, FP32, single test scale 1 with ``fix_res``, with or
-without ``--flip_test``, per image (`run`) or batched (`process_batch`).
-Other options raise and are queued in ROADMAP.md.
+Served so far: ctdet, FP32 or W4A8 fake-quant (``--resume-quantize``,
+with the recipe a port checkpoint records), single test scale 1 with
+``fix_res``, with or without ``--flip_test``, per image (`run`) or batched
+(`process_batch`). Other options (real int8, the W4A8 artifact, soft-NMS,
+multi-scale, keep_res) raise and are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.affine import get_affine_transform, warp_affine
+from ..data.affine import get_affine_transform, warp_affine_u8
 from ..models import create_model
 from ..models import decode as D
+from ..models.layers import qspec_from_opt
 from . import checkpoint
 
 
@@ -66,9 +69,10 @@ def device_from_opt(opt):
 class BaseDetector:
     def __init__(self, opt, state_dict=None, device=None):
         self.opt = opt
-        if opt.resume_quantize or opt.int8_infer or opt.w4a8_artifact:
+        if opt.int8_infer or opt.w4a8_artifact:
             raise NotImplementedError(
-                "quantized eval is queued in ROADMAP.md")
+                "real-int8 eval and the W4A8 artifact are queued in "
+                "ROADMAP.md")
         if opt.nms or len(opt.test_scales) != 1 or opt.test_scales[0] != 1:
             raise NotImplementedError(
                 "--nms and multi-scale test need soft-NMS, queued in "
@@ -78,9 +82,14 @@ class BaseDetector:
                 "--keep_res pre-process needs a resize, queued in "
                 "ROADMAP.md")
         self.device = resolve_device(device or device_from_opt(opt))
+        self.qspec = None
+        if opt.resume_quantize:
+            if opt.load_model:
+                checkpoint.adopt_quant_recipe(opt, opt.load_model)
+            self.qspec = qspec_from_opt(opt)
         self.model = create_model(opt.arch, opt.heads, opt.head_conv,
                                   w2=opt.w2, maxpool=opt.maxpool,
-                                  dtype=opt.dtype,
+                                  qspec=self.qspec, dtype=opt.dtype,
                                   device=self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
@@ -111,10 +120,8 @@ class BaseDetector:
         s = max(height, width) * 1.0
         warp_inv = get_affine_transform(c, s, 0, [inp_width, inp_height],
                                         inv=1)
-        warped = warp_affine(torch.from_numpy(np.ascontiguousarray(image))
-                             .float(), warp_inv, inp_height, inp_width)
-        inp_image = warped.round_().clamp_(0, 255).to(torch.uint8).numpy()
-        images = inp_image[None]  # NHWC
+        images = warp_affine_u8(image, warp_inv, inp_height,
+                                inp_width)[None]  # NHWC
         if self.opt.flip_test:
             images = np.concatenate((images, images[:, :, ::-1, :]), axis=0)
         out_h = inp_height // self.opt.down_ratio

@@ -5,13 +5,46 @@ numpy trees (PoseShuffleNetV2, as saved in a ``.ckpt``) into this
 package's ``state_dict``: HWIO -> OIHW kernels, BN ``scale/bias`` +
 ``mean/var`` -> ``weight/bias/running_mean/running_var``. It is the
 inverse of the JAX package's engine/torch_import.py::convert_shufflenetv2,
-and produces the reference CoDeNet key layout.
+and produces the reference CoDeNet key layout. A ``quant_stats`` tree (the
+QAT activation ranges) maps onto the quantized model's ``QuantAct``
+buffers (`quant_stats_name`).
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+
+def quant_stats_name(path):
+    """Port module name of a JAX ``quant_stats`` node path, e.g.
+    ('layer1', 'node0', 'b2_act1') -> 'layer1.0.b2_act1',
+    ('deconv2', 'scale_act') -> 'deconv_layers.8.scale_act',
+    ('head_hm', 'act1') -> 'hm.act1'; top-level acts keep their name."""
+    out = []
+    for i, key in enumerate(path):
+        inner = i < len(path) - 1
+        node = re.fullmatch(r"node(\d+)", key)
+        deconv = re.fullmatch(r"deconv(\d+)", key)
+        if node:
+            out.append(node.group(1))
+        elif deconv and inner:
+            out.append("deconv_layers.{}".format(4 * int(deconv.group(1))))
+        elif key.startswith("head_") and inner:
+            out.append(key[5:])
+        else:
+            out.append(key)
+    return ".".join(out)
+
+
+def _leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
 
 
 def hwio_to_oihw(kernel):
@@ -80,6 +113,9 @@ def from_jax_variables(variables):
         conv_bn(head + ".0", head + ".1", path + ["conv1"])
         conv_bn(head + ".3", head + ".4", path + ["conv2"])
         conv(head + ".6", path + ["out"], bias=True)
+
+    for path, value in _leaves(variables.get("quant_stats", {})):
+        sd[quant_stats_name(path[:-1]) + "." + path[-1]] = value
 
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in sd.items()}

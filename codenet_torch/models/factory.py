@@ -21,7 +21,8 @@ MODEL_FACTORY = {
 def create_model(arch, heads, head_conv, w2=False, maxpool=False, qspec=None,
                  dtype=None, device="cuda", generator=None):
     """Build an eval-mode model on `device` (channels_last), its weights
-    drawn from `generator` (default: seeded 0).
+    drawn from `generator` (default: seeded 0); `qspec` (a QuantSpec)
+    selects W4A8 fake-quant execution.
 
     dtype None or float32 only: the bf16 model path is queued in
     ROADMAP.md.

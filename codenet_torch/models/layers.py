@@ -9,18 +9,28 @@ helpers here keep the JAX package's NHWC layout.
 Conv + BN pairs are plain ``nn.Conv2d`` (no bias) + ``nn.BatchNorm2d``
 (momentum 0.1, eps 1e-5: torch semantics, as the JAX ``ConvBN`` mirrors)
 placed at the reference ``nn.Sequential`` indices by the model, so the
-``state_dict`` has the reference CoDeNet names. Quantized execution
-(``QuantSpec``, ``QuantAct``) is not ported yet.
+``state_dict`` has the reference CoDeNet names.
+
+Quantized (W4A8 fake-quant) execution follows the JAX package's layers.py:
+one module tree for both modes, selected by a ``QuantSpec`` (None = FP32).
+``conv_bn`` folds each BN from its running statistics into the conv and
+fake-quantizes the folded weight (BN frozen, whatever the module's
+train/eval mode); ``QuantAct`` holds the activation-range EMA in buffers
+(the JAX ``quant_stats`` collection) and updates it only when called with
+``update=True``, a flag of its own. Real-int8 execution (``int8_infer``)
+is not ported yet and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
 
@@ -95,6 +105,101 @@ def bn(c):
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
+# -- quantized execution (the JAX package's layers.py:121-143, 267-508) ----
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Static quantization configuration (reference quantize_model.py:
+    7-24). act_clamp: clamp fake-quantized activations to the signed int8
+    window, as real int8 storage does (the reference does not)."""
+    w_bit: int = 4
+    a_bit: int = 8
+    wt_percentile: bool = False
+    act_percentile: bool = False
+    int8_infer: bool = False
+    act_clamp: bool = False
+
+
+def qspec_from_opt(opt):
+    """The W4A8 recipe of the command-line flags (the JAX package's
+    cli/quant_main.py and detector: symmetric per-channel weights,
+    asymmetric activations)."""
+    return QuantSpec(w_bit=opt.w_bit, a_bit=opt.a_bit,
+                     wt_percentile=opt.wt_percentile,
+                     act_percentile=opt.act_percentile,
+                     int8_infer=opt.int8_infer, act_clamp=opt.act_clamp)
+
+
+def check_qspec(qspec):
+    if qspec is not None and qspec.int8_infer:
+        raise NotImplementedError(
+            "real-int8 execution (--int8_infer) is queued in ROADMAP.md; "
+            "the port runs W4A8 fake-quant")
+
+
+class QuantAct(nn.Module):
+    """EMA-range activation fake-quantizer (reference QuantAct,
+    quant_modules.py:163-225). `x_min`/`x_max` are buffers; with
+    update=True the EMA takes this batch's range before quantizing."""
+
+    def __init__(self, qspec):
+        super().__init__()
+        check_qspec(qspec)
+        self.qspec = qspec
+        self.register_buffer("x_min", torch.zeros(1))
+        self.register_buffer("x_max", torch.zeros(1))
+
+    def forward(self, x, update=False):
+        q = self.qspec
+        if update:
+            with torch.no_grad():
+                bmin, bmax = Q.act_range_observe(x, q.act_percentile)
+                nmin, nmax = Q.ema_update(self.x_min, self.x_max, bmin,
+                                          bmax)
+                self.x_min.copy_(nmin)
+                self.x_max.copy_(nmax)
+        out = Q.fake_quant_act(x.float(), q.a_bit, self.x_min, self.x_max,
+                               clamp=q.act_clamp)
+        return out.to(x.dtype)
+
+
+def quant_act(qspec):
+    """A QuantAct, or None in FP32 (no buffers, FP32 state_dict as is)."""
+    return QuantAct(qspec) if qspec is not None else None
+
+
+def apply_act(act, x, update):
+    return x if act is None else act(x, update)
+
+
+def fake_quant(weight, qspec, w_bit=None):
+    return Q.fake_quant_weight(weight, w_bit or qspec.w_bit,
+                               qspec.wt_percentile)
+
+
+def conv_q(conv_mod, x, qspec, w_bit=None):
+    """Conv with the weight fake-quantized in quant mode; the bias stays
+    full precision (reference Quant_Conv2d, quant_modules.py:228-321)."""
+    if qspec is None:
+        return conv_mod(x)
+    return F.conv2d(x, fake_quant(conv_mod.weight, qspec, w_bit),
+                    conv_mod.bias, conv_mod.stride, conv_mod.padding,
+                    conv_mod.dilation, conv_mod.groups)
+
+
+def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None):
+    """Conv + BN. FP32: the two modules (BN in its train/eval mode).
+    Quant: BN folded from its running statistics, the folded weight
+    fake-quantized, one conv (reference QuantBnConv2d,
+    quant_modules.py:324-419): QAT trains against frozen folded BN."""
+    if qspec is None:
+        return bn_mod(conv_mod(x))
+    w, b = Q.fold_bn(conv_mod.weight, None, bn_mod.weight, bn_mod.bias,
+                     bn_mod.running_mean, bn_mod.running_var, bn_mod.eps)
+    return F.conv2d(x, fake_quant(w, qspec, w_bit), b, conv_mod.stride,
+                    conv_mod.padding, conv_mod.dilation, conv_mod.groups)
+
+
 class DeformWeight(nn.Module):
     """Holder of the depthwise deform kernel, OIHW (C, 1, 3, 3), named like
     the reference's DeformConv submodule (``...conv.weight``)."""
@@ -106,32 +211,37 @@ class DeformWeight(nn.Module):
 
 class CodesignDeformBlock(nn.Module):
     """DeformConvWithOffsetScaleBoundPositive (reference
-    modules/dcn_deform_conv.py:285-330), FP32:
+    modules/dcn_deform_conv.py:285-330):
 
       s = Hardtanh[-bound+1, bound](conv_scale(x))
       y = depthwise co-designed deform conv of x with s
-      y = conv_channel(y) if in != out
+      y = BN(conv_channel(y)) if in != out else BN(y)
 
-    The BatchNorm, ReLU and upsample that follow in the deconv stage are
-    the caller's modules (reference ``deconv_layers.{4i+1..4i+3}``), so the
-    JAX package's ``CodesignDeformBlock`` equals this block followed by
-    that BatchNorm. Stride 1 runs ``codesign_deform_conv_fast`` (the CUDA
-    kernel on a card); stride 2 the plain ``codesign_deform_conv``, as in
-    the JAX package (layers.py:559-576).
+    The BatchNorm is the caller's module (reference
+    ``deconv_layers.{4i+1}``), passed in as `bn`. The JAX package's
+    ``CodesignDeformBlock`` is this block with that BN. Stride 1 runs
+    ``codesign_deform_conv_fast`` (the CUDA kernels on a card, forward and
+    backward); stride 2 the plain ``codesign_deform_conv``, as in the JAX
+    package (layers.py:559-576).
+
+    Quant (reference QuantDeformConvWithOffsetScaleBoundPositive,
+    quant_modules.py:621-671): conv_scale's weight fake-quantized, s
+    through `scale_act`, the deform weight fake-quantized, `deform_act`
+    between the deform conv and the mixer, and the mixer + BN folded.
     """
 
     def __init__(self, in_channels, features, stride=1, offset_bound=8,
                  qspec=None):
         super().__init__()
-        if qspec is not None:
-            raise NotImplementedError(
-                "quantized CodesignDeformBlock is queued in ROADMAP.md")
+        self.qspec = qspec
         self.stride = stride
         self.offset_bound = offset_bound
         self.conv_scale = conv(in_channels, 1, 1, stride, 0, bias=True)
         self.conv = DeformWeight(in_channels)
         self.conv_channel = (conv(in_channels, features)
                              if in_channels != features else None)
+        self.scale_act = quant_act(qspec)
+        self.deform_act = quant_act(qspec)
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -143,18 +253,27 @@ class CodesignDeformBlock(nn.Module):
         if self.conv_channel is not None:
             kaiming_normal_relu_(self.conv_channel.weight, generator)
 
-    def forward(self, x):
-        s = F.hardtanh(self.conv_scale(x), -self.offset_bound + 1,
-                       self.offset_bound)
+    def forward(self, x, bn, update=False):
+        q = self.qspec
+        s = F.hardtanh(conv_q(self.conv_scale, x, q),
+                       -self.offset_bound + 1, self.offset_bound)
+        s = apply_act(self.scale_act, s, update)
         x_nhwc = nhwc(x.contiguous(memory_format=torch.channels_last))
         s_nhwc = nhwc(s).contiguous()
-        w_hwio = self.conv.weight.permute(2, 3, 1, 0)
+        weight = self.conv.weight if q is None \
+            else fake_quant(self.conv.weight, q)
+        w_hwio = weight.permute(2, 3, 1, 0)
         if self.stride == 1:
             y = codesign_deform_conv_fast(x_nhwc, s_nhwc, w_hwio)
         else:
             y = codesign_deform_conv(x_nhwc, s_nhwc, w_hwio,
                                      stride=self.stride)
-        y = nchw(y)
+        y = apply_act(self.deform_act, nchw(y), update)
         if self.conv_channel is not None:
-            y = self.conv_channel(y)
-        return y
+            return conv_bn(self.conv_channel, bn, y, q)
+        if q is None:
+            return bn(y)
+        # quant mode without a mixer: BN from running stats, unfolded (the
+        # JAX BatchNorm with train=False)
+        return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)

@@ -1,0 +1,136 @@
+"""ctdet losses, NHWC (the JAX package's models/losses.py:14-179; reference
+lib/models/losses.py and lib/trains/ctdet.py).
+
+Pure functions of (outputs, targets). The data-dependent branch of the
+focal loss (no positive in the batch) is a `torch.where`, as in the JAX
+package, so a step never syncs with the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sigmoid_clamped(x):
+    """_sigmoid: clamp to [1e-4, 1 - 1e-4] (reference models/utils.py:
+    9-11)."""
+    return torch.clamp(torch.sigmoid(x), 1e-4, 1.0 - 1e-4)
+
+
+def gather_feat(output, ind):
+    """Gather (N, H, W, C) at flat spatial indices (N, M) -> (N, M, C)
+    (_transpose_and_gather_feat, models/utils.py:19-29)."""
+    n, h, w, c = output.shape
+    flat = output.reshape(n, h * w, c)
+    return torch.gather(flat, 1, ind.long()[..., None].expand(-1, -1, c))
+
+
+def neg_loss(pred, gt):
+    """CornerNet-modified focal loss (reference losses.py:42-67); pred is
+    post-sigmoid, pred/gt (N, H, W, C)."""
+    pos_inds = (gt == 1.0).to(pred.dtype)
+    neg_inds = (gt < 1.0).to(pred.dtype)
+    neg_weights = torch.pow(1.0 - gt, 4)
+
+    pos_loss = torch.log(pred) * torch.square(1.0 - pred) * pos_inds
+    neg_loss_ = (torch.log(1.0 - pred) * torch.square(pred) * neg_weights
+                 * neg_inds)
+
+    num_pos = pos_inds.sum()
+    pos_sum = pos_loss.sum()
+    neg_sum = neg_loss_.sum()
+    return torch.where(num_pos == 0, -neg_sum,
+                       -(pos_sum + neg_sum) / torch.clamp(num_pos, min=1.0))
+
+
+def reg_l1_loss(output, mask, ind, target):
+    """Masked L1 at object indices (reference RegL1Loss,
+    losses.py:145-155)."""
+    pred = gather_feat(output, ind)
+    m = mask[..., None].to(pred.dtype).expand_as(pred)
+    loss = torch.abs(pred * m - target * m).sum()
+    return loss / (m.sum() + 1e-4)
+
+
+def smooth_l1(x):
+    ax = torch.abs(x)
+    return torch.where(ax < 1.0, 0.5 * x * x, ax - 0.5)
+
+
+def reg_loss(output, mask, ind, target):
+    """Smooth-L1 variant (reference RegLoss, losses.py:100-142), normalised
+    by the number of objects."""
+    pred = gather_feat(output, ind)
+    num = mask.to(pred.dtype).sum()
+    m = mask[..., None].to(pred.dtype).expand_as(pred)
+    loss = smooth_l1(pred * m - target * m).sum()
+    return loss / (num + 1e-4)
+
+
+def norm_reg_l1_loss(output, mask, ind, target):
+    """L1(pred / target, 1) (reference NormRegL1Loss, losses.py:158-171)."""
+    pred = gather_feat(output, ind)
+    m = mask[..., None].to(pred.dtype).expand_as(pred)
+    pred = pred / (target + 1e-4)
+    tgt = torch.ones_like(target)
+    loss = torch.abs(pred * m - tgt * m).sum()
+    return loss / (m.sum() + 1e-4)
+
+
+def reg_weighted_l1_loss(output, mask, ind, target):
+    """Per-element-weighted L1 (reference RegWeightedL1Loss,
+    losses.py:173-184); mask has the feature dim."""
+    pred = gather_feat(output, ind)
+    m = mask.to(pred.dtype)
+    loss = torch.abs(pred * m - target * m).sum()
+    return loss / (m.sum() + 1e-4)
+
+
+def mse_loss(pred, gt):
+    return torch.mean(torch.square(pred - gt))
+
+
+def dense_wh_l1_loss(output, dense_wh, dense_wh_mask):
+    """Dense wh regression (reference trains/ctdet.py:51-56)."""
+    m = dense_wh_mask
+    return torch.abs(output * m - dense_wh * m).sum() / (m.sum() + 1e-4)
+
+
+def ctdet_loss(outputs, batch, opt):
+    """CtdetLoss (reference trains/ctdet.py:17-74). outputs: list of head
+    dicts (one per stack), NHWC; batch: target dict. Returns (loss, stats
+    dict)."""
+    hm_loss = wh_loss = off_loss = 0.0
+    num_stacks = len(outputs)
+    for output in outputs:
+        if opt.mse_loss:
+            hm_loss += mse_loss(output["hm"], batch["hm"]) / num_stacks
+        else:
+            hm_loss += neg_loss(sigmoid_clamped(output["hm"]),
+                                batch["hm"]) / num_stacks
+        if opt.wh_weight > 0:
+            if opt.dense_wh:
+                wh_loss += dense_wh_l1_loss(
+                    output["wh"], batch["dense_wh"],
+                    batch["dense_wh_mask"]) / num_stacks
+            elif opt.cat_spec_wh:
+                wh_loss += reg_weighted_l1_loss(
+                    output["wh"], batch["cat_spec_mask"], batch["ind"],
+                    batch["cat_spec_wh"]) / num_stacks
+            else:
+                crit = {"l1": reg_l1_loss, "sl1": reg_loss}[opt.reg_loss]
+                if opt.norm_wh:
+                    crit = norm_reg_l1_loss
+                wh_loss += crit(output["wh"], batch["reg_mask"],
+                                batch["ind"], batch["wh"]) / num_stacks
+        if opt.reg_offset and opt.off_weight > 0:
+            crit = {"l1": reg_l1_loss, "sl1": reg_loss}[opt.reg_loss]
+            off_loss += crit(output["reg"], batch["reg_mask"], batch["ind"],
+                             batch["reg"]) / num_stacks
+    loss = (opt.hm_weight * hm_loss + opt.wh_weight * wh_loss
+            + opt.off_weight * off_loss)
+    return loss, {"loss": loss, "hm_loss": hm_loss, "wh_loss": wh_loss,
+                  "off_loss": off_loss}
+
+
+LOSS_FACTORY = {"ctdet": ctdet_loss}

@@ -1,5 +1,5 @@
-"""Co-designed depthwise deform conv: the CUDA forward kernel and its plain
-PyTorch version.
+"""Co-designed depthwise deform conv: the CUDA forward and backward kernels
+and their plain PyTorch versions.
 
 `codesign_deform_conv_fast(x, s, weight)` is the port of the JAX
 package's ops/deform_pallas.py::codesign_deform_conv_fast, with its op
@@ -7,15 +7,18 @@ contract: x (N, H, W, C) f32 or bf16, s (N, H, W, 1) f32, weight HWIO
 (3, 3, 1, C); stride 1, padding 1, depthwise; s clamped to [-7, 8]; tap t
 samples `p + a_t * s` (the Pallas form of the coordinates); each bilinear
 corner zeroed separately outside the map; f32 accumulation; output in x's
-dtype; any H, W and C.
+dtype; any H, W and C. Its gradient (the Pallas `_bwd`): dx in x's dtype,
+dw in the weight's, ds zero wherever s lies outside (-7, 8) (strict: the
+clamp's own tie gradient at exactly -7 and 8 does not pass).
 
-Routing: a CPU tensor takes `codesign_deform_conv_plain`; a CUDA tensor
-launches the kernel in `csrc/deform_fwd.cu` or raises. The kernel is the
-forward only: with autograd recording and an input that requires grad,
-the CUDA route raises until the backward kernel lands.
+It is a `torch.autograd.Function`. Routing is by device only: CPU tensors
+take `codesign_deform_conv_plain` forward and
+`codesign_deform_conv_bwd_plain` backward; CUDA tensors launch the kernels
+in `csrc/deform_fwd.cu` and `csrc/deform_bwd.cu`, or raise.
 
-The kernel is compiled with nvcc on first use into `codenet_torch/_build/`
-and loaded with ctypes. `LAUNCHES` counts kernel launches.
+The kernels are compiled with nvcc on first use into `codenet_torch/_build/`
+(both sources at once) and loaded with ctypes. `LAUNCHES` counts forward
+kernel launches, `BWD_LAUNCHES` backward ones.
 """
 
 from __future__ import annotations
@@ -35,16 +38,19 @@ from .deform_conv import ANCHOR_OFFSETS
 
 S_LO, S_HI = -7.0, 8.0
 TAPS = tuple((int(dy), int(dx)) for dy, dx in ANCHOR_OFFSETS)
+CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "deform_fwd.cu"
+SOURCES = {"fwd": _PKG / "csrc" / "deform_fwd.cu",
+           "bwd": _PKG / "csrc" / "deform_bwd.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_libs = None
 _lib_lock = threading.Lock()
 
 
@@ -55,49 +61,95 @@ def _nvcc():
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA deform kernel is built "
-                       "from csrc/deform_fwd.cu on first use")
+    raise RuntimeError("nvcc not found: the CUDA deform kernels are built "
+                       "from csrc/deform_{fwd,bwd}.cu on first use")
 
 
 def build():
-    """Compile csrc/deform_fwd.cu into BUILD_DIR (once per source hash).
+    """Compile every source in SOURCES into BUILD_DIR (once per source
+    hash), one nvcc process per source, all started together.
 
-    Returns {"path", "seconds", "log", "cached"}; "log" holds nvcc's
-    -Xptxas -v report (registers, shared memory, spills)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / "libdeform_fwd_{}.so".format(digest)
-    if lib_path.exists():
-        return {"path": str(lib_path), "seconds": 0.0, "log": "",
-                "cached": True}
+    Returns {name: {"path", "seconds", "log", "cached"}}; "log" holds
+    nvcc's -Xptxas -v report (registers, shared memory, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private temporary name, then an atomic rename: concurrent first
-    # uses (several processes on one checkout) never load a partial file
-    tmp = lib_path.with_name("{}.{}.tmp".format(lib_path.name, os.getpid()))
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp),
-                                                    str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed ({}):\n{}{}".format(
-            proc.returncode, proc.stdout, proc.stderr))
-    tmp.replace(lib_path)
-    return {"path": str(lib_path), "seconds": seconds,
-            "log": proc.stdout + proc.stderr, "cached": False}
+    out, running = {}, {}
+    for name, source in SOURCES.items():
+        digest = hashlib.sha256(source.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+        lib_path = BUILD_DIR / "libdeform_{}_{}.so".format(name, digest)
+        if lib_path.exists():
+            out[name] = {"path": str(lib_path), "seconds": 0.0, "log": "",
+                         "cached": True}
+            continue
+        # a private temporary name, then an atomic rename: concurrent first
+        # uses (several processes on one checkout) never load a partial file
+        tmp = lib_path.with_name("{}.{}.tmp".format(lib_path.name,
+                                                    os.getpid()))
+        proc = subprocess.Popen(
+            [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, tmp, lib_path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, lib_path, t0) in running.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append("nvcc {} failed ({}):\n{}{}".format(
+                SOURCES[name].name, proc.returncode, stdout, stderr))
+            continue
+        tmp.replace(lib_path)
+        out[name] = {"path": str(lib_path), "seconds": seconds,
+                     "log": stdout + stderr, "cached": False}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def _load():
-    global _lib
+    global _libs
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build()["path"])
-            fn = lib.codesign_deform_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+        if _libs is None:
+            paths = build()
+            fwd = ctypes.CDLL(paths["fwd"]["path"])
+            fwd.codesign_deform_fwd.argtypes = \
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fwd.codesign_deform_fwd.restype = ctypes.c_int
+            bwd = ctypes.CDLL(paths["bwd"]["path"])
+            bwd.codesign_deform_bwd.argtypes = \
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            bwd.codesign_deform_bwd.restype = ctypes.c_int
+            _libs = {"fwd": fwd, "bwd": bwd}
+    return _libs
+
+
+def _compute_dtype(x):
+    """The plain versions accumulate in f32, or in f64 for f64 inputs (a
+    reference for parity tests; the kernels take f32 and bf16 only)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _geometry(s, h, w, dtype):
+    """Per tap: the clamped s's sampling coordinates split into floor and
+    fraction, (N, HW) each, for the plain versions."""
+    p = torch.arange(h * w, device=s.device)
+    py = (p // w).to(dtype)
+    px = (p % w).to(dtype)
+    sf = s.to(dtype).reshape(s.shape[0], h * w).clamp(S_LO, S_HI)
+    for ai, aj in TAPS:
+        sy = py + ai * sf  # (N, HW)
+        sx = px + aj * sf
+        y0 = torch.floor(sy)
+        x0 = torch.floor(sx)
+        yield ai, aj, y0.long(), x0.long(), sy - y0, sx - x0
+
+
+def _corner(y0, x0, dy, dx, h, w):
+    """Flat index (clamped into the map) and validity of one corner."""
+    yy = y0 + dy
+    xx = x0 + dx
+    valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    return yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1), valid
 
 
 def codesign_deform_conv_plain(x, s, weight):
@@ -105,36 +157,58 @@ def codesign_deform_conv_plain(x, s, weight):
     coordinates, same clamp and corner zeroing as the kernel, f32
     accumulation, output in x's dtype."""
     n, h, w, c = x.shape
-    hw = h * w
-    xf = x.float().reshape(n, hw, c)
-    sf = s.float().reshape(n, hw).clamp(S_LO, S_HI)
-    wf = weight.float().reshape(9, c)
-    p = torch.arange(hw, device=x.device)
-    py = (p // w).float()
-    px = (p % w).float()
-    out = torch.zeros(n, hw, c, dtype=torch.float32, device=x.device)
-    for t, (ai, aj) in enumerate(TAPS):
-        sy = py + ai * sf  # (N, HW)
-        sx = px + aj * sf
-        y0 = torch.floor(sy)
-        x0 = torch.floor(sx)
-        fy = sy - y0
-        fx = sx - x0
-        y0 = y0.long()
-        x0 = x0.long()
+    cdt = _compute_dtype(x)
+    xf = x.to(cdt).reshape(n, h * w, c)
+    wf = weight.to(cdt).reshape(9, c)
+    out = torch.zeros(n, h * w, c, dtype=cdt, device=x.device)
+    for t, (_, _, y0, x0, fy, fx) in enumerate(_geometry(s, h, w, cdt)):
         tap = torch.zeros_like(out)
-        for dy, dx, wgt in ((0, 0, (1 - fy) * (1 - fx)),
-                            (0, 1, (1 - fy) * fx),
-                            (1, 0, fy * (1 - fx)),
-                            (1, 1, fy * fx)):
-            yy = y0 + dy
-            xx = x0 + dx
-            valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        for dy, dx in CORNERS:
+            idx, valid = _corner(y0, x0, dy, dx, h, w)
+            wgt = (fy if dy else 1 - fy) * (fx if dx else 1 - fx)
             g = torch.gather(xf, 1, idx.unsqueeze(-1).expand(-1, -1, c))
             tap = tap + g * (wgt * valid)[..., None]
         out = out + tap * wf[t]
     return out.reshape(n, h, w, c).to(x.dtype)
+
+
+def codesign_deform_conv_bwd_plain(x, s, weight, g):
+    """The op's gradient in plain PyTorch, on any device: (dx, ds, dw) for
+    the output cotangent g, written out tap by tap and corner by corner as
+    the kernel computes it (col2im as a scatter-add, dw reduced over the
+    batch, ds reduced over channels with the one-sided d/ds of each corner
+    weight, ds zero outside (-7, 8)). f32 throughout (f64 for f64 inputs);
+    dx in x's dtype, ds in s's, dw in the weight's."""
+    n, h, w, c = x.shape
+    cdt = _compute_dtype(x)
+    xf = x.to(cdt).reshape(n, h * w, c)
+    gf = g.to(cdt).reshape(n, h * w, c)
+    wf = weight.to(cdt).reshape(9, c)
+    dx = torch.zeros(n, h * w, c, dtype=cdt, device=x.device)
+    ds = torch.zeros(n, h * w, dtype=cdt, device=x.device)
+    dw = torch.zeros(9, c, dtype=cdt, device=x.device)
+    for t, (ai, aj, y0, x0, fy, fx) in enumerate(_geometry(s, h, w, cdt)):
+        gw = gf * wf[t]
+        sample = torch.zeros_like(xf)
+        dsample = torch.zeros_like(xf)
+        for dy, dx_ in CORNERS:
+            idx, valid = _corner(y0, x0, dy, dx_, h, w)
+            wy, dwy = (fy, ai) if dy else (1 - fy, -ai)
+            wx, dwx = (fx, aj) if dx_ else (1 - fx, -aj)
+            wgt = (wy * wx * valid)[..., None]
+            dwgt = ((dwy * wx + wy * dwx) * valid)[..., None]
+            idx = idx.unsqueeze(-1).expand(-1, -1, c)
+            xv = torch.gather(xf, 1, idx)
+            sample = sample + xv * wgt
+            dsample = dsample + xv * dwgt
+            dx.scatter_add_(1, idx, gw * wgt)
+        dw[t] = (gf * sample).sum((0, 1))
+        ds = ds + (gw * dsample).sum(-1)
+    s_raw = s.to(cdt).reshape(n, h * w)
+    ds = torch.where((s_raw > S_LO) & (s_raw < S_HI), ds, 0.0)
+    return (dx.reshape(n, h, w, c).to(x.dtype),
+            ds.reshape(n, h, w, 1).to(s.dtype),
+            dw.reshape(weight.shape).to(weight.dtype))
 
 
 def _check(x, s, weight):
@@ -157,12 +231,10 @@ def _check(x, s, weight):
         raise TypeError("s must be float32, got {}".format(s.dtype))
     if not x.is_contiguous() or not s.is_contiguous():
         raise ValueError("x and s must be C-contiguous (N, H, W, C)")
-    if torch.is_grad_enabled() and (x.requires_grad or s.requires_grad
-                                    or weight.requires_grad):
-        raise NotImplementedError(
-            "the CUDA deform op is forward-only: its backward kernel "
-            "(deform_pallas.py::_bwd_kernel) comes with the training "
-            "slice (ROADMAP.md); run under torch.no_grad()")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch(x, s, weight):
@@ -170,11 +242,10 @@ def _launch(x, s, weight):
     n, h, w, c = x.shape
     out = torch.empty_like(x)
     w_kc = weight.reshape(9, c).to(torch.float32).contiguous()
-    fn = _load().codesign_deform_fwd
+    fn = _load()["fwd"].codesign_deform_fwd
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), s.data_ptr(), w_kc.data_ptr(), out.data_ptr(),
-                 n, h, w, c, _DTYPES[x.dtype], stream)
+                 n, h, w, c, _DTYPES[x.dtype], _stream(x.device))
     if err != 0:
         raise RuntimeError("codesign_deform_fwd launch failed: CUDA "
                            "error {}".format(err))
@@ -182,15 +253,65 @@ def _launch(x, s, weight):
     return out
 
 
+def _launch_bwd(x, s, weight, g):
+    """(dx, ds, dw) from the backward kernel; g any layout of x's shape."""
+    global BWD_LAUNCHES
+    n, h, w, c = x.shape
+    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
+        raise ValueError("g must be {} on {}".format(tuple(x.shape),
+                                                     x.device))
+    g = g.to(x.dtype).contiguous()
+    w_kc = weight.reshape(9, c).to(torch.float32).contiguous()
+    dx = torch.zeros(n, h, w, c, dtype=torch.float32, device=x.device)
+    ds = torch.zeros(n, h, w, 1, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(9, c, dtype=torch.float32, device=x.device)
+    fn = _load()["bwd"].codesign_deform_bwd
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), s.data_ptr(), g.data_ptr(), w_kc.data_ptr(),
+                 dx.data_ptr(), ds.data_ptr(), dw.data_ptr(),
+                 n, h, w, c, _DTYPES[x.dtype], _stream(x.device))
+    if err != 0:
+        raise RuntimeError("codesign_deform_bwd launch failed: CUDA "
+                           "error {}".format(err))
+    BWD_LAUNCHES += 1
+    return (dx.to(x.dtype), ds.to(s.dtype),
+            dw.reshape(weight.shape).to(weight.dtype))
+
+
+def _route(x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device {}".format(x.device))
+    return x.device.type == "cpu"
+
+
+def codesign_deform_conv_bwd(x, s, weight, g):
+    """(dx, ds, dw) of `codesign_deform_conv_fast` for cotangent g: the
+    plain backward on the CPU, the backward kernel on a card."""
+    if _route(x):
+        return codesign_deform_conv_bwd_plain(x, s, weight, g)
+    _check(x, s, weight)
+    return _launch_bwd(x, s, weight, g)
+
+
+class _CodesignDeformConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, s, weight):
+        ctx.save_for_backward(x, s, weight)
+        if _route(x):
+            return codesign_deform_conv_plain(x, s, weight)
+        _check(x, s, weight)
+        return _launch(x, s, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        return codesign_deform_conv_bwd(*ctx.saved_tensors, g)
+
+
 def codesign_deform_conv_fast(x, s, weight):
-    """Depthwise co-designed deform conv, stride 1, padding 1.
+    """Depthwise co-designed deform conv, stride 1, padding 1, with its
+    gradient.
 
     x: (N, H, W, C) f32 or bf16; s: (N, H, W, 1) f32; weight: HWIO
-    (3, 3, 1, C). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
-    if x.device.type == "cpu":
-        return codesign_deform_conv_plain(x, s, weight)
-    if x.device.type != "cuda":
-        raise ValueError("unsupported device {}".format(x.device))
-    _check(x, s, weight)
-    return _launch(x, s, weight)
+    (3, 3, 1, C). CPU tensors take the plain versions; CUDA tensors launch
+    the kernels or raise."""
+    return _CodesignDeformConv.apply(x, s, weight)

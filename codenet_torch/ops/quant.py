@@ -1,0 +1,154 @@
+"""W4A8 fake-quantization math, functional (the JAX package's
+ops/quant.py, fake-quant part).
+
+Reproduces the reference portable_quantizer numerics
+(quantization_utils/quant_utils.py):
+
+- symmetric weight quantization, per output channel, optional 0.1/99.9
+  percentile range, clamped to [-2^(k-1), 2^(k-1) - 1];
+- asymmetric activation quantization with an integral zero point and the
+  signed +2^(k-1) shift; the activation path does NOT clamp unless asked
+  (a quirk kept on purpose);
+- EMA min/max activation ranges, momentum 0.99, with the first-batch case
+  (`x_min == x_max` adds the batch range);
+- the straight-through estimator: forward q(x), backward identity, as
+  `x + (q(x) - x)` with the difference taken out of the graph (the JAX
+  package's `x + stop_gradient(q(x) - x)`, same rounding).
+
+Weights arrive in PyTorch's OIHW layout; per-channel ranges are taken over
+each output channel's flattened (I, kh, kw) elements, whose order does not
+change a min, a max or a k-th value. `torch.round` rounds half to even,
+as `jnp.round` does. Real-int8 storage (`QTensor`, int8 convs) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _ste(x, qx_fn):
+    """Forward qx_fn(x), backward identity."""
+    with torch.no_grad():
+        delta = qx_fn(x) - x
+    return x + delta
+
+
+def percentile_min_max(flat, lower=0.1, upper=99.9):
+    """torch-kthvalue percentile bounds, round-indexed (quant_utils.py:
+    16-28)."""
+    n = flat.shape[0]
+    lo_idx = int(round(n * lower * 0.01))
+    up_idx = int(round(n * upper * 0.01))
+    s = torch.sort(flat).values
+    return s[max(lo_idx, 1) - 1], s[max(up_idx, 1) - 1]
+
+
+def weight_channel_min_max(w_oc_first, percentile=False):
+    """Per-output-channel (min, max) of an (O, L) weight view
+    (Quant_Conv2d.forward, quant_modules.py:280-301): percentile mode uses
+    ceil-indexed kthvalue; fewer than 10 elements per channel fall back to
+    0.95 * min/max."""
+    _, length = w_oc_first.shape
+    if not percentile:
+        return w_oc_first.amin(dim=1), w_oc_first.amax(dim=1)
+    if length < 10:
+        return (w_oc_first.amin(dim=1) * 0.95,
+                w_oc_first.amax(dim=1) * 0.95)
+    lo_idx = max(int(math.ceil(length * 0.1 * 0.01)), 1)
+    up_idx = min(max(int(math.ceil(length * 99.9 * 0.01)), 1), length)
+    s = torch.sort(w_oc_first, dim=1).values
+    return s[:, lo_idx - 1], s[:, up_idx - 1]
+
+
+def _over(n, t):
+    """n / t correctly rounded (a Python number over a tensor computes
+    t.reciprocal() * n, which rounds twice)."""
+    return t.new_tensor(float(n)) / t
+
+
+def _symmetric(x, k, x_min, x_max):
+    magnitude = torch.maximum(x_min.abs(), x_max.abs())
+    n = 2 ** (k - 1) - 1
+    scale = _over(n, torch.clamp(magnitude, min=1e-10))
+    q = torch.round(scale * x)
+    q = torch.clamp(q, -(2 ** (k - 1)), 2 ** (k - 1) - 1)
+    return q / scale
+
+
+def _asymmetric(x, k, x_min, x_max, clamp):
+    n = 2 ** k - 1
+    scale = _over(n, torch.clamp(x_max - x_min, min=1e-10))
+    zero_point = torch.round(scale * x_min)
+    zero_point = zero_point + 2 ** (k - 1)  # signed shift
+    q = torch.round(scale * x - zero_point)
+    if clamp:
+        q = torch.clamp(q, -(2 ** (k - 1)), 2 ** (k - 1) - 1)
+    return (q + zero_point) / scale
+
+
+def symmetric_quant(x, k, x_min, x_max):
+    """SymmetricQuantFunction (quant_utils.py:205-223), STE backward;
+    x_min/x_max must broadcast against x."""
+    return _ste(x, lambda v: _symmetric(v, k, x_min, x_max))
+
+
+def asymmetric_quant(x, k, x_min, x_max, clamp=False):
+    """AsymmetricQuantFunction (quant_utils.py:170-198), STE backward.
+    clamp=True clamps to the signed int8 storage window
+    [-2^(k-1), 2^(k-1) - 1]."""
+    return _ste(x, lambda v: _asymmetric(v, k, x_min, x_max, clamp))
+
+
+def fake_quant_weight(w_oihw, k, percentile=False):
+    """Fake-quantize an OIHW weight, symmetric, per output channel."""
+    o = w_oihw.shape[0]
+    with torch.no_grad():
+        w_min, w_max = weight_channel_min_max(w_oihw.reshape(o, -1),
+                                              percentile)
+    return symmetric_quant(w_oihw, k, w_min[:, None, None, None],
+                           w_max[:, None, None, None])
+
+
+def fake_quant_act(x, k, x_min, x_max, clamp=False):
+    """Fake-quantize activations, asymmetric, with scalar range state.
+    clamp=False is the reference quirk (no clamp to the representable
+    window); clamp=True clamps to the signed int8 window, as real int8
+    storage does."""
+    return asymmetric_quant(x, k, x_min, x_max, clamp=clamp)
+
+
+@torch.no_grad()
+def act_range_observe(x, percentile=False):
+    """Batch (min, max) for the EMA (quant_modules.py:204-209)."""
+    flat = x.detach().reshape(-1)
+    if percentile:
+        return percentile_min_max(flat, 0.1, 99.9)
+    return flat.min(), flat.max()
+
+
+@torch.no_grad()
+def ema_update(x_min, x_max, batch_min, batch_max, momentum=0.99):
+    """EMA with the first-batch case (quant_modules.py:210-219); state
+    tensors are shape (1,)."""
+    init = x_min == x_max
+    new_min = torch.where(init, x_min + batch_min,
+                          momentum * x_min + (1.0 - momentum) * batch_min)
+    new_max = torch.where(init, x_max + batch_max,
+                          momentum * x_max + (1.0 - momentum) * batch_max)
+    return new_min, new_max
+
+
+def fold_bn(w_oihw, conv_bias, bn_gamma, bn_beta, bn_mean, bn_var,
+            eps=1e-5):
+    """Fold BN into the conv from (frozen) running statistics
+    (QuantBnConv2d.forward, quant_modules.py:364-372). Returns the scaled
+    OIHW weight and bias."""
+    std = torch.sqrt(bn_var + eps)
+    factor = bn_gamma / std
+    scaled_w = w_oihw * factor[:, None, None, None]
+    bias = conv_bias if conv_bias is not None else torch.zeros_like(bn_mean)
+    scaled_b = (bias - bn_mean) * factor + bn_beta
+    return scaled_w, scaled_b

@@ -138,6 +138,21 @@ def assert_heads_close(ref, out, rel=1e-3):
         assert err <= rel * scale, (name, err, scale)
 
 
+def adam_first_moment(state):
+    """Adam's first moment (mu) in an optax state tree: after one step it
+    is 0.1 * the gradient, which is how the parity tests read the JAX
+    train step's gradients."""
+    if hasattr(state, "mu"):
+        return state.mu
+    for child in (state if isinstance(state, tuple) else
+                  getattr(state, "inner_state", ())):
+        if hasattr(child, "mu") or isinstance(child, tuple):
+            found = adam_first_moment(child)
+            if found is not None:
+                return found
+    return None
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card, or skip: the kernel has no CPU interpret mode."""

@@ -1,12 +1,12 @@
 """The port's co-designed deform conv against the JAX package.
 
-The CPU route of `codesign_deform_conv_fast` (the plain PyTorch version)
-is held against the Pallas forward kernel, which runs in interpret mode on
-the CPU as tests/test_deform_pallas.py runs it; the plain general
-`codesign_deform_conv` against the JAX XLA formulation and the numpy
-oracle; `CodesignDeformBlock` against the JAX block. The CUDA kernel
-itself is checked against the plain version on a card, in
-tests/test_torch_cuda.py.
+The CPU route of `codesign_deform_conv_fast` (the plain PyTorch versions,
+forward and backward) is held against the Pallas kernels, which run in
+interpret mode on the CPU as tests/test_deform_pallas.py runs them; the
+plain general `codesign_deform_conv` against the JAX XLA formulation and
+the numpy oracle; `CodesignDeformBlock` against the JAX block, forward and
+train-mode gradients. The CUDA kernels themselves are checked against the
+plain versions on a card, in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -109,12 +109,18 @@ def test_naive_oracles_agree():
 
 
 def test_plain_backpropagates_on_cpu():
-    """The CPU route is plain autograd (the kernel route is forward-only)."""
+    """The CPU route's backward is the plain backward, which agrees with
+    autograd through the plain forward where s is inside (-7, 8)."""
     x, s, w = deform_case((6, 6, 4), seed=7, s_range=(-2.0, 3.0))
     xt = torch.from_numpy(x).requires_grad_()
     st = torch.from_numpy(s).requires_grad_()
     DC.codesign_deform_conv_fast(xt, st, torch.from_numpy(w)).sum().backward()
     assert torch.isfinite(xt.grad).all() and torch.isfinite(st.grad).all()
+    xa = torch.from_numpy(x).requires_grad_()
+    sa = torch.from_numpy(s).requires_grad_()
+    DC.codesign_deform_conv_plain(xa, sa, torch.from_numpy(w)).sum().backward()
+    torch.testing.assert_close(xt.grad, xa.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st.grad, sa.grad, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrapper_checks():
@@ -130,16 +136,15 @@ def test_kernel_wrapper_checks():
         DC._check(x, s.double(), w)
     with pytest.raises(ValueError):
         DC._check(x.transpose(1, 2), s, w)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        DC._check(x, s, w.clone().requires_grad_())
-    with torch.no_grad():
-        DC._check(x, s, w.clone().requires_grad_())
+    DC._check(x, s, w.clone().requires_grad_())
+    with pytest.raises(ValueError):
+        DC._launch_bwd(x, s, w, x[:, :2])
 
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_block_matches_jax(stride, monkeypatch):
     """JAX CodesignDeformBlock (reaching the Pallas kernel at stride 1)
-    == the port's block followed by the deconv stage's BatchNorm."""
+    == the port's block with the deconv stage's BatchNorm passed in."""
     monkeypatch.setenv("CODENET_PALLAS_INTERPRET", "1")
     from codenet_tpu.models.layers import CodesignDeformBlock as JBlock
     from codenet_torch.models.layers import CodesignDeformBlock as TBlock
@@ -181,6 +186,165 @@ def test_block_matches_jax(stride, monkeypatch):
     xt = torch.from_numpy(nhwc_to_nchw(x)).contiguous(
         memory_format=torch.channels_last)
     with torch.no_grad():
-        out = bn(tb(xt))
+        out = tb(xt, bn)
     np.testing.assert_allclose(nchw_to_nhwc(to_np(out)), ref, rtol=2e-3,
                                atol=2e-3)
+
+
+# -- backward ---------------------------------------------------------------
+
+def _s_case(name, shape, seed):
+    """s of one kind: fractional (crossing the clamp and the map), all
+    ones (the scale predictor's init), integers, exactly -7 / 8 mixed with
+    values inside, or out of contract (beyond the clamp on both sides)."""
+    r = rng(seed)
+    size = (2,) + tuple(shape[:2]) + (1,)
+    s = {"fractional": lambda: r.uniform(-9.0, 10.0, size),
+         "ones": lambda: np.ones(size),
+         "integer": lambda: r.randint(-8, 10, size),
+         "bounds": lambda: r.choice([-7.0, 8.0, -6.5, 0.25, 7.5], size),
+         "out_of_contract": lambda: r.choice([-30.0, -7.5, 8.5, 30.0, 2.5],
+                                             size)}[name]()
+    return s.astype(np.float32)
+
+
+def _grads(x, s, w, g, dtype=torch.float32):
+    """(dx, ds, dw) of the JAX Pallas op (interpret mode) and of the
+    port's CPU route, as f32 numpy."""
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    xj, wj, gj = (jnp.asarray(a).astype(jdt) for a in (x, w, g))
+    _, vjp = jax.vjp(DP.codesign_deform_conv_fast, xj, jnp.asarray(s), wj)
+    ref = [np.asarray(a.astype(jnp.float32)) for a in vjp(gj)]
+    xt, wt, gt = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .to(dtype) for a in (xj, wj, gj))
+    xt.requires_grad_()
+    wt.requires_grad_()
+    st = torch.from_numpy(s).requires_grad_()
+    out = DC.codesign_deform_conv_fast(xt, st, wt)
+    assert out.dtype == dtype
+    out.backward(gt)
+    assert xt.grad.dtype == dtype and wt.grad.dtype == dtype
+    assert st.grad.dtype == torch.float32
+    return ref, [to_np(a.grad) for a in (xt, st, wt)]
+
+
+def _assert_grads_close(ref, out, rel):
+    for name, a, b in zip(("dx", "ds", "dw"), ref, out):
+        assert a.shape == b.shape, name
+        scale = float(np.abs(a).max())
+        err = float(np.abs(a - b).max())
+        assert err <= rel * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 256), (16, 8, 128), (12, 12, 64),
+                                   (24, 24, 32), (12, 12, 58)])
+def test_fast_cpu_grads_match_pallas_f32(shape):
+    x, _, w = deform_case(shape, seed=30)
+    s = _s_case("fractional", shape, 31)
+    g = rng(32).randn(*x.shape).astype(np.float32)
+    _assert_grads_close(*_grads(x, s, w, g), rel=5e-3)
+
+
+@pytest.mark.parametrize("s_kind", ["ones", "integer", "bounds",
+                                    "out_of_contract"])
+def test_fast_cpu_grads_match_pallas_s_kinds(s_kind):
+    """Integer coordinates give the one-sided d/ds towards floor + 1 in
+    both; ds is exactly 0 at s == -7, s == 8 and beyond the clamp."""
+    shape = (8, 8, 32)
+    x, _, w = deform_case(shape, seed=33)
+    s = _s_case(s_kind, shape, 34)
+    g = rng(35).randn(*x.shape).astype(np.float32)
+    ref, out = _grads(x, s, w, g)
+    _assert_grads_close(ref, out, rel=5e-3)
+    outside = (s <= -7.0) | (s >= 8.0)
+    if outside.any():
+        assert np.abs(out[1][outside]).max() == 0.0
+        assert np.abs(ref[1][outside]).max() == 0.0
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 128), (12, 12, 58)])
+def test_fast_cpu_grads_match_pallas_bf16(shape):
+    """bf16 inputs: the Pallas kernel rounds the bilinear weights and g to
+    bf16 before its f32 dots, the port computes in f32 from the same bf16
+    inputs; they agree within bf16 resolution (3e-2 of each max)."""
+    x, _, w = deform_case(shape, seed=36)
+    s = _s_case("fractional", shape, 37)
+    g = rng(38).randn(*x.shape).astype(np.float32)
+    _assert_grads_close(*_grads(x, s, w, g, torch.bfloat16), rel=3e-2)
+
+
+def test_block_train_grads_match_jax(monkeypatch):
+    """JAX CodesignDeformBlock in train mode (BN on batch statistics,
+    Pallas forward and backward in interpret mode) == the port's block +
+    the deconv stage's BatchNorm in train mode: loss, every parameter's
+    gradient, the input gradient and the updated running statistics."""
+    monkeypatch.setenv("CODENET_PALLAS_INTERPRET", "1")
+    from codenet_tpu.models.layers import CodesignDeformBlock as JBlock
+    from codenet_torch.models.layers import CodesignDeformBlock as TBlock
+
+    r = rng(39)
+    cin, cout = 24, 16
+    x = np.maximum(r.randn(2, 8, 8, cin), 0).astype(np.float32)
+    probe = r.randn(2, 8, 8, cout).astype(np.float32)
+    blk = JBlock(cout)
+    variables = jax.jit(blk.init)(jax.random.PRNGKey(1), jnp.asarray(x))
+    p = jax.tree_util.tree_map(np.asarray, dict(variables["params"]))
+    st = jax.tree_util.tree_map(np.asarray, dict(variables["batch_stats"]))
+    p["conv_scale"]["kernel"] = (r.randn(1, 1, cin, 1) * 0.8).astype(
+        np.float32)
+    p["conv_scale"]["bias"] = np.array([0.5], np.float32)
+
+    def jloss(params, xin):
+        y, upd = blk.apply({"params": params, "batch_stats": st}, xin,
+                           train=True, mutable=["batch_stats"])
+        return jnp.sum(y * probe), upd
+
+    (lref, upd), (gp, gx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                               has_aux=True)(
+        p, jnp.asarray(x))
+
+    tb = TBlock(cin, cout)
+    bn = torch.nn.BatchNorm2d(cout)
+    cc = p["conv_channel"]
+    with torch.no_grad():
+        tb.conv_scale.weight.copy_(torch.from_numpy(
+            hwio_to_oihw(p["conv_scale"]["kernel"])))
+        tb.conv_scale.bias.copy_(torch.from_numpy(p["conv_scale"]["bias"]))
+        tb.conv.weight.copy_(torch.from_numpy(
+            hwio_to_oihw(p["deform_kernel"])))
+        tb.conv_channel.weight.copy_(torch.from_numpy(
+            hwio_to_oihw(cc["kernel"])))
+        bn.weight.copy_(torch.from_numpy(cc["scale"]))
+        bn.bias.copy_(torch.from_numpy(cc["bias"]))
+    tb.train()
+    bn.train()
+    xt = torch.from_numpy(nhwc_to_nchw(x)).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = tb(xt, bn)
+    loss = (y * torch.from_numpy(nhwc_to_nchw(probe))).sum()
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(lref),
+                               rtol=1e-4)
+    pairs = [(tb.conv_scale.weight.grad, gp["conv_scale"]["kernel"]),
+             (tb.conv_scale.bias.grad, gp["conv_scale"]["bias"]),
+             (tb.conv.weight.grad, gp["deform_kernel"]),
+             (tb.conv_channel.weight.grad, gp["conv_channel"]["kernel"]),
+             (bn.weight.grad, gp["conv_channel"]["scale"]),
+             (bn.bias.grad, gp["conv_channel"]["bias"]),
+             (xt.grad, gx)]
+    for got, ref in pairs:
+        ref = np.asarray(ref)
+        if ref.ndim == 4 and got.dim() == 4 and got.shape[0] == 2:
+            got = nchw_to_nhwc(to_np(got))
+        elif ref.ndim == 4:
+            got = np.transpose(to_np(got), (2, 3, 1, 0))
+        else:
+            got = to_np(got)
+        assert got.shape == ref.shape
+        scale = float(np.abs(ref).max())
+        assert float(np.abs(got - ref).max()) <= 5e-3 * scale
+    new = upd["batch_stats"]["conv_channel"]
+    np.testing.assert_allclose(to_np(bn.running_mean), new["mean"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(to_np(bn.running_var), new["var"],
+                               rtol=1e-4, atol=1e-5)

@@ -1,6 +1,7 @@
-"""The PyTorch package stands alone: it imports nothing of JAX or of the
-JAX package, does not import cv2 at module scope, and no switch can route
-a CUDA tensor away from the deform kernel."""
+"""The PyTorch package (and its smoke test and tools) stands alone: it
+imports nothing of JAX or of the JAX package, does not import cv2 at
+module scope, and no switch can route a CUDA tensor away from the deform
+kernel."""
 
 import os
 import re
@@ -13,9 +14,10 @@ PKG = os.path.join(REPO, "codenet_torch")
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PKG):
-        out += [os.path.join(root, f) for f in files
-                if f.endswith((".py", ".cu", ".cuh"))]
+    for top in (PKG, os.path.join(REPO, "tools_torch")):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files
+                    if f.endswith((".py", ".cu", ".cuh"))]
     return out
 
 
