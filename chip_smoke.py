@@ -12,9 +12,9 @@ ragged ones, timing both. Then it drives the port's paths at full width
   CtdetDetector, scored with the port's VOC evaluator;
 - FP32 training: one step card vs CPU at batch 4, then timed steps at
   batch 32 on port-sampler batches of synthetic frames;
-- W4A8 QAT: the trained weights saved and reloaded through the port's
-  checkpoint, one step card vs CPU at batch 4, timed steps at batch 32,
-  and a fake-quant CtdetDetector eval;
+- W4A8 QAT: one step card vs CPU at batch 4, then the trained weights
+  saved and reloaded through the port's checkpoint, timed steps at batch
+  32, and a fake-quant CtdetDetector eval;
 - the CLIs: `cli.main` (train, checkpoint, LR drop, final eval) and
   `cli.quant_main` from its checkpoint.
 
@@ -25,11 +25,11 @@ table ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
 fractional and partly outside the maps; training starts from the port's
-init (s == 1), its card-vs-CPU parity step from that init with the BN
-biases raised (conditioned_init). Images are synthetic frames held in
-memory (the dataset's `load_image` is overridden; the card's machine has
-no cv2). TF32 is off throughout: the parity phases compare FP32 against
-FP32.
+init (s == 1), its card-vs-CPU parity steps (FP32 and QAT) from that init
+with the BN biases raised (conditioned_init). Images are synthetic frames
+held in memory (the dataset's `load_image` is overridden; the card's
+machine has no cv2). TF32 is off throughout: the parity phases compare
+FP32 against FP32.
 """
 
 from __future__ import annotations
@@ -52,6 +52,8 @@ SEED = 0
 # (H, W, C) of the three deconv-stage deform calls at 256^2 input, 1x
 MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
+# the backward also at KITTI's largest deconv map (slices of 4 channels)
+BWD_SHAPES = MODEL_SHAPES + RAGGED_SHAPES + [(48, 160, 64)]
 BATCHES = [2, 128]
 BWD_BATCHES = [32, 128]
 TRAIN_BATCH = 32
@@ -60,8 +62,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # over all parameters; the median tensor and each deform-block tensor
 # relative to its max)
 STEP_TOL = 5e-3
-# the FP32 parity step's start: BN biases raised by this
-# (conditioned_init)
+# the parity steps' start: BN biases raised by this (conditioned_init)
 BN_SHIFT = 3.0
 DEFORM_PARAMS = tuple("deconv_layers.{}.{}.".format(4 * i, part)
                       for i in range(3)
@@ -227,11 +228,12 @@ def _bwd_case(shape, n, dtype, gen):
 
 def phase_kernel_bwd(bw, flops):
     """Backward kernel vs the plain backward at every shape, batch, dtype:
-    error of dx, ds and dw relative to each output's max."""
+    error of dx, ds and dw relative to each output's max; each row with
+    its launch plan (deform_cuda.bwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 2)
     rows = []
-    for shape in MODEL_SHAPES + RAGGED_SHAPES:
+    for shape in BWD_SHAPES:
         for n in BWD_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
                 x, s, wt, g = _bwd_case(shape, n, dtype, gen)
@@ -255,14 +257,17 @@ def phase_kernel_bwd(bw, flops):
                 elems = x.numel()
                 npos = s.numel()
                 # what the op must move: x, g, s and w read once, dx (x's
-                # type), ds and dw written once; the kernel's f32 dx buffer
-                # and the zeroing its atomics need count in `ms` only
+                # type), ds and dw written once; the zeroing of ds and dw
+                # that the kernel's atomics need counts in `ms` only
                 nbytes = 3 * elems * x.element_size() + 2 * npos * 4 \
                     + 2 * 9 * shape[2] * wt.element_size()
                 t_bytes = nbytes / bw * 1e3
                 t_ops = elems * BWD_FLOPS_PER_ELEM / flops * 1e3
+                plan = DC.bwd_plan(n, *shape)
                 row = {"phase": "kernel_bwd", "shape": list(shape), "n": n,
-                       "dtype": str(dtype).split(".")[-1], **errs,
+                       "dtype": str(dtype).split(".")[-1],
+                       "cb": plan["cb"], "smem_bytes": plan["smem_bytes"],
+                       "blocks": plan["blocks"], **errs,
                        "ds_at_bounds": ds_at_bounds, "tol_rel": TOL[dtype],
                        "launches": launched, "ms": ms, "plain_ms": plain_ms,
                        "bound_us": max(t_bytes, t_ops) * 1e3,
@@ -621,13 +626,23 @@ def phase_train(data):
 
 
 def phase_qat(data, fp32_trainer, batches):
-    """QAT: the FP32 weights through the port's checkpoint into the
-    quantized model, one step card vs CPU at batch 4, 6 timed steps at
-    batch 32 (ranges finite and moving), and a fake-quant CtdetDetector
-    eval of the 8 val frames."""
+    """QAT: one step card vs CPU at batch 4 from the conditioned init;
+    then the trained FP32 weights through the port's checkpoint into the
+    quantized model, 6 timed steps at batch 32 (ranges finite and moving),
+    and a fake-quant CtdetDetector eval of the 8 val frames.
+
+    The parity step does not start from the trained weights: twelve FP32
+    steps end at another point in every run (the deform backward sums
+    with atomics in no fixed order, and Adam turns that noise into whole
+    steps on the parameters whose gradient is nearly 0), and from most
+    such points one rounding of a fake quantizer that goes the other way
+    on the card moves some gradients by percents
+    (tools_torch/qat_parity_starts.py). From the conditioned init it
+    does not."""
     from codenet_torch.engine import checkpoint
     from codenet_torch.engine.detector import CtdetDetector
     from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models import create_model
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.ops import deform_cuda as DC
     path = str(ROOT / "exp" / "chip_smoke" / "fp32.pth")
@@ -643,7 +658,10 @@ def phase_qat(data, fp32_trainer, batches):
                   .splitlines())
     trainer.init()
 
-    parity, ok = step_parity(data, trainer.model.state_dict(), qspec)
+    start = create_model(opt.arch, opt.heads, opt.head_conv, qspec=qspec,
+                         device="cpu")
+    start.load_state_dict(conditioned_init(opt), strict=False)
+    parity, ok = step_parity(data, start.state_dict(), qspec)
     emit({"phase": "qat_parity", "batch": 4, **parity, "tol": STEP_TOL})
     if not ok:
         raise SystemExit("qat parity check failed")

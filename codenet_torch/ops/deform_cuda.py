@@ -47,6 +47,20 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# the H100 (sm_90): SMs; shared memory of an SM, the most one block may
+# take, and what the SM reserves for each block
+NUM_SMS = 132
+SMEM_PER_SM = 233_472
+SMEM_PER_BLOCK = 232_448
+SMEM_RESERVED = 1024
+# backward launch plan (bwd_plan); BWD_GROUP and BWD_MAX_THREADS are
+# deform_bwd.cu's kGroup and kMaxThreads (its 64 registers a thread fill
+# the SM's register file at 1024 threads: one block of 1024 or two of 512)
+BWD_GROUP = 64
+BWD_MAX_THREADS = 1024
+BWD_MAX_CB = 256
+BWD_GRID_MIN_CB = 32
+
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,7 +131,7 @@ def _load():
             fwd.codesign_deform_fwd.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"]["path"])
             bwd.codesign_deform_bwd.argtypes = \
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             bwd.codesign_deform_bwd.restype = ctypes.c_int
             _libs = {"fwd": fwd, "bwd": bwd}
     return _libs
@@ -253,6 +267,51 @@ def _launch(x, s, weight):
     return out
 
 
+def _bwd_smem_bytes(hw, cb):
+    """Dynamic shared memory of one backward block (csrc/deform_bwd.cu
+    smem_bytes): the f32 dx tile (hw, cb); per position of a geometry group
+    the index, weight and d(weight)/ds of 9 x 4 corners and a ds partial;
+    the slice's dw partials (9, cb)."""
+    return 4 * (hw * cb + BWD_GROUP * (3 * 9 * 4 + 1) + 9 * cb)
+
+
+def bwd_plan(n, h, w, c):
+    """Launch plan of the backward kernel for x of shape (n, h, w, c).
+
+    cb, the channels of a block's slice, is a power of two: the largest up
+    to 256 (and up to c rounded up to a power of two) whose dx tile and
+    geometry fit SMEM_PER_BLOCK; then halved, but not below 32, while the
+    grid (one block per image and slice) has fewer blocks than the card
+    has SMs. A last slice past c is masked. Returns {"cb", "threads",
+    "smem_bytes", "slices", "blocks"}; raises ValueError where even cb = 1
+    does not fit (h * w above ~51,000 positions)."""
+    hw = h * w
+    cb = min(BWD_MAX_CB, 1 << (c - 1).bit_length())
+    while cb > 1 and _bwd_smem_bytes(hw, cb) > SMEM_PER_BLOCK:
+        cb //= 2
+    if _bwd_smem_bytes(hw, cb) > SMEM_PER_BLOCK:
+        raise ValueError("deform backward: a {}x{} map does not fit one "
+                         "block's shared memory".format(h, w))
+    while cb > BWD_GRID_MIN_CB and n * -(-c // cb) < NUM_SMS:
+        cb //= 2
+    return bwd_plan_for(n, hw, c, cb)
+
+
+def bwd_plan_for(n, hw, c, cb):
+    """The launch plan of `bwd_plan` at a given cb: shared bytes, the grid
+    (one block per image and slice) and the threads, one per channel of
+    the slice and position lane (at most BWD_GROUP lanes): 1024 where an
+    SM holds one block only (its shared memory, or a grid of no more
+    blocks than SMs), else 512, two blocks to an SM."""
+    slices = -(-c // cb)
+    smem = _bwd_smem_bytes(hw, cb)
+    alone = (n * slices <= NUM_SMS
+             or 2 * (smem + SMEM_RESERVED) > SMEM_PER_SM)
+    threads = BWD_MAX_THREADS if alone else BWD_MAX_THREADS // 2
+    return {"cb": cb, "threads": min(threads, BWD_GROUP * cb),
+            "smem_bytes": smem, "slices": slices, "blocks": n * slices}
+
+
 def _launch_bwd(x, s, weight, g):
     """(dx, ds, dw) from the backward kernel; g any layout of x's shape."""
     global BWD_LAUNCHES
@@ -260,22 +319,23 @@ def _launch_bwd(x, s, weight, g):
     if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
         raise ValueError("g must be {} on {}".format(tuple(x.shape),
                                                      x.device))
+    plan = bwd_plan(n, h, w, c)
     g = g.to(x.dtype).contiguous()
     w_kc = weight.reshape(9, c).to(torch.float32).contiguous()
-    dx = torch.zeros(n, h, w, c, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
     ds = torch.zeros(n, h, w, 1, dtype=torch.float32, device=x.device)
     dw = torch.zeros(9, c, dtype=torch.float32, device=x.device)
     fn = _load()["bwd"].codesign_deform_bwd
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), s.data_ptr(), g.data_ptr(), w_kc.data_ptr(),
                  dx.data_ptr(), ds.data_ptr(), dw.data_ptr(),
-                 n, h, w, c, _DTYPES[x.dtype], _stream(x.device))
+                 n, h, w, c, _DTYPES[x.dtype], plan["cb"], plan["threads"],
+                 plan["smem_bytes"], _stream(x.device))
     if err != 0:
         raise RuntimeError("codesign_deform_bwd launch failed: CUDA "
                            "error {}".format(err))
     BWD_LAUNCHES += 1
-    return (dx.to(x.dtype), ds.to(s.dtype),
-            dw.reshape(weight.shape).to(weight.dtype))
+    return dx, ds, dw.reshape(weight.shape).to(weight.dtype)
 
 
 def _route(x):

@@ -41,16 +41,22 @@ def test_kernel_matches_plain_on_card(shape, dtype, cuda_device):
     assert float((out.float() - ref.float()).abs().max()) <= tol
 
 
+# the forward's shapes at batch 2; KITTI's 48x160 map (slices of 4
+# channels: several positions per warp); one image alone
+BWD_CASES = [(shape, 2) for shape in SHAPES] + [((48, 160, 64), 2),
+                                                ((16, 16, 256), 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape,n", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_backward_matches_plain_on_card(shape, dtype, cuda_device):
+def test_kernel_backward_matches_plain_on_card(shape, n, dtype, cuda_device):
     """Autograd through the op on the card runs the backward kernel once;
     dx, ds and dw agree with the plain backward within 1e-4 (f32, atomics
     sum in another order) or 3e-2 (bf16) of each output's max. s mixes
     fractional values, integers and the exact bounds -7 and 8 (where ds
     must be 0)."""
-    x, s, w = deform_case(shape, seed=10)
+    x, s, w = deform_case(shape, seed=10, n=n)
     r = np.random.RandomState(11)
     pick = r.randint(0, 4, s.shape)
     s = np.where(pick == 0, np.round(s), s)

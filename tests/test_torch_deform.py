@@ -348,3 +348,49 @@ def test_block_train_grads_match_jax(monkeypatch):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(to_np(bn.running_var), new["var"],
                                rtol=1e-4, atol=1e-5)
+
+
+# -- backward launch plan ---------------------------------------------------
+
+# (H, W, C) and the slice width cb at batch 32: chip_smoke.py's backward
+# shapes (the model's three, the ragged ones, KITTI's 48x160), a 64x64 map
+# whose tile allows less than 32 channels; None: a map past one block
+@pytest.mark.parametrize("shape,cb_at_32", [
+    ((8, 8, 1024), 128), ((16, 16, 256), 32), ((32, 32, 128), 32),
+    ((12, 12, 58), 32), ((16, 16, 2153), 128), ((24, 24, 32), 32),
+    ((48, 160, 64), 4), ((64, 64, 64), 8), ((256, 256, 8), None)])
+def test_bwd_plan(shape, cb_at_32):
+    """The backward kernel's launch plan: the dx tile and geometry fit a
+    block's 232,448 bytes; the slices cover C, the last one partly; cb is
+    the largest power of two that fits, halved (not below 32) only while
+    the grid has fewer than 132 blocks; the threads tile the slice and
+    divide the geometry group, 1024 where an SM holds one block only."""
+    h, w, c = shape
+    if cb_at_32 is None:
+        with pytest.raises(ValueError):
+            DC.bwd_plan(32, h, w, c)
+        return
+    hw = h * w
+    fits = lambda k: DC._bwd_smem_bytes(hw, k) <= 232_448  # noqa: E731
+    for n in (1, 2, 32, 128):
+        plan = DC.bwd_plan(n, h, w, c)
+        cb, threads, slices = plan["cb"], plan["threads"], plan["slices"]
+        assert cb & (cb - 1) == 0 and 1 <= cb <= 256
+        assert hw * cb * 4 < plan["smem_bytes"] <= 232_448
+        assert plan["smem_bytes"] == DC._bwd_smem_bytes(hw, cb)
+        assert (slices - 1) * cb < c <= slices * cb
+        assert plan["blocks"] == n * slices
+        assert threads % 32 == 0 and threads % cb == 0
+        assert 64 % (threads // cb) == 0
+        alone = (plan["blocks"] <= 132
+                 or 2 * (plan["smem_bytes"] + 1024) > 233_472)
+        assert threads == min(1024 if alone else 512, 64 * cb)
+        if c >= 32 and fits(32):
+            assert cb >= 32
+        # halved only to fill the card, never below 32
+        assert cb <= 32 or plan["blocks"] >= 132
+        # twice cb was refused: past 256 or c, too large, or too few blocks
+        up = 2 * cb
+        assert (up > min(256, 1 << (c - 1).bit_length()) or not fits(up)
+                or n * -(-c // up) < 132)
+    assert DC.bwd_plan(32, h, w, c)["cb"] == cb_at_32
