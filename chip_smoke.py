@@ -4,9 +4,10 @@
 
 Builds the co-designed deform conv kernels (codenet_torch/csrc/
 deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
-against its plain PyTorch version at the shapes the model gives it and at
-ragged ones, timing both. Then it drives the port's paths at full width
-(ctdet ShuffleNetV2-DCN 1x, 256^2):
+against its plain PyTorch version at the shapes the model gives it (the
+forward at batches 2, 32, 64 and 128) and at ragged ones, timing both.
+Then it drives the port's paths at full width (ctdet ShuffleNetV2-DCN 1x,
+256^2):
 
 - serving: flip-test per-image requests and a batch-32 request through
   CtdetDetector, scored with the port's VOC evaluator;
@@ -52,9 +53,14 @@ SEED = 0
 # (H, W, C) of the three deconv-stage deform calls at 256^2 input, 1x
 MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
-# the backward also at KITTI's largest deconv map (slices of 4 channels)
+# both kernels also at KITTI's largest deconv map (the forward's bands clip
+# at both edges; the backward's slices are 4 channels wide)
 BWD_SHAPES = MODEL_SHAPES + RAGGED_SHAPES + [(48, 160, 64)]
-BATCHES = [2, 128]
+# forward: the model's shapes at the served batch (2), the train forward
+# (32), a batch-32 request with its flipped copies (64) and 128; the other
+# shapes at 2 and 128
+BATCHES = [2, 32, 64, 128]
+RAGGED_BATCHES = [2, 128]
 BWD_BATCHES = [32, 128]
 TRAIN_BATCH = 32
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -161,21 +167,32 @@ def phase_build():
               "ptxas": ptxas})
 
 
+def _mixed_s(n, h, w, gen):
+    """s fractional in [-9, 10), a quarter of it rounded to integers and a
+    quarter exactly at the clamp bounds -7 and 8."""
+    s = torch.rand(n, h, w, 1, generator=gen) * 19.0 - 9.0
+    pick = torch.randint(0, 4, s.shape, generator=gen)
+    bounds = torch.where(torch.rand(s.shape, generator=gen) < 0.5, -7.0, 8.0)
+    return torch.where(pick == 0, s.round(), torch.where(pick == 1, bounds,
+                                                         s))
+
+
 def _case(shape, n, dtype, gen):
     h, w, c = shape
     x = torch.randn(n, h, w, c, generator=gen).to("cuda", dtype)
-    s = (torch.rand(n, h, w, 1, generator=gen) * 19.0 - 9.0).cuda()
+    s = _mixed_s(n, h, w, gen).cuda()
     wt = (torch.randn(3, 3, 1, c, generator=gen) * 0.2).to("cuda", dtype)
     return x, s, wt
 
 
 def phase_kernels(bw, flops):
-    """Kernel vs plain version on the card at every shape, batch, dtype."""
+    """Forward kernel vs its plain version on the card at every shape,
+    batch, dtype; each row with its launch plan (deform_cuda.fwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED)
     rows = []
-    for shape in MODEL_SHAPES + RAGGED_SHAPES:
-        for n in BATCHES:
+    for shape in BWD_SHAPES:
+        for n in BATCHES if shape in MODEL_SHAPES else RAGGED_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
                 x, s, wt = _case(shape, n, dtype, gen)
                 before = DC.LAUNCHES
@@ -195,8 +212,12 @@ def phase_kernels(bw, flops):
                     + 9 * shape[2] * 4
                 t_bytes = nbytes / bw * 1e3
                 t_ops = elems * FLOPS_PER_OUT / flops * 1e3
+                plan = DC.fwd_plan(n, *shape, dtype)
                 row = {"phase": "kernel", "shape": list(shape), "n": n,
                        "dtype": str(dtype).split(".")[-1],
+                       **{k: plan[k] for k in ("rows", "cb", "vec",
+                                               "threads", "smem_bytes",
+                                               "blocks")},
                        "max_abs_err": err, "tol": TOL[dtype],
                        "launches": launched, "ms": ms, "call_ms": call_ms,
                        "plain_ms": plain_ms,
@@ -212,14 +233,10 @@ def phase_kernels(bw, flops):
 
 
 def _bwd_case(shape, n, dtype, gen):
-    """x, s, w, g for the backward: s fractional, a quarter of it rounded
-    to integers and a quarter exactly at the clamp bounds -7 and 8."""
+    """x, s (_mixed_s), w, g for the backward."""
     h, w, c = shape
     x = torch.randn(n, h, w, c, generator=gen)
-    s = torch.rand(n, h, w, 1, generator=gen) * 19.0 - 9.0
-    pick = torch.randint(0, 4, s.shape, generator=gen)
-    bounds = torch.where(torch.rand(s.shape, generator=gen) < 0.5, -7.0, 8.0)
-    s = torch.where(pick == 0, s.round(), torch.where(pick == 1, bounds, s))
+    s = _mixed_s(n, h, w, gen)
     wt = torch.randn(3, 3, 1, c, generator=gen) * 0.2
     g = torch.randn(n, h, w, c, generator=gen)
     return (x.to("cuda", dtype), s.cuda(), wt.to("cuda", dtype),
@@ -788,16 +805,21 @@ def main(argv=None):
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "card": smi})
     emit(smi)
+    fwd_entry = kernel_line_entry(
+        "codesign_deform_fwd", "codenet_torch/csrc/deform_fwd.cu",
+        replaces("_fwd_kernel"),
+        serve_launches + train_run["launches_fwd"]
+        + qat_run["launches_fwd"] + qat_eval_launches, rows,
+        lambda r: r["model_shape"] and r["n"] == 2
+        and r["dtype"] == "float32")
+    # and the three calls of one train forward (batch 32, f32)
+    fwd_entry["ms_train_forward"] = sum(
+        r["ms"] for r in rows if r["model_shape"]
+        and r["n"] == TRAIN_BATCH and r["dtype"] == "float32")
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT and fake-quant eval paths
-        kernel_line_entry(
-            "codesign_deform_fwd", "codenet_torch/csrc/deform_fwd.cu",
-            replaces("_fwd_kernel"),
-            serve_launches + train_run["launches_fwd"]
-            + qat_run["launches_fwd"] + qat_eval_launches, rows,
-            lambda r: r["model_shape"] and r["n"] == 2
-            and r["dtype"] == "float32"),
+        fwd_entry,
         # backward: one train step's three calls (batch 32, f32); launches
         # over the FP32 and QAT training paths
         kernel_line_entry(

@@ -24,6 +24,7 @@ kernel launches, `BWD_LAUNCHES` backward ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -60,10 +61,21 @@ BWD_GROUP = 64
 BWD_MAX_THREADS = 1024
 BWD_MAX_CB = 256
 BWD_GRID_MIN_CB = 32
+# forward launch plan (fwd_plan); FWD_GROUP, FWD_MAX_THREADS and FWD_REACH
+# are deform_fwd.cu's kGroup, kMaxThreads and kReach (a tap reaches
+# |a * s| <= 8 rows, its lower corner one more)
+FWD_GROUP = 128
+FWD_MAX_THREADS = 512
+FWD_REACH = 8
+FWD_MAX_CB = 256
+FWD_MIN_SLICE_BYTES = 32
+FWD_WIDE_SLICE_BYTES = 128
+FWD_VEC_BYTES = 16
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
 _libs = None
 _lib_lock = threading.Lock()
 
@@ -127,7 +139,8 @@ def _load():
             paths = build()
             fwd = ctypes.CDLL(paths["fwd"]["path"])
             fwd.codesign_deform_fwd.argtypes = \
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
+                + [ctypes.c_void_p]
             fwd.codesign_deform_fwd.restype = ctypes.c_int
             bwd = ctypes.CDLL(paths["bwd"]["path"])
             bwd.codesign_deform_bwd.argtypes = \
@@ -251,15 +264,140 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _fwd_smem_bytes(h, w, rows, cb, esize):
+    """Dynamic shared memory of one forward block (csrc/deform_fwd.cu
+    smem_bytes): per position of a geometry group 6 records of 16 bytes (3
+    row and 3 column coordinates); the input rows a band of `rows` output rows
+    reaches, in x's type: (rows + 17) x w x cb, or the whole map."""
+    tile_rows = min(h, rows + 2 * FWD_REACH + 1)
+    return FWD_GROUP * 6 * 16 + tile_rows * w * cb * esize
+
+
+def fwd_plan(n, h, w, c, dtype, align=FWD_VEC_BYTES):
+    """A copy of `_fwd_plan`'s plan, which is computed once per
+    argument tuple: a served forward asks for the same three plans on
+    every call."""
+    return dict(_fwd_plan(n, h, w, c, dtype, align))
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(n, h, w, c, dtype, align):
+    """Launch plan of the forward kernel for x of shape (n, h, w, c).
+
+    vec, the channels of one thread's vector: 16 bytes (4 f32, 8 bf16),
+    halved while it does not divide c or `align` (the largest power of two
+    up to 16 that divides the addresses of x and of the output) is not a
+    multiple of its bytes. cb, the channels of a block's slice, is a power
+    of two of at least 32 bytes and vec, preferably 128 bytes (a
+    quarter-warp's eight 16-byte gathers then read one position: no bank
+    conflicts); rows, the output rows of a band.
+
+    The tallest band whose tile fits two blocks to an SM at a 128-byte
+    slice, else one block, else one block at the narrowest slice; then the
+    widest slice (up to 256 channels and c rounded up to a power of two)
+    that still fits that budget at that band. Then, while the grid (one
+    block per image, band and slice) has fewer blocks than the card has
+    SMs and one more split keeps it within them: the slice halved down to
+    128 bytes, then the band, then the slice down to its narrowest. A last
+    slice past c and a last band past h are masked. Returns
+    `fwd_plan_for`'s dict; raises ValueError where even one row at the
+    narrowest slice does not fit (w above ~380)."""
+    esize = _ESIZE[dtype]
+    vec = FWD_VEC_BYTES // esize
+    while vec > 1 and (c % vec or align % (vec * esize)):
+        vec //= 2
+    min_cb = max(vec, FWD_MIN_SLICE_BYTES // esize)
+    top_cb = max(min_cb, min(FWD_MAX_CB, 1 << (c - 1).bit_length()))
+    wide_cb = max(min_cb, min(top_cb, FWD_WIDE_SLICE_BYTES // esize))
+
+    def smem(r, k):
+        return _fwd_smem_bytes(h, w, r, k, esize)
+
+    def tallest(k, budget):
+        r = h
+        while r > 1 and smem(r, k) > budget:
+            r -= 1
+        return r if smem(r, k) <= budget else None
+
+    pair = SMEM_PER_SM // 2 - SMEM_RESERVED
+    for budget, cb in ((pair, wide_cb), (SMEM_PER_BLOCK, wide_cb),
+                       (SMEM_PER_BLOCK, min_cb)):
+        rows = tallest(cb, budget)
+        if rows is not None:
+            break
+    else:
+        raise ValueError("deform forward: a {}-wide map does not fit one "
+                         "block's shared memory".format(w))
+    while 2 * cb <= top_cb and smem(rows, 2 * cb) <= budget:
+        cb *= 2
+
+    def blocks(r, k):
+        return n * -(-h // r) * -(-c // k)
+
+    while blocks(rows, cb) < NUM_SMS:
+        if cb > wide_cb:
+            split = rows, cb // 2
+        elif rows > 1:
+            split = -(-rows // 2), cb
+        elif cb > min_cb:
+            split = rows, cb // 2
+        else:
+            break
+        if blocks(*split) > NUM_SMS:
+            break
+        rows, cb = split
+    return fwd_plan_for(n, h, w, c, dtype, rows, cb, vec)
+
+
+def fwd_plan_for(n, h, w, c, dtype, rows, cb, vec):
+    """The launch plan of `fwd_plan` at given rows, cb and vec: shared
+    bytes, the grid and the threads, one per vector of the slice and
+    position lane (at most FWD_GROUP lanes): 512 where the tile leaves
+    room for one block on an SM, else 256, two blocks to an SM."""
+    smem = _fwd_smem_bytes(h, w, rows, cb, _ESIZE[dtype])
+    bands, slices = -(-h // rows), -(-c // cb)
+    alone = 2 * (smem + SMEM_RESERVED) > SMEM_PER_SM
+    threads = FWD_MAX_THREADS if alone else FWD_MAX_THREADS // 2
+    return {"rows": rows, "cb": cb, "vec": vec,
+            "threads": min(threads, FWD_GROUP * (cb // vec)),
+            "smem_bytes": smem, "bands": bands, "slices": slices,
+            "blocks": n * bands * slices}
+
+
+def _alignment(*tensors):
+    """The largest power of two up to FWD_VEC_BYTES that divides every
+    tensor's address."""
+    align = FWD_VEC_BYTES
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
+def _fwd_args(x, s, weight, out, plan):
+    """The forward kernel's arguments for `plan`, stream aside, and the
+    (9, C) f32 tap weights they point to, which the caller holds until the
+    launch. The weight goes in as the view it is, through its (tap,
+    channel) strides: the model's permuted OIHW weight is not copied; a
+    weight that is not f32 is cast."""
+    n, h, w, c = x.shape
+    w_kc = weight.reshape(9, c).to(torch.float32)
+    args = (x.data_ptr(), s.data_ptr(), w_kc.data_ptr(), out.data_ptr(),
+            n, h, w, c, _DTYPES[x.dtype], w_kc.stride(0), w_kc.stride(1),
+            plan["rows"], plan["cb"], plan["vec"], plan["threads"],
+            plan["smem_bytes"])
+    return args, w_kc
+
+
 def _launch(x, s, weight):
     global LAUNCHES
     n, h, w, c = x.shape
     out = torch.empty_like(x)
-    w_kc = weight.reshape(9, c).to(torch.float32).contiguous()
+    plan = fwd_plan(n, h, w, c, x.dtype, align=_alignment(x, out))
+    args, w_kc = _fwd_args(x, s, weight, out, plan)
     fn = _load()["fwd"].codesign_deform_fwd
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), s.data_ptr(), w_kc.data_ptr(), out.data_ptr(),
-                 n, h, w, c, _DTYPES[x.dtype], _stream(x.device))
+        err = fn(*args, _stream(x.device))
     if err != 0:
         raise RuntimeError("codesign_deform_fwd launch failed: CUDA "
                            "error {}".format(err))

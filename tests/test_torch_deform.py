@@ -141,6 +141,52 @@ def test_kernel_wrapper_checks():
         DC._launch_bwd(x, s, w, x[:, :2])
 
 
+def test_fwd_args_take_the_weight_view():
+    """The forward kernel gets the model's permuted OIHW weight (the deform
+    block's `weight.permute(2, 3, 1, 0)`) as it is: its own address and
+    (tap, channel) strides (1, 9), no copy. A bf16 weight is cast to f32;
+    a contiguous HWIO weight goes in with strides (C, 1)."""
+    x, s, _ = (torch.from_numpy(a) for a in deform_case((4, 4, 8)))
+    out = torch.empty_like(x)
+    plan = DC.fwd_plan(2, 4, 4, 8, x.dtype)
+    oihw = torch.randn(8, 1, 3, 3)
+    args, w_kc = DC._fwd_args(x, s, oihw.permute(2, 3, 1, 0), out, plan)
+    assert w_kc.data_ptr() == args[2] == oihw.data_ptr()
+    assert args[9:11] == (1, 9)
+    assert args[:2] == (x.data_ptr(), s.data_ptr())
+    assert args[3:9] == (out.data_ptr(), 2, 4, 4, 8, 0)
+    assert args[11:] == (plan["rows"], plan["cb"], plan["vec"],
+                         plan["threads"], plan["smem_bytes"])
+    # the kernel reads w[t, c] at t * args[9] + c * args[10]
+    flat = oihw.reshape(-1)
+    for t in range(9):
+        for c in range(8):
+            assert flat[t * args[9] + c * args[10]] == oihw[c, 0, t // 3,
+                                                           t % 3]
+    args, w_kc = DC._fwd_args(x, s, oihw.permute(2, 3, 1, 0).bfloat16(),
+                              out, plan)
+    assert w_kc.dtype == torch.float32 and args[2] == w_kc.data_ptr()
+    hwio = oihw.permute(2, 3, 1, 0).contiguous()
+    args, _ = DC._fwd_args(x, s, hwio, out, plan)
+    assert args[2] == hwio.data_ptr() and args[9:11] == (8, 1)
+
+
+def test_fwd_alignment_narrows_the_vector():
+    """An x whose address is 4 or 8 bytes past a 16-byte boundary takes
+    the kernel's narrow vectors; C that 4 (f32) or 8 (bf16) does not
+    divide does too."""
+    buf = torch.zeros(2 * 8 * 8 * 32 + 4)
+    assert DC._alignment(buf) == 16
+    assert DC._alignment(buf[1:], buf) == 4
+    assert DC._alignment(buf[2:]) == 8
+    assert DC.fwd_plan(2, 8, 8, 32, torch.float32, align=4)["vec"] == 1
+    assert DC.fwd_plan(2, 8, 8, 32, torch.float32, align=8)["vec"] == 2
+    assert DC.fwd_plan(2, 8, 8, 32, torch.bfloat16, align=4)["vec"] == 2
+    assert DC.fwd_plan(2, 8, 8, 58, torch.float32)["vec"] == 2
+    assert DC.fwd_plan(2, 8, 8, 36, torch.bfloat16)["vec"] == 4
+    assert DC.fwd_plan(2, 8, 8, 2153, torch.bfloat16)["vec"] == 1
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_block_matches_jax(stride, monkeypatch):
     """JAX CodesignDeformBlock (reaching the Pallas kernel at stride 1)
@@ -394,3 +440,89 @@ def test_bwd_plan(shape, cb_at_32):
         assert (up > min(256, 1 << (c - 1).bit_length()) or not fits(up)
                 or n * -(-c // up) < 132)
     assert DC.bwd_plan(32, h, w, c)["cb"] == cb_at_32
+
+
+# -- forward launch plan ----------------------------------------------------
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (rows, cb, vec, threads, blocks) at batches 2 and 32 for the model's
+# three shapes: at 2, slices of 128 bytes or less and short bands make one
+# wave of 128 blocks; at 32, 128-byte slices or wider, banded at 32x32 so
+# that two blocks fit an SM
+_FWD_MODEL_PLANS = {
+    (8, 8, 1024): {(2, _F32): (4, 32, 4, 256, 128),
+                   (32, _F32): (8, 256, 4, 256, 128),
+                   (2, _BF16): (2, 64, 8, 256, 128),
+                   (32, _BF16): (8, 256, 8, 256, 128)},
+    (16, 16, 256): {(2, _F32): (2, 32, 4, 256, 128),
+                    (32, _F32): (16, 64, 4, 256, 128),
+                    (2, _BF16): (1, 64, 8, 256, 128),
+                    (32, _BF16): (16, 64, 8, 256, 128)},
+    (32, 32, 128): {(2, _F32): (2, 32, 4, 256, 128),
+                    (32, _F32): (8, 32, 4, 256, 512),
+                    (2, _BF16): (1, 64, 8, 256, 128),
+                    (32, _BF16): (8, 64, 8, 256, 256)},
+}
+
+
+# the model's three shapes, the ragged ones, KITTI's 48x160 (bands clip at
+# both edges), and a map too wide for one block (None)
+@pytest.mark.parametrize("shape,plans", [
+    (shape, plans) for shape, plans in _FWD_MODEL_PLANS.items()] + [
+    ((12, 12, 58), {}), ((16, 16, 2153), {}), ((24, 24, 32), {}),
+    ((48, 160, 64), {}), ((64, 512, 64), None)])
+def test_fwd_plan(shape, plans):
+    """The forward kernel's launch plan: the tile fits a block's 232,448
+    bytes, two blocks to an SM where a 128-byte slice of one row allows
+    it; the slices and bands cover C and H, the last ones partly; vec
+    divides C and is 16 bytes where C allows; cb is a power of two of at
+    least 32 bytes, and 128 bytes or more wherever the grid was not split
+    below it; the threads are a multiple of 32 and of the vectors of a
+    slice, with at most 128 position lanes, 512 where one block fills an
+    SM's shared memory; the grid holds at least half as many blocks as
+    the card has SMs unless slice and band are at their narrowest; the
+    exact plan at batches 2 and 32 for the model's shapes."""
+    h, w, c = shape
+    for dtype in (_F32, _BF16):
+        esize = 4 if dtype == _F32 else 2
+        if plans is None:
+            with pytest.raises(ValueError):
+                DC.fwd_plan(2, h, w, c, dtype)
+            continue
+        for n in (1, 2, 32, 128):
+            plan = DC.fwd_plan(n, h, w, c, dtype)
+            rows, cb, vec = plan["rows"], plan["cb"], plan["vec"]
+            assert plan["smem_bytes"] == DC._fwd_smem_bytes(h, w, rows, cb,
+                                                            esize)
+            assert plan["smem_bytes"] <= 232_448
+            tile_rows = min(h, rows + 17)
+            assert plan["smem_bytes"] == 128 * 6 * 16 + tile_rows * w * cb \
+                * esize
+            assert 1 <= rows <= h
+            assert (plan["bands"] - 1) * rows < h <= plan["bands"] * rows
+            assert (plan["slices"] - 1) * cb < c <= plan["slices"] * cb
+            assert plan["blocks"] == n * plan["bands"] * plan["slices"]
+            assert c % vec == 0 and vec & (vec - 1) == 0
+            assert vec == 16 // esize or c % (2 * vec)
+            assert cb & (cb - 1) == 0 and cb % vec == 0
+            assert cb * esize >= 32 and cb <= 256
+            min_cb = max(vec, 32 // esize)
+            wide = max(min_cb, min(128 // esize,
+                                   1 << (c - 1).bit_length()))
+            if DC._fwd_smem_bytes(h, w, 1, wide, esize) <= 115_712:
+                assert 2 * (plan["smem_bytes"] + 1024) <= 233_472
+            if plan["blocks"] > 132 and \
+                    DC._fwd_smem_bytes(h, w, 1, wide, esize) <= 232_448:
+                assert cb >= wide
+            vpp = cb // vec
+            threads = plan["threads"]
+            assert threads % 32 == 0 and threads % vpp == 0
+            assert threads // vpp <= 128
+            alone = 2 * (plan["smem_bytes"] + 1024) > 233_472
+            assert threads == min(512 if alone else 256, 128 * vpp)
+            assert plan["blocks"] >= 66 or (rows == 1 and cb == min_cb)
+            if (n, dtype) in plans:
+                assert (rows, cb, vec, threads, plan["blocks"]) == \
+                    plans[(n, dtype)], (n, dtype, plan)
+    if plans:
+        assert len(plans) == 4
