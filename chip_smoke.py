@@ -17,7 +17,14 @@ Then it drives the port's paths at full width (ctdet ShuffleNetV2-DCN 1x,
   saved and reloaded through the port's checkpoint, timed steps at batch
   32, and a fake-quant CtdetDetector eval;
 - the CLIs: `cli.main` (train, checkpoint, LR drop, final eval) and
-  `cli.quant_main` from its checkpoint.
+  `cli.quant_main` from its checkpoint;
+- real int8: the QAT-trained model exported to the W4A8 artifact
+  (engine/w4a8.py) and served with --int8_infer from its .pth and from
+  the artifact (equal detections); card vs CPU and int8 vs act-clamp
+  fake-quant heads; every int8 conv's accumulator held to the exact
+  integers; the int8 and fake-quant forwards timed; `cli.test
+  --int8_infer` on the CLI's QAT checkpoint and on its artifact
+  (tools_torch/export_w4a8.py).
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -70,6 +77,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 STEP_TOL = 5e-3
 # the parity steps' start: BN biases raised by this (conditioned_init)
 BN_SHIFT = 3.0
+# int8 heads of the QAT-trained model: card vs CPU, and int8 (as served,
+# and sampling the deform conv in f32) vs the act-clamp fake-quant, each
+# head within this of its max |value|. A level that rounds the other way
+# moves through every later quantizer: random weights move reg and wh by
+# 4-7% (tests/test_torch_int8.py); this QAT-trained model moved them by
+# under 1% on an H100.
+INT8_TOL = 2e-2
 DEFORM_PARAMS = tuple("deconv_layers.{}.{}.".format(4 * i, part)
                       for i in range(3)
                       for part in ("conv_scale", "conv", "conv_channel"))
@@ -711,7 +725,7 @@ def phase_qat(data, fp32_trainer, batches):
             or any(s != [3, 3] for s in run["launches_per_step"])
             or eval_launches != 3 * len(dets) or not dets_finite):
         raise SystemExit("qat check failed")
-    return run, eval_launches
+    return run, eval_launches, trainer.model
 
 
 def phase_cli(data):
@@ -750,6 +764,219 @@ def phase_cli(data):
             emit(out)
             raise SystemExit("cli {} check failed".format(name))
     emit(out)
+
+
+def head_errs(ref, out):
+    """Each head's max |difference| over its max |value|."""
+    return {k: float((out[k].cpu() - ref[k].cpu()).abs().max())
+            / float(ref[k].abs().max()) for k in ref}
+
+
+def head_rel_l2(ref, out):
+    """Each head's relative L2 difference."""
+    return {k: float((out[k].cpu() - ref[k].cpu()).norm()
+                     / ref[k].cpu().norm()) for k in ref}
+
+
+@contextlib.contextmanager
+def recording(module, name, record):
+    """Within the block, `module.name(*args)` calls record(*args) first."""
+    fn = getattr(module, name)
+
+    def wrapped(*args):
+        record(*args)
+        return fn(*args)
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def int8_exactness(model, x):
+    """Every int8 conv of one forward of `model` on x: the card's
+    accumulator and zero-point factor against the exact f64 ones of the
+    same integers on the CPU. Returns (convs, shapes, mismatches)."""
+    from codenet_torch.ops import quant as Q
+    calls = []
+    with recording(Q, "int8_conv", lambda *a: calls.append(a)), \
+            torch.no_grad():
+        model(x)
+    shapes, bad = set(), []
+    for qx, q_w, _, _, *args in calls:
+        acc, wsum = Q.int8_conv_terms(qx.values, q_w, *args)
+        ref_acc, ref_wsum = Q.int8_conv_terms(qx.values.cpu().double(),
+                                              q_w.cpu().double(), *args)
+        shape = (tuple(qx.values.shape), tuple(q_w.shape), *args)
+        shapes.add(shape)
+        if not (torch.equal(acc.cpu().double(), ref_acc)
+                and torch.equal(wsum.cpu().double(), ref_wsum)):
+            bad.append(str(shape))
+    return len(calls), len(shapes), bad
+
+
+def phase_int8(data, qat_model, bw, flops):
+    """Real-int8 eval of the QAT-trained model (phase_qat) and of the CLI's
+    QAT checkpoint (phase_cli). Returns (served launches, CLI launches,
+    kernels-line fields of the bf16 forward)."""
+    import importlib.util
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.detector import CtdetDetector, eval_input
+    from codenet_torch.models import create_model
+    from codenet_torch.models import layers as L
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    out = {"phase": "int8"}
+    fail = []
+    work = ROOT / "exp" / "chip_smoke"
+    pth, art = str(work / "qat.pth"), str(work / "qat_w4a8.npz")
+    checkpoint.save_model(pth, 1, qat_model, qspec=QuantSpec())
+    spec = importlib.util.spec_from_file_location(
+        "export_w4a8", ROOT / "tools_torch" / "export_w4a8.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = tool.main(data.args(1, "--resume-quantize", "--load_model",
+                                 pth, "--out", art))
+    out["artifact_bytes"] = Path(art).stat().st_size
+    out["export_log"] = log.getvalue().splitlines()[-1]
+    if rc != 0:
+        fail.append("export")
+
+    def detector(*extra):
+        return CtdetDetector(data.opt(1, "--flip_test", "--resume-quantize",
+                                      "--int8_infer", *extra), device="cuda")
+    dets = {"pth": detector("--load_model", pth),
+            "artifact": detector("--w4a8_artifact", art)}
+    val = data.dataset(data.opt(1), "val")
+    frames = [val.load_image(i) for i in range(len(val))]
+    kernel_dtypes = []
+    results, net_ms = {}, {}
+    with recording(DC, "_launch",
+                   lambda x, s, w: kernel_dtypes.append(str(x.dtype))):
+        DC.LAUNCHES = 0  # counts from here on are the served path's own
+        for name, det in dets.items():
+            rets = [det.run(f) for f in frames]
+            results[name] = [r["results"] for r in rets]
+            net_ms[name] = [r["net"] * 1e3 for r in rets]
+        served = DC.LAUNCHES
+    forwards = len(dets) * len(frames)
+    same = all(np.array_equal(a[j], b[j])
+               for a, b in zip(results["pth"], results["artifact"])
+               for j in a)
+    out.update(requests=forwards, launches=served,
+               launch_dtypes=sorted(set(kernel_dtypes)),
+               dets_equal=same, net_ms=net_ms,
+               dets=[int(sum(len(v) for v in r.values()))
+                     for r in results["pth"]])
+    if served != 3 * forwards or set(kernel_dtypes) != {"torch.bfloat16"}:
+        fail.append("launches")
+    if not same:
+        fail.append("pth vs artifact detections")
+
+    # one flip-test request (batch 2): card vs CPU, int8 vs fake-quant
+    det = dets["pth"]
+    images, _ = det.pre_process(frames[0], 1)
+    x = eval_input(det._to_device(images), det.mean, det.std)
+    model = det.model
+    fake = create_model("shufflenetv2", dict(data.opt(1).heads), 64,
+                        qspec=QuantSpec(act_clamp=True), device="cuda")
+    fake.load_state_dict(model.state_dict())
+    deform_args = []
+    with torch.no_grad():
+        with recording(L, "codesign_deform_conv_fast",
+                       lambda *a: deform_args.append(a)):
+            card = model(x)
+        cpu = copy.deepcopy(model).cpu()(x.cpu())
+        ref = fake(x)
+        L.INT8_SAMPLE_DTYPE = torch.float32
+        try:
+            f32 = model(x)
+        finally:
+            L.INT8_SAMPLE_DTYPE = torch.bfloat16
+    out["card_vs_cpu"] = head_errs(cpu, card)
+    out["int8_vs_act_clamp"] = head_errs(ref, card)
+    out["int8_f32_sampling_vs_act_clamp"] = head_errs(ref, f32)
+    out["rel_l2"] = {"card_vs_cpu": head_rel_l2(cpu, card),
+                     "int8_vs_act_clamp": head_rel_l2(ref, card),
+                     "int8_f32_sampling_vs_act_clamp": head_rel_l2(ref, f32)}
+    out["heads_finite"] = all(bool(torch.isfinite(v).all())
+                              for v in card.values())
+    if not out["heads_finite"] or any(
+            max(out[k].values()) > INT8_TOL
+            for k in ("card_vs_cpu", "int8_vs_act_clamp",
+                      "int8_f32_sampling_vs_act_clamp")):
+        fail.append("heads")
+    convs, shapes, bad = int8_exactness(model, x)
+    out.update(int8_convs=convs, int8_conv_shapes=shapes,
+               int8_conv_inexact=bad)
+    if bad or convs != 70:
+        fail.append("int8 conv exactness")
+
+    # the int8 forward of one request as served (integer weights derived
+    # once), with them derived on every call, and the fake-quant (the
+    # recipe's) forward; the three bf16 deform calls of the int8 one,
+    # weight cast included
+    def twin(qspec):
+        m = create_model("shufflenetv2", dict(data.opt(1).heads), 64,
+                         qspec=qspec, device="cuda")
+        m.load_state_dict(model.state_dict())
+        return m
+    served_fake, derived = twin(QuantSpec()), twin(QuantSpec(int8_infer=True))
+    with torch.no_grad():
+        out["net_forward_ms"] = {
+            "int8": cuda_time_ms(lambda: model(x), 20),
+            "int8_derived_per_call": cuda_time_ms(lambda: derived(x), 20),
+            "fake_quant": cuda_time_ms(lambda: served_fake(x), 20),
+            "int8_again": cuda_time_ms(lambda: model(x), 20)}
+        bf16_ms = graph_time_ms(
+            lambda: [DC.codesign_deform_conv_fast(*a) for a in deform_args],
+            200)
+    # x read and the output written in bf16, s in f32, the bf16 weight
+    nbytes = sum(2 * a[0].numel() * 2 + a[1].numel() * 4
+                 + a[2].numel() * 2 for a in deform_args)
+    ops = sum(a[0].numel() * FLOPS_PER_OUT for a in deform_args)
+    bf16 = {"ms_int8_forward_bf16": bf16_ms,
+            "bound_ms_int8_forward_bf16": max(nbytes / bw, ops / flops)
+            * 1e3,
+            "int8_deform_shapes": [list(a[0].shape) for a in deform_args]}
+    out.update(bf16)
+
+    # the CLI: cli.test --int8_infer on phase_cli's QAT checkpoint, and on
+    # its artifact written by the export tool
+    qat_ckpt = str(ROOT / "exp" / "ctdet" / "chip_smoke_qat"
+                   / "model_last.pth")
+    cli_art = str(work / "cli_w4a8.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = tool.main(data.args(1, "--resume-quantize", "--load_model",
+                                 qat_ckpt, "--out", cli_art))
+    cli_launches = 0
+    out["cli"] = {}
+    for name, extra in (("pth", ["--load_model", qat_ckpt]),
+                        ("artifact", ["--w4a8_artifact", cli_art])):
+        log = io.StringIO()
+        DC.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli_test.main(data.args(1, "--resume-quantize", "--int8_infer",
+                                    "--exp_id", "chip_smoke_int8_" + name,
+                                    *extra))
+        ap = [ln for ln in log.getvalue().splitlines() if "Mean AP" in ln]
+        out["cli"][name] = {"seconds": time.perf_counter() - t0,
+                            "mean_ap_line": ap[-1].strip() if ap else None,
+                            "launches": DC.LAUNCHES}
+        cli_launches += DC.LAUNCHES
+        # from the .pth, one more forward derives the integer weights
+        forwards = len(frames) + (name == "pth")
+        if not ap or DC.LAUNCHES != 3 * forwards or rc != 0:
+            fail.append("cli " + name)
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("int8 check failed: {}".format(fail))
+    return served, cli_launches, bf16
 
 
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
@@ -791,8 +1018,10 @@ def main(argv=None):
     serve_launches = phase_detector(model)
     data = SmokeData()
     fp32, batches, train_run = phase_train(data)
-    qat_run, qat_eval_launches = phase_qat(data, fp32, batches)
+    qat_run, qat_eval_launches, qat_model = phase_qat(data, fp32, batches)
     phase_cli(data)
+    int8_launches, int8_cli_launches, int8_bf16 = phase_int8(
+        data, qat_model, bw, flops)
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -809,16 +1038,22 @@ def main(argv=None):
         "codesign_deform_fwd", "codenet_torch/csrc/deform_fwd.cu",
         replaces("_fwd_kernel"),
         serve_launches + train_run["launches_fwd"]
-        + qat_run["launches_fwd"] + qat_eval_launches, rows,
+        + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
+        + int8_cli_launches, rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
-    # and the three calls of one train forward (batch 32, f32)
+    # and the three calls of one train forward (batch 32, f32), and of one
+    # int8 served forward (batch 2, bf16, the weight cast included)
     fwd_entry["ms_train_forward"] = sum(
         r["ms"] for r in rows if r["model_shape"]
         and r["n"] == TRAIN_BATCH and r["dtype"] == "float32")
+    fwd_entry["ms_int8_forward_bf16"] = int8_bf16["ms_int8_forward_bf16"]
+    fwd_entry["bound_ms_int8_forward_bf16"] = \
+        int8_bf16["bound_ms_int8_forward_bf16"]
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
-        # over the serving, training, QAT and fake-quant eval paths
+        # over the serving, training, QAT, fake-quant eval and int8 eval
+        # paths
         fwd_entry,
         # backward: one train step's three calls (batch 32, f32); launches
         # over the FP32 and QAT training paths

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of codenet-tpu: CoDeNet's ctdet detector trained (FP32,
-then W4A8 QAT) and served on an NVIDIA Hopper card, with hand-written CUDA
+then W4A8 QAT) and served (FP32, fake-quant or real int8, from a checkpoint
+or a W4A8 artifact) on an NVIDIA Hopper card, with hand-written CUDA
 kernels for the co-designed deformable convolution's forward and backward
 (``ops/deform_cuda.py``, ``csrc/deform_fwd.cu``, ``csrc/deform_bwd.cu``).
 

@@ -237,7 +237,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "for inference")
     p.add_argument("--w4a8_artifact", default="",
                    help="load weights from a packed W4A8 deployment "
-                        "artifact (tools_tpu/export_w4a8.py) instead of a "
+                        "artifact (tools_torch/export_w4a8.py) instead of a "
                         "checkpoint; requires --resume-quantize "
                         "--int8_infer (bit-identical to the exported "
                         "model's int8 eval)")
@@ -312,7 +312,7 @@ def parse(args=None, root_dir=None):
     if opt.resume and opt.load_model == "":
         model_path = opt.save_dir[:-4] if opt.save_dir.endswith("TEST") \
             else opt.save_dir
-        opt.load_model = os.path.join(model_path, "model_last.ckpt")
+        opt.load_model = os.path.join(model_path, "model_last.pth")
     return opt
 
 

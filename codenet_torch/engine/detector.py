@@ -8,11 +8,14 @@ cv2), then on the model's device forward -> sigmoid -> flip-test averaging
 base_detector.py:93-155 ({tot, load, pre, net, dec, post, merge}); on a
 card each stage ends in ``torch.cuda.synchronize``.
 
-Served so far: ctdet, FP32 or W4A8 fake-quant (``--resume-quantize``,
-with the recipe a port checkpoint records), single test scale 1 with
+Served so far: ctdet, FP32, W4A8 fake-quant (``--resume-quantize``, with
+the recipe a port checkpoint records) or real int8 (``--resume-quantize
+--int8_infer``), its weights from a checkpoint or from a W4A8 artifact
+(``--w4a8_artifact``, engine/w4a8.py; a checkpoint's integer weights
+are derived once, at construction); single test scale 1 with
 ``fix_res``, with or without ``--flip_test``, per image (`run`) or batched
-(`process_batch`). Other options (real int8, the W4A8 artifact, soft-NMS,
-multi-scale, keep_res) raise and are queued in ROADMAP.md.
+(`process_batch`). Other options (soft-NMS, multi-scale, keep_res) raise
+and are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..data.affine import get_affine_transform, warp_affine_u8
 from ..models import create_model
 from ..models import decode as D
 from ..models.layers import qspec_from_opt
-from . import checkpoint
+from . import checkpoint, w4a8
 
 
 def flip_w(x):
@@ -69,10 +72,12 @@ def device_from_opt(opt):
 class BaseDetector:
     def __init__(self, opt, state_dict=None, device=None):
         self.opt = opt
-        if opt.int8_infer or opt.w4a8_artifact:
-            raise NotImplementedError(
-                "real-int8 eval and the W4A8 artifact are queued in "
-                "ROADMAP.md")
+        if opt.w4a8_artifact and not (opt.resume_quantize
+                                      and opt.int8_infer):
+            raise ValueError(
+                "--w4a8_artifact needs --resume-quantize --int8_infer: the "
+                "artifact holds integer weights for the real-int8 path "
+                "only")
         if opt.nms or len(opt.test_scales) != 1 or opt.test_scales[0] != 1:
             raise NotImplementedError(
                 "--nms and multi-scale test need soft-NMS, queued in "
@@ -93,8 +98,15 @@ class BaseDetector:
                                   device=self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        elif opt.w4a8_artifact:
+            w4a8.load_w4a8(opt.w4a8_artifact, self.model)
         elif opt.load_model:
             checkpoint.load_model(opt.load_model, self.model)
+        if self.qspec is not None and self.qspec.int8_infer \
+                and not opt.w4a8_artifact:
+            # the integer weights derived once, as the exporter derives
+            # them: the checkpoint serves its artifact's detections
+            w4a8.deploy_from_weights(self.model, (opt.input_h, opt.input_w))
 
         self.mean = np.array(opt.mean, dtype=np.float32).reshape(1, 1, 3)
         self.std = np.array(opt.std, dtype=np.float32).reshape(1, 1, 3)

@@ -18,11 +18,12 @@ MODEL_FACTORY = {
 }
 
 
-def create_model(arch, heads, head_conv, w2=False, maxpool=False, qspec=None,
-                 dtype=None, device="cuda", generator=None):
+def create_model(arch, heads, head_conv, w2=False, maxpool=False,
+                 deform_backbone=False, qspec=None, dtype=None,
+                 device="cuda", generator=None):
     """Build an eval-mode model on `device` (channels_last), its weights
     drawn from `generator` (default: seeded 0); `qspec` (a QuantSpec)
-    selects W4A8 fake-quant execution.
+    selects W4A8 fake-quant execution, or real int8 with `int8_infer`.
 
     dtype None or float32 only: the bf16 model path is queued in
     ROADMAP.md.
@@ -39,7 +40,9 @@ def create_model(arch, heads, head_conv, w2=False, maxpool=False, qspec=None,
             "FP32".format(dtype))
     device = resolve_device(device)
     model = MODEL_FACTORY[arch_name](num_layers, heads, head_conv, w2=w2,
-                                     maxpool=maxpool, qspec=qspec)
+                                     maxpool=maxpool,
+                                     deform_backbone=deform_backbone,
+                                     qspec=qspec)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model.reset_parameters(generator)

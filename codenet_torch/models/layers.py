@@ -17,12 +17,21 @@ one module tree for both modes, selected by a ``QuantSpec`` (None = FP32).
 fake-quantizes the folded weight (BN frozen, whatever the module's
 train/eval mode); ``QuantAct`` holds the activation-range EMA in buffers
 (the JAX ``quant_stats`` collection) and updates it only when called with
-``update=True``, a flag of its own. Real-int8 execution (``int8_infer``)
-is not ported yet and raises.
+``update=True``, a flag of its own.
+
+Real-int8 execution (``QuantSpec.int8_infer``, the JAX package's int8
+branches): each ``QuantAct`` emits a ``QTensor``; a conv that receives one
+folds its BN, takes integer weights (`resolve_int8_weights`) and runs
+`int8_conv`; the deform block dequantizes its input and samples in bf16.
+Integer weights are derived on the fly from the float ones, or set on
+each conv module as non-persistent ``deploy_*`` buffers (engine/w4a8.py:
+from a W4A8 artifact, or derived once for serving): no ``state_dict``
+carries them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -33,6 +42,11 @@ from torch import nn
 from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
+
+# int8 eval samples the deform conv in bf16 (the JAX package's
+# layers.py:562-574): its input holds 2^a_bit levels and `deform_act`
+# requantizes the output. Checks of the integer path alone set it to f32.
+INT8_SAMPLE_DTYPE = torch.bfloat16
 
 
 def nhwc(x):
@@ -130,13 +144,6 @@ def qspec_from_opt(opt):
                      int8_infer=opt.int8_infer, act_clamp=opt.act_clamp)
 
 
-def check_qspec(qspec):
-    if qspec is not None and qspec.int8_infer:
-        raise NotImplementedError(
-            "real-int8 execution (--int8_infer) is queued in ROADMAP.md; "
-            "the port runs W4A8 fake-quant")
-
-
 class QuantAct(nn.Module):
     """EMA-range activation fake-quantizer (reference QuantAct,
     quant_modules.py:163-225). `x_min`/`x_max` are buffers; with
@@ -144,13 +151,15 @@ class QuantAct(nn.Module):
 
     def __init__(self, qspec):
         super().__init__()
-        check_qspec(qspec)
         self.qspec = qspec
         self.register_buffer("x_min", torch.zeros(1))
         self.register_buffer("x_max", torch.zeros(1))
 
     def forward(self, x, update=False):
         q = self.qspec
+        if update and q.int8_infer:
+            raise ValueError("int8 inference runs with frozen activation "
+                             "ranges")
         if update:
             with torch.no_grad():
                 bmin, bmax = Q.act_range_observe(x, q.act_percentile)
@@ -158,6 +167,9 @@ class QuantAct(nn.Module):
                                           bmax)
                 self.x_min.copy_(nmin)
                 self.x_max.copy_(nmax)
+        if q.int8_infer:
+            return Q.quantize_act_int8(x.float(), q.a_bit, self.x_min,
+                                       self.x_max)
         out = Q.fake_quant_act(x.float(), q.a_bit, self.x_min, self.x_max,
                                clamp=q.act_clamp)
         return out.to(x.dtype)
@@ -177,11 +189,111 @@ def fake_quant(weight, qspec, w_bit=None):
                                qspec.wt_percentile)
 
 
+# -- real-int8 execution (the JAX package's layers.py:32-118) ---------------
+
+def qt_spatial(fn, x):
+    """A quantization-transparent op (slice, concat, shuffle, layout view)
+    on a float tensor or on a QTensor's values."""
+    if isinstance(x, Q.QTensor):
+        return Q.QTensor(fn(x.values), x.scale, x.zero_point)
+    return fn(x)
+
+
+def qt_concat(xs, dim):
+    """Concat of float tensors or of QTensors that share one scale (the
+    stage's shared quantizer makes them so at every merge)."""
+    if isinstance(xs[0], Q.QTensor):
+        return Q.QTensor(torch.cat([x.values for x in xs], dim),
+                         xs[0].scale, xs[0].zero_point)
+    return torch.cat(xs, dim)
+
+
+def qt_module(module, x):
+    """A float module that only moves values (max pool, nearest upsample)
+    on a float tensor, or on a QTensor's int8 values through f32: exact,
+    and where the pool pads, each window holds one element of the map, so
+    its -inf padding acts as the JAX int8 pool's iinfo.min."""
+    if isinstance(x, Q.QTensor):
+        return qt_spatial(lambda v: module(v.float()).to(v.dtype), x)
+    return module(x)
+
+
+def as_float(x):
+    return x.dequant() if isinstance(x, Q.QTensor) else x
+
+
+def set_deploy(mod, q_w, w_scale, bias):
+    """Give `mod` (a conv or the deform weight holder) fixed integer
+    weights: int8 OIHW levels, (O,) scales and the f32 bias (None for
+    none), as non-persistent buffers that follow the module's device and
+    stay out of its state_dict."""
+    for name, value in (("q_w", q_w), ("w_scale", w_scale),
+                        ("bias", bias)):
+        mod.register_buffer("deploy_" + name, value, persistent=False)
+
+
+@contextlib.contextmanager
+def capturing_deploy(model):
+    """Within the block, every int8 conv of `model` that derives its
+    integer weights also records them in the yielded dict, keyed by its
+    module: {"q_w", "w_scale", "bias", "w_bit"} (the JAX package's
+    'deploy' collection made mutable for one apply). Nothing is recorded
+    outside it, so building or loading a model never captures."""
+    sink = {}
+    mods = list(model.modules())
+    for m in mods:
+        m.deploy_sink = sink
+    try:
+        yield sink
+    finally:
+        for m in mods:
+            del m.deploy_sink
+
+
+def resolve_int8_weights(mod, float_weights, w_bit, qspec):
+    """(q_w, w_scale, bias) of `mod`'s int8 conv, in the three modes of the
+    JAX package's resolve_int8_weights: inside `capturing_deploy`, derived
+    from the float weights and recorded; with fixed weights set
+    (`set_deploy`), those; else derived. `float_weights()` returns the
+    (folded) float (weight, bias) and is called only to derive."""
+    sink = getattr(mod, "deploy_sink", None)
+    if sink is None and getattr(mod, "deploy_q_w", None) is not None:
+        return mod.deploy_q_w, mod.deploy_w_scale, mod.deploy_bias
+    weight, bias = float_weights()
+    q_w, w_scale = Q.quantize_weight_int(weight, w_bit, qspec.wt_percentile)
+    if sink is not None:
+        sink[mod] = {"q_w": q_w, "w_scale": w_scale, "bias": bias,
+                     "w_bit": w_bit}
+    return q_w, w_scale, bias
+
+
+def resolve_fakequant_weight(mod, weight, w_bit, qspec):
+    """The deform kernel's quantized float weight in int8 mode, q / scale
+    from `resolve_int8_weights` (so the artifact carries it as levels and
+    scales, and checkpoint and artifact evals sample with the same
+    bits)."""
+    q_w, w_scale, _ = resolve_int8_weights(mod, lambda: (weight, None),
+                                           w_bit, qspec)
+    return q_w.float() / w_scale[:, None, None, None]
+
+
+def _int8_conv(conv_mod, x, float_weights, qspec, w_bit):
+    q_w, w_scale, bias = resolve_int8_weights(
+        conv_mod, float_weights, w_bit or qspec.w_bit, qspec)
+    return Q.int8_conv(x, q_w, w_scale, bias, conv_mod.stride,
+                       conv_mod.padding, conv_mod.groups)
+
+
 def conv_q(conv_mod, x, qspec, w_bit=None):
     """Conv with the weight fake-quantized in quant mode; the bias stays
-    full precision (reference Quant_Conv2d, quant_modules.py:228-321)."""
+    full precision (reference Quant_Conv2d, quant_modules.py:228-321). A
+    QTensor input runs the int8 conv (the JAX ``Conv``'s int8 branch)."""
     if qspec is None:
         return conv_mod(x)
+    if isinstance(x, Q.QTensor):
+        return _int8_conv(conv_mod, x,
+                          lambda: (conv_mod.weight, conv_mod.bias), qspec,
+                          w_bit)
     return F.conv2d(x, fake_quant(conv_mod.weight, qspec, w_bit),
                     conv_mod.bias, conv_mod.stride, conv_mod.padding,
                     conv_mod.dilation, conv_mod.groups)
@@ -191,11 +303,19 @@ def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None):
     """Conv + BN. FP32: the two modules (BN in its train/eval mode).
     Quant: BN folded from its running statistics, the folded weight
     fake-quantized, one conv (reference QuantBnConv2d,
-    quant_modules.py:324-419): QAT trains against frozen folded BN."""
+    quant_modules.py:324-419): QAT trains against frozen folded BN. A
+    QTensor input runs the folded conv in int8 (the JAX ``ConvBN``'s int8
+    branch)."""
     if qspec is None:
         return bn_mod(conv_mod(x))
-    w, b = Q.fold_bn(conv_mod.weight, None, bn_mod.weight, bn_mod.bias,
-                     bn_mod.running_mean, bn_mod.running_var, bn_mod.eps)
+
+    def folded():
+        return Q.fold_bn(conv_mod.weight, None, bn_mod.weight, bn_mod.bias,
+                         bn_mod.running_mean, bn_mod.running_var,
+                         bn_mod.eps)
+    if isinstance(x, Q.QTensor):
+        return _int8_conv(conv_mod, x, folded, qspec, w_bit)
+    w, b = folded()
     return F.conv2d(x, fake_quant(w, qspec, w_bit), b, conv_mod.stride,
                     conv_mod.padding, conv_mod.dilation, conv_mod.groups)
 
@@ -228,6 +348,10 @@ class CodesignDeformBlock(nn.Module):
     quant_modules.py:621-671): conv_scale's weight fake-quantized, s
     through `scale_act`, the deform weight fake-quantized, `deform_act`
     between the deform conv and the mixer, and the mixer + BN folded.
+    Int8 (the JAX block's int8 path, layers.py:554-574): conv_scale an
+    int8 conv, s dequantized, x dequantized and sampled in bf16 with the
+    quantized weight in bf16 (the bf16 kernel on a card), and `deform_act`
+    hands the mixer a QTensor.
     """
 
     def __init__(self, in_channels, features, stride=1, offset_bound=8,
@@ -255,15 +379,25 @@ class CodesignDeformBlock(nn.Module):
 
     def forward(self, x, bn, update=False):
         q = self.qspec
+        int8 = q is not None and q.int8_infer
         s = F.hardtanh(conv_q(self.conv_scale, x, q),
                        -self.offset_bound + 1, self.offset_bound)
-        s = apply_act(self.scale_act, s, update)
+        s = as_float(apply_act(self.scale_act, s, update))
+        x = as_float(x)
         x_nhwc = nhwc(x.contiguous(memory_format=torch.channels_last))
         s_nhwc = nhwc(s).contiguous()
-        weight = self.conv.weight if q is None \
-            else fake_quant(self.conv.weight, q)
+        if q is None:
+            weight = self.conv.weight
+        elif int8:
+            weight = resolve_fakequant_weight(self.conv, self.conv.weight,
+                                              q.w_bit, q)
+        else:
+            weight = fake_quant(self.conv.weight, q)
         w_hwio = weight.permute(2, 3, 1, 0)
         if self.stride == 1:
+            if int8:
+                x_nhwc = x_nhwc.to(INT8_SAMPLE_DTYPE)
+                w_hwio = w_hwio.to(INT8_SAMPLE_DTYPE)
             y = codesign_deform_conv_fast(x_nhwc, s_nhwc, w_hwio)
         else:
             y = codesign_deform_conv(x_nhwc, s_nhwc, w_hwio,
@@ -275,5 +409,5 @@ class CodesignDeformBlock(nn.Module):
             return bn(y)
         # quant mode without a mixer: BN from running stats, unfolded (the
         # JAX BatchNorm with train=False)
-        return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
-                            bn.bias, False, 0.0, bn.eps)
+        return F.batch_norm(as_float(y), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, False, 0.0, bn.eps)

@@ -21,7 +21,10 @@ returns {head: (N, H/4, W/4, C)}, NHWC like the JAX model; inside,
 activations are channels_last NCHW. BN mode follows the module's
 train/eval mode in FP32; quantized, BN is always folded and frozen and
 `update_stats` alone decides whether the activation ranges move (the JAX
-``train=False, update_stats=True`` QAT step).
+``train=False, update_stats=True`` QAT step). With ``int8_infer`` the
+quantizers emit QTensors and every conv after layer0 runs in int8; the
+channel split, the stage's concat and shuffle, the stem pool and the 2x
+upsamples move int8 values at the quantizer's scale.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import QTensor
 from .layers import (CodesignDeformBlock, apply_act, bn, channel_shuffle,
-                     check_qspec, conv, conv_bn, conv_q,
-                     kaiming_normal_relu_, nchw, nhwc, quant_act,
+                     conv, conv_bn, conv_q, kaiming_normal_relu_, nchw,
+                     nhwc, qt_concat, qt_module, qt_spatial, quant_act,
                      torch_conv_init_)
 
 
@@ -73,8 +77,9 @@ class BaseNode(nn.Module):
     def forward(self, x, share=None, update=False):
         q = self.qspec
         if self.stride == 1:
-            split = x.shape[1] // 2
-            x1, x2 = x[:, :split], x[:, split:]
+            split = (x.values if isinstance(x, QTensor) else x).shape[1] // 2
+            x1 = qt_spatial(lambda v: v[:, :split], x)
+            x2 = qt_spatial(lambda v: v[:, split:], x)
         else:
             y = conv_bn(self.b1[0], self.b1[1], x, q)
             y = apply_act(self.b1_act1, y, update)
@@ -89,8 +94,8 @@ class BaseNode(nn.Module):
             if self.stride == 2:
                 x1 = share(x1, update)
             x2 = share(x2, update)
-        y = torch.cat([nhwc(x1), nhwc(x2)], dim=-1)
-        return nchw(channel_shuffle(y, 2))
+        y = qt_concat([qt_spatial(nhwc, x1), qt_spatial(nhwc, x2)], -1)
+        return qt_spatial(lambda v: nchw(channel_shuffle(v, 2)), y)
 
 
 class Stage(nn.Sequential):
@@ -147,7 +152,6 @@ class PoseShuffleNetV2(nn.Module):
     def __init__(self, heads, head_conv=64, w2=False, maxpool=False,
                  deform_backbone=False, qspec=None):
         super().__init__()
-        check_qspec(qspec)
         self.qspec = qspec
         self.maxpool = maxpool
         heads = dict(heads)
@@ -218,7 +222,7 @@ class PoseShuffleNetV2(nn.Module):
                            w_bit=8))
         y = apply_act(self.layer0_act, y, up)
         if self.maxpool:
-            y = self.layer0[3](y)
+            y = qt_module(self.layer0[3], y)
         for stage in (self.layer1, self.layer2, self.layer3):
             y = stage(y, up)
         y = F.relu(conv_bn(self.layer4[0], self.layer4[1], y, q))
@@ -227,7 +231,7 @@ class PoseShuffleNetV2(nn.Module):
             block, block_bn = self.deconv_layers[4 * i:4 * i + 2]
             y = F.relu(block(y, block_bn, up))
             y = apply_act(getattr(self, "deconv{}_act".format(i)), y, up)
-            y = self.deconv_layers[4 * i + 3](y)
+            y = qt_module(self.deconv_layers[4 * i + 3], y)
         return {name: nhwc(getattr(self, name)(y, up)).float()
                 for name, _ in self.heads}
 

@@ -18,15 +18,20 @@ Reproduces the reference portable_quantizer numerics
 Weights arrive in PyTorch's OIHW layout; per-channel ranges are taken over
 each output channel's flattened (I, kh, kw) elements, whose order does not
 change a min, a max or a k-th value. `torch.round` rounds half to even,
-as `jnp.round` does. Real-int8 storage (`QTensor`, int8 convs) is not
-ported yet.
+as `jnp.round` does.
+
+Real-int8 inference (the JAX package's ops/quant.py, int8 part):
+`QTensor` activations (int8 values, scalar scale and zero point),
+`quantize_act_int8`, `quantize_weight_int` and `int8_conv`, NCHW/OIHW.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _ste(x, qx_fn):
@@ -152,3 +157,96 @@ def fold_bn(w_oihw, conv_bias, bn_gamma, bn_beta, bn_mean, bn_var,
     bias = conv_bias if conv_bias is not None else torch.zeros_like(bn_mean)
     scaled_b = (bias - bn_mean) * factor + bn_beta
     return scaled_w, scaled_b
+
+
+# -- real-int8 inference -------------------------------------------------------
+
+class QTensor(NamedTuple):
+    """A quantized activation: int8 values (NCHW, channels_last) with (1,)
+    f32 scale and zero point (an integral value that already holds the
+    signed +2^(k-1) shift): x = (values + zero_point) / scale
+    (quant_utils.py:42-50)."""
+    values: torch.Tensor
+    scale: torch.Tensor
+    zero_point: torch.Tensor
+
+    def dequant(self):
+        return (self.values.float() + self.zero_point) / self.scale
+
+
+@torch.no_grad()
+def quantize_act_int8(x, k, x_min, x_max):
+    """int8 storage of f32 activations from frozen EMA ranges: the scale
+    and zero point of `fake_quant_act`, values clamped to the signed window
+    [-2^(k-1), 2^(k-1) - 1] (the clamp=True fake-quant, exactly)."""
+    n = 2 ** k - 1
+    scale = _over(n, torch.clamp(x_max - x_min, min=1e-10))
+    zero_point = torch.round(scale * x_min) + 2 ** (k - 1)
+    q = torch.round(scale * x - zero_point)
+    q = torch.clamp(q, -(2 ** (k - 1)), 2 ** (k - 1) - 1)
+    return QTensor(q.to(torch.int8), scale.float(), zero_point.float())
+
+
+@torch.no_grad()
+def quantize_weight_int(w_oihw, k, percentile=False):
+    """Integer weight levels (int8 tensor, OIHW) and the per-output-channel
+    f32 scale, w ~= q / scale: the ranges and rounding of
+    `fake_quant_weight`."""
+    o = w_oihw.shape[0]
+    w_min, w_max = weight_channel_min_max(w_oihw.reshape(o, -1), percentile)
+    magnitude = torch.maximum(w_min.abs(), w_max.abs())
+    scale = _over(2 ** (k - 1) - 1, torch.clamp(magnitude, min=1e-10))
+    q = torch.round(w_oihw * scale[:, None, None, None])
+    q = torch.clamp(q, -(2 ** (k - 1)), 2 ** (k - 1) - 1)
+    return q.to(torch.int8), scale.float()
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def int8_conv_terms(values, q_w, stride=1, padding=1, groups=1):
+    """The integer parts of `int8_conv`, as exact f32: the accumulator
+    conv(values, q_w) and the zero-point factor, the sum of q_w over the
+    taps that fall inside the map.
+
+    Every operand is an int8 level (|v| <= 128) or a weight level (|q| <=
+    128), exact in f32 and in TF32 (11 significant bits), and every
+    partial sum of config a stays far below 2^24, so a float conv of the
+    integer values sums exactly in any order. Unpadded 1x1 convs are a
+    matmul of the (positions, Cin) values, their factor a per-channel
+    constant (O,); the rest are a conv, their factor a conv of a ones map
+    with the channel-summed kernel, (1, O, Ho, Wo)."""
+    stride, padding = _pair(stride), _pair(padding)
+    o, _, kh, kw = q_w.shape
+    wf = q_w.float()
+    if (kh, kw) == (1, 1) and groups == 1 and padding == (0, 0):
+        v = values[:, :, ::stride[0], ::stride[1]]
+        n, cin, ho, wo = v.shape
+        rows = v.permute(0, 2, 3, 1).reshape(-1, cin).float()
+        acc = (rows @ wf.reshape(o, cin).t()).reshape(n, ho, wo, o)
+        return acc.permute(0, 3, 1, 2), wf.sum((1, 2, 3))
+    acc = F.conv2d(values.float(), wf, None, stride, padding, 1, groups)
+    ones = wf.new_ones((1, 1) + tuple(values.shape[2:]))
+    valid_wsum = F.conv2d(ones, wf.sum(1, keepdim=True), None, stride,
+                          padding)
+    return acc, valid_wsum
+
+
+def int8_conv(qx, q_w, w_scale, bias, stride=1, padding=1, groups=1):
+    """Integer convolution with fused requantization (the JAX package's
+    quant.py:225-281): with x = (v + zp) / s and w = q / s_w,
+
+      conv(x, w) = (conv(v, q) + zp * taps_sum(q)) / (s * s_w) + bias,
+
+    in the JAX order of f32 operations, so the same accumulator gives the
+    same bits. qx a QTensor, q_w int8 OIHW, w_scale (O,), bias (O,) or
+    None; returns f32 NCHW."""
+    acc, wsum = int8_conv_terms(qx.values, q_w, stride, padding, groups)
+    if wsum.dim() == 1:
+        wsum = wsum[None, :, None, None]
+    y = (acc + qx.zero_point * wsum) / (
+        qx.scale * w_scale[None, :, None, None])
+    if bias is not None:
+        y = y + bias[None, :, None, None]
+    return y

@@ -176,3 +176,112 @@ def test_kernel_backward_matches_plain_on_card(shape, n, dtype, cuda_device):
         assert err <= tol * scale, (name, err, scale)
     bounds = torch.from_numpy((s == -7.0) | (s == 8.0)).to(cuda_device)
     assert float(st.grad[bounds].abs().max()) == 0.0
+
+
+# -- real-int8 eval --------------------------------------------------------------
+
+def _int8_model(device):
+    """Config a (1x, VOC heads) with int8_infer on `device`, its ranges
+    from two fake-quant update passes on a random 256^2 batch."""
+    from codenet_torch.models import create_model
+    from codenet_torch.models.layers import QuantSpec
+    heads = {"hm": 20, "wh": 2, "reg": 2}
+    fake = create_model("shufflenetv2", heads, 64, qspec=QuantSpec(),
+                        device=device)
+    images = torch.randn(2, 256, 256, 3,
+                         generator=torch.Generator().manual_seed(18))
+    with torch.no_grad():
+        for _ in range(2):
+            fake(images.to(device), update_stats=True)
+    model = create_model("shufflenetv2", heads, 64,
+                         qspec=QuantSpec(int8_infer=True), device=device)
+    model.load_state_dict(fake.state_dict())
+    return model, images
+
+
+@pytest.mark.cuda
+def test_int8_conv_route_bit_exact_on_card(cuda_device, monkeypatch):
+    """Every int8 conv of one config-a forward (batch 2, 256^2): the
+    card's accumulator and zero-point factor equal the exact f64 ones of
+    the same integers, and the requantized output equals the CPU's bit
+    for bit."""
+    from codenet_torch.ops import quant as Q
+    model, images = _int8_model(cuda_device)
+    calls = []
+    conv = Q.int8_conv
+
+    def record(qx, q_w, w_scale, bias, *args):
+        calls.append((qx, q_w, w_scale, bias, args))
+        return conv(qx, q_w, w_scale, bias, *args)
+    monkeypatch.setattr(Q, "int8_conv", record)
+    with torch.no_grad():
+        model(images.to(cuda_device))
+    assert len(calls) == 73 - 3  # every int8 conv; the deform kernels aside
+    for qx, q_w, w_scale, bias, args in calls:
+        acc, wsum = Q.int8_conv_terms(qx.values, q_w, *args)
+        ref_acc, ref_wsum = Q.int8_conv_terms(qx.values.cpu().double(),
+                                              q_w.cpu().double(), *args)
+        assert torch.equal(acc.cpu().double(), ref_acc), q_w.shape
+        assert torch.equal(wsum.cpu().double(), ref_wsum), q_w.shape
+        cpu = conv(Q.QTensor(*(t.cpu() for t in qx)), q_w.cpu(),
+                   w_scale.cpu(), None if bias is None else bias.cpu(),
+                   *args)
+        assert torch.equal(conv(qx, q_w, w_scale, bias, *args).cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_int8_deform_block_launches_bf16_kernel(cuda_device, monkeypatch):
+    """deconv0's block in int8 (8x8x1024 -> 256, batch 2) on a QTensor:
+    one forward-kernel launch, in bf16 with the bf16 weight; its samples
+    agree with the plain version's on the CPU within 3e-2 (one bf16
+    rounding) and the block's output within 1e-2 relative L2 (a sample
+    that rounds the other way moves one level of deform_act)."""
+    from codenet_torch.models.layers import CodesignDeformBlock, QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import quant as Q
+    gen = torch.Generator().manual_seed(19)
+    block = CodesignDeformBlock(1024, 256, qspec=QuantSpec(int8_infer=True))
+    block.reset_parameters(gen)
+    bn = torch.nn.BatchNorm2d(256).eval()
+    with torch.no_grad():
+        block.conv_scale.weight.normal_(0.0, 3.0 / 32, generator=gen)
+        block.conv_scale.bias.fill_(0.5)
+        block.scale_act.x_min.fill_(-7.0)
+        block.scale_act.x_max.fill_(8.0)
+        block.deform_act.x_min.fill_(-0.5)
+        block.deform_act.x_max.fill_(0.5)
+    values = torch.randint(-128, 128, (2, 1024, 8, 8), generator=gen,
+                           dtype=torch.int8)
+    qx = Q.QTensor(values.contiguous(memory_format=torch.channels_last),
+                   torch.tensor([40.0]), torch.tensor([3.0]))
+    samples = {}
+    fast = DC.codesign_deform_conv_fast
+    launch = DC._launch
+    dtypes = []
+
+    def record(x, s, w):
+        dtypes.append((x.dtype, w.dtype))
+        return launch(x, s, w)
+
+    def deform(x, s, w):
+        y = fast(x, s, w)
+        samples[x.device.type] = (x, s, w, y)
+        return y
+    monkeypatch.setattr(DC, "_launch", record)
+    import codenet_torch.models.layers as L
+    monkeypatch.setattr(L, "codesign_deform_conv_fast", deform)
+    with torch.no_grad():
+        cpu = block(qx, bn)
+        block.to(cuda_device)
+        bn.to(cuda_device)
+        before = DC.LAUNCHES
+        card = block(Q.QTensor(*(t.to(cuda_device) for t in qx)), bn)
+        torch.cuda.synchronize()
+    assert DC.LAUNCHES == before + 1
+    assert dtypes == [(torch.bfloat16, torch.bfloat16)]
+    x, s, w, y = samples["cuda"]
+    ref = DC.codesign_deform_conv_plain(x.cpu(), s.cpu(), w.cpu())
+    assert float((y.cpu().float() - ref.float()).abs().max()) <= 3e-2
+    assert torch.equal(x.cpu(), samples["cpu"][0])
+    err = float((card.cpu() - cpu).norm() / cpu.norm())
+    assert err <= 1e-2, err

@@ -131,7 +131,7 @@ def test_pre_process_letterbox(detectors):
 
 @pytest.mark.parametrize("extra", [["--nms"], ["--test_scales", "0.5,1"],
                                    ["--keep_res"],
-                                   ["--resume-quantize", "--int8_infer"]])
+                                   ["--dtype", "bfloat16"]])
 def test_unserved_options_raise(extra):
     with pytest.raises(NotImplementedError):
         CtdetDetector(_opt(tcfg, ARGS + extra), device="cpu")

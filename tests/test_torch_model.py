@@ -88,7 +88,7 @@ def test_init_is_seeded_and_matches_jax_rules():
 
 
 @pytest.mark.parametrize("kwargs", [dict(arch="res_18"),
-                                    dict(qspec=TL.QuantSpec(int8_infer=True)),
+                                    dict(deform_backbone=True),
                                     dict(dtype="bfloat16")])
 def test_unported_options_raise(kwargs):
     args = dict(arch="shufflenetv2", heads=HEADS, head_conv=64,
