@@ -5,9 +5,9 @@
 Builds the co-designed deform conv kernels (codenet_torch/csrc/
 deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
 against its plain PyTorch version at the shapes the model gives it (the
-forward at batches 2, 32, 64 and 128) and at ragged ones, timing both.
-Then it drives the port's paths at full width (ctdet ShuffleNetV2-DCN 1x,
-256^2):
+forward at batches 2, 32, 64 and 128, and at the non-square maps of
+--keep_res requests) and at ragged ones, timing both. Then it drives the
+port's paths at full width (ctdet ShuffleNetV2-DCN 1x, 256^2):
 
 - serving: flip-test per-image requests and a batch-32 request through
   CtdetDetector, scored with the port's VOC evaluator;
@@ -24,7 +24,14 @@ Then it drives the port's paths at full width (ctdet ShuffleNetV2-DCN 1x,
   fake-quant heads; every int8 conv's accumulator held to the exact
   integers; the int8 and fake-quant forwards timed; `cli.test
   --int8_infer` on the CLI's QAT checkpoint and on its artifact
-  (tools_torch/export_w4a8.py).
+  (tools_torch/export_w4a8.py);
+- the image cache (--device_cache): the train frames on the card, a
+  cache batch against a host batch, the cache loader and timed steps
+  beside the host ones, and `cli.main --device_cache`;
+- batched eval (`cli.test --batch_eval 32`) with the host warp,
+  --device_warp and --device_cache;
+- multi-scale flip-test requests merged by soft-NMS, at fix_res with
+  --nms and with --keep_res, card vs CPU port.
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -70,7 +77,24 @@ BATCHES = [2, 32, 64, 128]
 RAGGED_BATCHES = [2, 128]
 BWD_BATCHES = [32, 128]
 TRAIN_BATCH = 32
+RES = 256  # the served and trained input (config a)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# --keep_res kernel cases: VOC's two frame shapes (h, w) at these scales
+KEEP_RES_FRAMES = [(375, 500), (500, 375)]
+KEEP_RES_SCALES = [0.5, 1.0, 1.5]
+# the multi-scale flip test (CenterNet's published protocol)
+TEST_SCALES = "0.5,0.75,1,1.25,1.5"
+# multi-scale requests that the CPU port also answers, for card vs CPU
+CPU_REQUESTS = 4
+# card vs CPU on merged multi-scale detections: at least MATCH_SHARE of
+# the boxes within BOX_TOL px and SCORE_TOL of score
+MATCH_SHARE, BOX_TOL, SCORE_TOL = 0.97, 1e-2, 1e-4
+# --device_warp vs the host warp (tests/test_batch_eval.py's criterion):
+# at least MATCH_SHARE of the boxes within 1 px and 0.05 of score
+WARP_BOX_TOL, WARP_SCORE_TOL = 1.0, 0.05
+# the cache path's warped pixels (f32, unrounded) vs the host path's
+# uint8 ones: half a level, plus f32 rounding
+CACHE_PIXEL_TOL = 0.5 + 1e-3
 # card vs CPU on one train / QAT step: loss, and gradients (relative L2
 # over all parameters; the median tensor and each deform-block tensor
 # relative to its max)
@@ -199,51 +223,85 @@ def _case(shape, n, dtype, gen):
     return x, s, wt
 
 
+def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
+    """One forward case: the kernel (one launch) against its plain version
+    on the same inputs, both timed, with the bound and the launch plan
+    (deform_cuda.fwd_plan); emitted, and the script ends if it fails."""
+    from codenet_torch.ops import deform_cuda as DC
+    x, s, wt = _case(shape, n, dtype, gen)
+    before = DC.LAUNCHES
+    out = DC.codesign_deform_conv_fast(x, s, wt)
+    torch.cuda.synchronize()
+    launched = DC.LAUNCHES - before
+    ref = DC.codesign_deform_conv_plain(x, s, wt)
+    err = float((out.float() - ref.float()).abs().max())
+    ms = graph_time_ms(lambda: DC.codesign_deform_conv_fast(x, s, wt), iters)
+    call_ms = cuda_time_ms(lambda: DC.codesign_deform_conv_fast(x, s, wt),
+                           iters)
+    plain_ms = graph_time_ms(lambda: DC.codesign_deform_conv_plain(x, s, wt),
+                             10)
+    elems = x.numel()
+    nbytes = 2 * elems * x.element_size() + s.numel() * 4 + 9 * shape[2] * 4
+    t_bytes = nbytes / bw * 1e3
+    t_ops = elems * FLOPS_PER_OUT / flops * 1e3
+    plan = DC.fwd_plan(n, *shape, dtype)
+    row = {"phase": phase, "shape": list(shape), "n": n,
+           "dtype": str(dtype).split(".")[-1],
+           **{k: plan[k] for k in ("rows", "cb", "vec", "threads",
+                                   "smem_bytes", "blocks")},
+           "max_abs_err": err, "tol": TOL[dtype], "launches": launched,
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_us": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "model_shape": shape in MODEL_SHAPES}
+    emit(row)
+    if launched != 1 or not err <= TOL[dtype]:
+        raise SystemExit("{} check failed: {}".format(phase, row))
+    return row
+
+
 def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
     batch, dtype; each row with its launch plan (deform_cuda.fwd_plan)."""
-    from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED)
-    rows = []
-    for shape in BWD_SHAPES:
-        for n in BATCHES if shape in MODEL_SHAPES else RAGGED_BATCHES:
-            for dtype in (torch.float32, torch.bfloat16):
-                x, s, wt = _case(shape, n, dtype, gen)
-                before = DC.LAUNCHES
-                out = DC.codesign_deform_conv_fast(x, s, wt)
-                torch.cuda.synchronize()
-                launched = DC.LAUNCHES - before
-                ref = DC.codesign_deform_conv_plain(x, s, wt)
-                err = float((out.float() - ref.float()).abs().max())
-                ms = graph_time_ms(
-                    lambda: DC.codesign_deform_conv_fast(x, s, wt), 200)
-                call_ms = cuda_time_ms(
-                    lambda: DC.codesign_deform_conv_fast(x, s, wt), 200)
-                plain_ms = graph_time_ms(
-                    lambda: DC.codesign_deform_conv_plain(x, s, wt), 10)
-                elems = x.numel()
-                nbytes = 2 * elems * x.element_size() + s.numel() * 4 \
-                    + 9 * shape[2] * 4
-                t_bytes = nbytes / bw * 1e3
-                t_ops = elems * FLOPS_PER_OUT / flops * 1e3
-                plan = DC.fwd_plan(n, *shape, dtype)
-                row = {"phase": "kernel", "shape": list(shape), "n": n,
-                       "dtype": str(dtype).split(".")[-1],
-                       **{k: plan[k] for k in ("rows", "cb", "vec",
-                                               "threads", "smem_bytes",
-                                               "blocks")},
-                       "max_abs_err": err, "tol": TOL[dtype],
-                       "launches": launched, "ms": ms, "call_ms": call_ms,
-                       "plain_ms": plain_ms,
-                       "bound_us": max(t_bytes, t_ops) * 1e3,
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations",
-                       "model_shape": shape in MODEL_SHAPES}
-                emit(row)
-                rows.append(row)
-                if launched != 1 or not err <= TOL[dtype]:
-                    raise SystemExit("kernel check failed: {}".format(row))
-    return rows
+    return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
+            for shape in BWD_SHAPES
+            for n in (BATCHES if shape in MODEL_SHAPES else RAGGED_BATCHES)
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def keep_res_maps(height, width, scale):
+    """(H, W, C) of the three deform calls of a --keep_res request for a
+    height x width frame at `scale`: input (new | 31) + 1 on each side,
+    deconv maps at /32, /16 and /8 (engine/detector.py::pre_process)."""
+    ih = (int(height * scale) | 31) + 1
+    iw = (int(width * scale) | 31) + 1
+    return [(ih // 32, iw // 32, 1024), (ih // 16, iw // 16, 256),
+            (ih // 8, iw // 8, 128)]
+
+
+def phase_kernel_keep_res(bw, flops):
+    """The forward kernel vs its plain version at the --keep_res maps of a
+    500x375 and a 375x500 frame at scales 0.5, 1 and 1.5 (flip-test batch
+    2, f32): non-square, changing per image, never run by the fixed 256^2
+    paths. Returns the rows and, per request (frame, scale), the three
+    calls' summed ms and bound."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = {}
+    per_request = {}
+    for h, w in KEEP_RES_FRAMES:
+        for scale in KEEP_RES_SCALES:
+            shapes = keep_res_maps(h, w, scale)
+            for shape in shapes:
+                if shape not in rows:
+                    rows[shape] = _fwd_row("kernel_keep_res", shape, 2,
+                                           torch.float32, gen, bw, flops, 50)
+            per_request["{}x{}@{}".format(w, h, scale)] = {
+                "ms": sum(rows[sh]["ms"] for sh in shapes),
+                "bound_ms": sum(rows[sh]["bound_us"] for sh in shapes) / 1e3,
+                "plain_ms": sum(rows[sh]["plain_ms"] for sh in shapes)}
+    emit({"phase": "kernel_keep_res_requests", "requests": per_request})
+    return list(rows.values()), per_request
 
 
 def _bwd_case(shape, n, dtype, gen):
@@ -495,7 +553,7 @@ class SmokeData:
 
     def args(self, batch, *extra):
         return ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
-                "--input_res", "256", "--batch_size", str(batch),
+                "--input_res", str(RES), "--batch_size", str(batch),
                 "--num_workers", "8", "--data_dir", str(self.data_dir),
                 *extra]
 
@@ -596,33 +654,52 @@ def step_parity(data, state_dict, qspec=None):
     return out, ok
 
 
-def timed_steps(trainer, batches):
+def timed_steps(trainer, batches, cache=None):
     """Train steps on the card, each timed with CUDA events; per-step
-    deform launches and losses."""
+    deform launches and losses (timed_steps_in_turns with one path)."""
+    return timed_steps_in_turns({"run": (trainer, batches, cache)})["run"]
+
+
+def timed_steps_in_turns(paths):
+    """Train steps on the card, each timed with CUDA events. `paths` maps a
+    name to (trainer, batches, cache): step i of every path runs before
+    step i + 1 of any, so that the paths compare in turns on one card
+    state. Per path: each step's ms, deform launches and loss. Image
+    cache batches (img_idx) read the device-resident stack `cache`, as
+    Trainer.run_epoch hands it them."""
     from codenet_torch.engine.trainer import batch_to_device
     from codenet_torch.ops import deform_cuda as DC
-    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the counts are this path's own
-    ms, losses, per_step = [], [], []
-    for batch in batches:
-        dev = batch_to_device(batch, "cuda")
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
-        start.record()
-        stats = trainer.train_step(dev)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-        losses.append(float(stats["loss"]))
-        per_step.append([DC.LAUNCHES - before[0],
-                         DC.BWD_LAUNCHES - before[1]])
-    steady = float(np.median(ms[1:]))
-    return {"steps": len(batches), "batch": TRAIN_BATCH, "ms_per_step": ms,
-            "ms_per_step_steady_median": steady,
-            "img_per_s": TRAIN_BATCH / steady * 1e3, "losses": losses,
-            "launches_fwd": DC.LAUNCHES, "launches_bwd": DC.BWD_LAUNCHES,
-            "launches_per_step": per_step}
+    runs = {name: {"ms": [], "losses": [], "per_step": []} for name in paths}
+    for i in range(min(len(b) for _, b, _ in paths.values())):
+        for name, (trainer, batches, cache) in paths.items():
+            dev = batch_to_device(batches[i], "cuda")
+            if cache is not None:
+                dev["cache_images"] = cache
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+            start.record()
+            stats = trainer.train_step(dev)
+            end.record()
+            torch.cuda.synchronize()
+            run = runs[name]
+            run["ms"].append(start.elapsed_time(end))
+            run["losses"].append(float(stats["loss"]))
+            run["per_step"].append([DC.LAUNCHES - before[0],
+                                    DC.BWD_LAUNCHES - before[1]])
+    out = {}
+    for name, run in runs.items():
+        steady = float(np.median(run["ms"][1:]))
+        out[name] = {
+            "steps": len(run["ms"]), "batch": TRAIN_BATCH,
+            "ms_per_step": run["ms"], "ms_per_step_steady_median": steady,
+            "img_per_s": TRAIN_BATCH / steady * 1e3,
+            "losses": run["losses"],
+            "launches_fwd": sum(p[0] for p in run["per_step"]),
+            "launches_bwd": sum(p[1] for p in run["per_step"]),
+            "launches_per_step": run["per_step"]}
+    return out
 
 
 def phase_train(data):
@@ -648,8 +725,8 @@ def phase_train(data):
     trainer = Trainer(opt, device="cuda")
     trainer.init()
     run = timed_steps(trainer, batches)
-    emit({"phase": "train", **run, "loader_ms_per_batch": loader_ms,
-          "loader_workers": opt.num_workers})
+    run.update(loader_ms_per_batch=loader_ms, loader_workers=opt.num_workers)
+    emit({"phase": "train", **run})
     if not np.all(np.isfinite(run["losses"])) or any(
             s != [3, 3] for s in run["launches_per_step"]):
         raise SystemExit("train check failed")
@@ -979,6 +1056,281 @@ def phase_int8(data, qat_model, bw, flops):
     return served, cli_launches, bf16
 
 
+def _cli_log(fn, argv):
+    """Run a CLI entry point with its stdout captured: (text, seconds)."""
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        fn(argv)
+    return log.getvalue(), time.perf_counter() - t0
+
+
+def _lines_with(text, word):
+    return [ln.strip() for ln in text.splitlines() if word in ln]
+
+
+def phase_devcache(data, train_run, host_batches):
+    """Training from the image cache (--device_cache): the 64 train frames
+    on the card; one --no_color_aug batch through the cache path against
+    the host path (same rng: equal targets, the unrounded warp within
+    half a level of the host's uint8 pixels); the cache loader timed
+    beside the train phase's host loader; 12 FP32 steps at batch 32 from
+    the cache in turns with 12 on the train phase's host batches (two
+    trainers from one init), and the model input of one batch of each
+    (colour aug and normalise; the cache's gather and warp too); then
+    `cli.main --device_cache` for one short epoch and its final eval.
+    Returns the (forward, backward) launches of its training paths."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.data.affine import warp_affine_batch
+    from codenet_torch.data.device_aug import model_input
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.ops import deform_cuda as DC
+    out = {"phase": "devcache"}
+    fail = []
+    opt = data.opt(TRAIN_BATCH, "--device_cache")
+    ds = data.dataset(opt)
+    t0 = time.perf_counter()
+    cache = ImageCache.build(ds)
+    t1 = time.perf_counter()
+    stack = cache.to_device("cuda")
+    torch.cuda.synchronize()
+    out.update(images=len(ds), stack_shape=list(stack.shape),
+               stack_bytes=cache.nbytes, build_ms=(t1 - t0) * 1e3,
+               upload_ms=(time.perf_counter() - t1) * 1e3)
+    ds._image_cache_dims = cache.dims
+
+    host_ds = data.dataset(data.opt(TRAIN_BATCH, "--no_color_aug"))
+    cache_ds = data.dataset(data.opt(TRAIN_BATCH, "--no_color_aug",
+                                     "--device_cache"))
+    cache_ds._image_cache_dims = cache.dims
+    host, cached = (next(iter(DataLoader(d, TRAIN_BATCH, shuffle=True,
+                                         num_workers=8, seed=2)))
+                    for d in (host_ds, cache_ds))
+    same = [k for k in host if k != "input_u8"
+            and np.array_equal(host[k], cached[k])]
+    warped = warp_affine_batch(
+        stack, torch.from_numpy(cached["warp_ti"]).cuda(), RES, RES,
+        rows=torch.from_numpy(cached["img_idx"]).cuda())
+    pixel_err = float((warped.cpu() - torch.from_numpy(host["input_u8"])
+                       .float()).abs().max())
+    out.update(targets_equal=len(same) == len(host) - 1,
+               warped_vs_host_u8_max_err=pixel_err,
+               warped_tol=CACHE_PIXEL_TOL)
+    if len(same) != len(host) - 1 or not pixel_err <= CACHE_PIXEL_TOL:
+        fail.append("cache batch vs host batch")
+
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True,
+                        num_workers=opt.num_workers, seed=opt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < 12:
+        batches.extend(loader)
+    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
+        / len(batches)
+    out["host_loader_ms_per_batch"] = train_run["loader_ms_per_batch"]
+    trainer = Trainer(opt, device="cuda")
+    trainer.init()
+    host_trainer = Trainer(data.opt(TRAIN_BATCH), device="cuda")
+    host_trainer.init()
+    runs = timed_steps_in_turns({
+        "cache": (trainer, batches[:12], stack),
+        "host": (host_trainer, host_batches[:12], None)})
+    out["steps_in_turns"] = runs
+    out["train_phase_ms_per_step_steady_median"] = \
+        train_run["ms_per_step_steady_median"]
+    for run in runs.values():
+        if not np.all(np.isfinite(run["losses"])) or any(
+                s != [3, 3] for s in run["launches_per_step"]):
+            fail.append("steps")
+    cache_batch = batch_to_device(batches[0], "cuda")
+    host_batch = batch_to_device(host_batches[0], "cuda")
+    out["model_input_ms"] = {
+        "cache": cuda_time_ms(lambda: model_input(
+            cache_batch, trainer.mean, trainer.std, (RES, RES), stack), 20),
+        "host": cuda_time_ms(lambda: model_input(
+            host_batch, trainer.mean, trainer.std), 20)}
+
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    text, seconds = _cli_log(cli_main.main, data.args(
+        TRAIN_BATCH, "--device_cache", "--num_epochs", "1", "--num_iters",
+        "2", "--val_intervals", "-1", "--print_iter", "1", "--exp_id",
+        "chip_smoke_devcache"))
+    losses = [float(ln.split(" loss ")[1].split()[0])
+              for ln in _lines_with(text, "train epoch")]
+    ap = _lines_with(text, "Mean AP")
+    out["cli"] = {"seconds": seconds, "losses": losses,
+                  "cache_line": (_lines_with(text, "device_cache:")
+                                 or [None])[0],
+                  "mean_ap_line": ap[-1] if ap else None,
+                  "launches_fwd": DC.LAUNCHES,
+                  "launches_bwd": DC.BWD_LAUNCHES}
+    # two steps, then the final eval's 8 flip-less requests
+    if (len(losses) != 2 or not np.all(np.isfinite(losses)) or not ap
+            or not out["cli"]["cache_line"] or DC.BWD_LAUNCHES != 6
+            or DC.LAUNCHES != 6 + 3 * 8):
+        fail.append("cli")
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("devcache check failed: {}".format(fail))
+    return (sum(r["launches_fwd"] for r in runs.values()) + DC.LAUNCHES,
+            sum(r["launches_bwd"] for r in runs.values()) + DC.BWD_LAUNCHES)
+
+
+def _results_json(exp_id):
+    return json.loads((ROOT / "exp" / "ctdet" / exp_id / "results.json")
+                      .read_text())
+
+
+def phase_eval_paths(data, model):
+    """`cli.test --batch_eval 32 --flip_test` over the 8 val frames three
+    ways, from the served model's weights: the host warp, --device_warp
+    and --device_cache. Cached detections equal the device warp's; the
+    device warp's match the host warp's for MATCH_SHARE of the boxes.
+    Returns the forward launches."""
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.ops import deform_cuda as DC
+    path = str(ROOT / "exp" / "chip_smoke" / "served.pth")
+    checkpoint.save_model(path, 0, model)
+    out = {"phase": "eval_paths"}
+    fail = []
+    res = {}
+    launches = 0
+    for name, extra in (("host", []), ("device_warp", ["--device_warp"]),
+                        ("device_cache", ["--device_cache"])):
+        DC.LAUNCHES = 0
+        exp_id = "chip_smoke_eval_" + name
+        text, seconds = _cli_log(cli_test.main, data.args(
+            1, "--batch_eval", "32", "--flip_test", "--load_model", path,
+            "--exp_id", exp_id, *extra))
+        res[name] = _results_json(exp_id)
+        ap = _lines_with(text, "Mean AP")
+        out[name] = {"seconds": seconds, "launches": DC.LAUNCHES,
+                     "batched": _lines_with(text, "batched eval:"),
+                     "stages": _lines_with(text, "stages (s)"),
+                     "device_lines": _lines_with(text, "device_"),
+                     "mean_ap_line": ap[-1] if ap else None}
+        launches += DC.LAUNCHES
+        # 8 frames in one batch of 32 (64 forwards with the flipped copies)
+        if DC.LAUNCHES != 3 or not ap:
+            fail.append(name)
+    if not any("0 of 8 frames" in ln
+               for ln in out["device_warp"]["device_lines"]):
+        fail.append("device_warp took the host warp")
+    matched = total = 0
+    cache_equal = True
+    for cls in range(1, 21):
+        for h, w, c in zip(res["host"][cls], res["device_warp"][cls],
+                           res["device_cache"][cls]):
+            h, w, c = (np.asarray(d, np.float32).reshape(-1, 5)
+                       for d in (h, w, c))
+            total += len(h)
+            if w.shape != c.shape or not np.allclose(c, w, rtol=1e-5,
+                                                     atol=1e-4):
+                cache_equal = False
+            if h.shape == w.shape:
+                matched += int(((np.abs(h[:, :4] - w[:, :4]).max(axis=1)
+                                 <= WARP_BOX_TOL)
+                                & (np.abs(h[:, 4] - w[:, 4])
+                                   <= WARP_SCORE_TOL)).sum())
+    out.update(boxes=total, device_warp_vs_host_matched=matched,
+               device_warp_vs_host_share=matched / max(total, 1),
+               cache_equals_device_warp=cache_equal, failed=fail)
+    if not cache_equal:
+        fail.append("cache vs device_warp")
+    if total == 0 or matched / total < MATCH_SHARE:
+        fail.append("device_warp vs host")
+    emit(out)
+    if fail:
+        raise SystemExit("eval_paths check failed: {}".format(fail))
+    return launches
+
+
+def _match_share(ref, out):
+    """(matched, total) merged boxes of `out` within BOX_TOL px and
+    SCORE_TOL of `ref`, class by class (a class whose counts differ
+    matches nothing)."""
+    matched = total = 0
+    for j in ref:
+        a, b = ref[j], out[j]
+        total += len(a)
+        if a.shape == b.shape and len(a):
+            matched += int(((np.abs(a[:, :4] - b[:, :4]).max(axis=1)
+                             <= BOX_TOL)
+                            & (np.abs(a[:, 4] - b[:, 4]) <= SCORE_TOL)).sum())
+    return matched, total
+
+
+def phase_multiscale(model, frames):
+    """8 per-image flip-test requests at the five test scales, merged by
+    soft-NMS, two ways: --nms at fix_res RES^2, and --keep_res (each
+    frame at its own size, rounded up to a multiple of 32). Per request
+    the stage timers and the largest per-class box count soft-NMS saw;
+    the first CPU_REQUESTS requests also answered by the CPU port from
+    the same weights and frames, MATCH_SHARE of the merged boxes held to
+    BOX_TOL and SCORE_TOL. Returns the forward launches."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.ops import deform_cuda as DC
+    out = {"phase": "multiscale", "scales": TEST_SCALES}
+    fail = []
+    launches = 0
+    for name, extra in (("nms", ["--nms"]), ("keep_res", ["--keep_res"])):
+        opt = cfg.update_dataset_info_and_set_heads(
+            cfg.parse(["ctdet", "--dataset", "pascal", "--arch",
+                       "shufflenetv2", "--input_res", str(RES),
+                       "--flip_test", "--test_scales", TEST_SCALES,
+                       *extra]),
+            cfg.DATASET_SPECS["pascal"])
+        card = CtdetDetector(opt, state_dict=model.state_dict(),
+                             device="cuda")
+        cpu = CtdetDetector(opt, state_dict=model.state_dict(), device="cpu")
+        merged = card.merge_outputs
+        per_class = []
+
+        def record(detections, merged=merged, per_class=per_class):
+            per_class.append(max(sum(len(d[j]) for d in detections)
+                                 for j in detections[0]))
+            return merged(detections)
+        card.merge_outputs = record
+        DC.LAUNCHES = 0
+        rets = [card.run(f) for f in frames]
+        run_launches = DC.LAUNCHES
+        launches += run_launches
+        matched = total = 0
+        for f, ret in zip(frames[:CPU_REQUESTS], rets):
+            m, t = _match_share(cpu.run(f)["results"], ret["results"])
+            matched += m
+            total += t
+        requests = [{k: ret[k] * 1e3 for k in ("tot", "pre", "net", "dec",
+                                               "post", "merge")}
+                    for ret in rets]
+        for req, ret, n in zip(requests, rets, per_class):
+            req["dets"] = int(sum(len(v) for v in ret["results"].values()))
+            req["largest_class_boxes"] = n
+        finite = all(np.isfinite(v).all() for ret in rets
+                     for v in ret["results"].values())
+        out[name] = {"requests_ms": requests, "launches": run_launches,
+                     "card_vs_cpu_requests": CPU_REQUESTS,
+                     "card_vs_cpu_boxes": total,
+                     "card_vs_cpu_matched": matched,
+                     "card_vs_cpu_share": matched / max(total, 1)}
+        scales = len(TEST_SCALES.split(","))
+        if run_launches != 3 * scales * len(frames) or not finite:
+            fail.append(name + " launches or values")
+        if total == 0 or matched / total < MATCH_SHARE:
+            fail.append(name + " card vs cpu")
+    out.update(tol={"share": MATCH_SHARE, "box_px": BOX_TOL,
+                    "score": SCORE_TOL}, failed=fail)
+    emit(out)
+    if fail:
+        raise SystemExit("multiscale check failed: {}".format(fail))
+    return launches
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -1013,6 +1365,7 @@ def main(argv=None):
     phase_build()
     rows = phase_kernels(bw, flops)
     bwd_rows = phase_kernel_bwd(bw, flops)
+    keep_res_rows, keep_res_requests = phase_kernel_keep_res(bw, flops)
     model = build_served_model()
     phase_model(model)
     serve_launches = phase_detector(model)
@@ -1022,6 +1375,9 @@ def main(argv=None):
     phase_cli(data)
     int8_launches, int8_cli_launches, int8_bf16 = phase_int8(
         data, qat_model, bw, flops)
+    cache_fwd, cache_bwd = phase_devcache(data, train_run, batches)
+    eval_paths_launches = phase_eval_paths(data, model)
+    multiscale_launches = phase_multiscale(model, synthetic_frames(8)[0])
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -1039,9 +1395,12 @@ def main(argv=None):
         replaces("_fwd_kernel"),
         serve_launches + train_run["launches_fwd"]
         + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
-        + int8_cli_launches, rows,
+        + int8_cli_launches + cache_fwd + eval_paths_launches
+        + multiscale_launches, rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
+    # and the three calls of each --keep_res request of the kernel cases
+    fwd_entry["keep_res_requests"] = keep_res_requests
     # and the three calls of one train forward (batch 32, f32), and of one
     # int8 served forward (batch 2, bf16, the weight cast included)
     fwd_entry["ms_train_forward"] = sum(
@@ -1052,15 +1411,16 @@ def main(argv=None):
         int8_bf16["bound_ms_int8_forward_bf16"]
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
-        # over the serving, training, QAT, fake-quant eval and int8 eval
-        # paths
+        # over the serving, training, QAT, fake-quant eval, int8 eval,
+        # image-cache training, batched eval and multi-scale paths
         fwd_entry,
         # backward: one train step's three calls (batch 32, f32); launches
-        # over the FP32 and QAT training paths
+        # over the FP32, QAT and image-cache training paths
         kernel_line_entry(
             "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
             replaces("_bwd_kernel"),
-            train_run["launches_bwd"] + qat_run["launches_bwd"], bwd_rows,
+            train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd,
+            bwd_rows,
             lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
             and r["dtype"] == "float32")]})
     emit({"ok": True, "device": {"platform": "gpu",

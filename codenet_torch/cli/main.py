@@ -9,7 +9,9 @@ last checkpoint (reference quant_main.py:104-107).
         --arch shufflenetv2 --input_res 256 --batch_size 32 [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
-Checkpoints are .pth files in exp/ctdet/<exp_id>/.
+``--device_cache`` holds the train split's raw frames on the device and
+warps them there; ``--host_normalize`` augments and normalises on the
+host (the reference's path). Checkpoints are .pth files in exp/ctdet/<exp_id>/.
 """
 
 from __future__ import annotations
@@ -53,7 +55,17 @@ def run_training(opt, qspec=None):
 
     val_loader = DataLoader(Dataset(opt, "val"), 1, shuffle=False,
                             num_workers=1)
-    train_loader = DataLoader(Dataset(opt, "train"), opt.batch_size,
+    train_dataset = Dataset(opt, "train")
+    if opt.device_cache:
+        # the raw frames on the card, copied once; steps then ship only
+        # row indices, warp matrices and targets (data/device_cache.py)
+        from ..data.device_cache import ImageCache
+        cache = ImageCache.build(train_dataset)
+        train_dataset._image_cache_dims = cache.dims
+        trainer.image_cache = cache.to_device(trainer.device)
+        print("device_cache: {} images, {:.1f} MB -> {}".format(
+            len(train_dataset), cache.nbytes / 1e6, trainer.device))
+    train_loader = DataLoader(train_dataset, opt.batch_size,
                               shuffle=True, num_workers=opt.num_workers,
                               seed=opt.seed)
 

@@ -7,9 +7,9 @@ the PyTorch package imports nothing from it.
 
 ``--gpus`` keeps the reference meaning: ``--gpus -1`` runs on the CPU,
 anything else on the CUDA card. Flags that only the JAX package implements
-(device warp/cache, spatial sharding, quantized eval, ...) are accepted so
-command lines stay interchangeable; the PyTorch entry points that do not
-implement one raise when it is set.
+(the sharded image cache, spatial sharding, the bf16 model, ...) are
+accepted so command lines stay interchangeable; the PyTorch entry points
+that do not implement one raise when it is set.
 
 Reference: lib/opts.py:9-386.
 """

@@ -2,9 +2,13 @@
 
 The reference's 3-point affine construction (lib/utils/image.py:14-61),
 shared by input warping, target placement and detection back-projection,
-solved in closed form in numpy; a torch bilinear `warp_affine` that takes
-the place of cv2.warpAffine in the detector's letterbox pre-process and the
-training sampler; and the CornerNet `gaussian_radius` of the ctdet targets.
+solved in closed form in numpy; a torch bilinear warp, batched over images
+with one matrix each (`warp_affine_batch`), that takes the place of
+cv2.warpAffine in the detector's letterbox pre-process, the training
+sampler and the device warp of the image cache; a torch bilinear
+`resize_u8` in place of cv2.resize for test scales other than 1 and
+--keep_res; and the CornerNet `gaussian_radius` and gaussian splat of the
+ctdet targets.
 """
 
 from __future__ import annotations
@@ -91,42 +95,85 @@ def transform_preds(coords, center, scale, output_size):
     return target_coords
 
 
-def warp_affine(image, trans_inv, out_h, out_w):
-    """Bilinear affine warp; `trans_inv` (2, 3) maps OUTPUT px -> INPUT px.
+def warp_affine_batch(images, trans_inv, out_h, out_w, rows=None):
+    """Bilinear affine warp of a batch, one (2, 3) matrix per output image;
+    `trans_inv` maps OUTPUT px -> INPUT px.
 
     cv2.warpAffine(..., INTER_LINEAR, borderValue=0) semantics for the
-    scale/translate letterbox transforms the detector uses (reference
-    lib/detectors/base_detector.py:62-66): each of the four corners is
-    zeroed separately outside the source image. Interpolation is f32
-    (cv2 interpolates uint8 in fixed point, so results differ from it by
-    rounding).
+    scale/translate transforms of the letterbox and the training crop
+    (reference lib/detectors/base_detector.py:62-66): each of the four
+    corners is zeroed separately outside the source image (its (H, W),
+    padding included). Interpolation is in the images' float type, f32 for
+    uint8 images (cv2 interpolates uint8 in fixed point, so results differ
+    from it by rounding).
 
-    image: (H, W, C) float tensor. Returns (out_h, out_w, C) on its device.
+    images: (N, H, W, C) tensor; trans_inv: (B, 2, 3); rows: (B,) indices
+    of the image each output warps (default: output b warps image b, B ==
+    N). The four corners are four gathers over the whole batch from the
+    flat (N * H * W, C) pixels, converted to float after the gather.
+    Returns (B, out_h, out_w, C) on the images' device.
     """
-    h, w = image.shape[0], image.shape[1]
-    t = torch.as_tensor(np.asarray(trans_inv, np.float32),
-                        device=image.device)
-    ys = torch.arange(out_h, dtype=torch.float32, device=image.device)
-    xs = torch.arange(out_w, dtype=torch.float32, device=image.device)
+    n, h, w, c = images.shape
+    dev = images.device
+    dtype = images.dtype if images.is_floating_point() else torch.float32
+    t = torch.as_tensor(trans_inv, dtype=torch.float32, device=dev)
+    b = t.shape[0]
+    base = (torch.arange(b, device=dev) if rows is None
+            else torch.as_tensor(rows, device=dev).long()) * (h * w)
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # (out_h, out_w)
-    sx = t[0, 0] * gx + t[0, 1] * gy + t[0, 2]
-    sy = t[1, 0] * gx + t[1, 1] * gy + t[1, 2]
+
+    def coef(i, j):
+        return t[:, i, j, None, None]
+
+    sx = coef(0, 0) * gx + coef(0, 1) * gy + coef(0, 2)  # (B, out_h, out_w)
+    sy = coef(1, 0) * gx + coef(1, 1) * gy + coef(1, 2)
 
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
-    fx = (sx - x0).unsqueeze(-1).to(image.dtype)
-    fy = (sy - y0).unsqueeze(-1).to(image.dtype)
+    fx = (sx - x0).unsqueeze(-1).to(dtype)
+    fy = (sy - y0).unsqueeze(-1).to(dtype)
     x0i = x0.long()
     y0i = y0.long()
+    flat = images.reshape(n * h * w, c)
+    base = base[:, None, None]
 
     def sample(yi, xi):
         valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        v = image[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
-        return v * valid.unsqueeze(-1).to(image.dtype)
+        idx = base + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        v = flat[idx].to(dtype)                          # (B, oh, ow, C)
+        return v * valid.unsqueeze(-1).to(dtype)
 
     top = sample(y0i, x0i) * (1 - fx) + sample(y0i, x0i + 1) * fx
     bot = sample(y0i + 1, x0i) * (1 - fx) + sample(y0i + 1, x0i + 1) * fx
     return top * (1 - fy) + bot * fy
+
+
+def warp_affine(image, trans_inv, out_h, out_w):
+    """`warp_affine_batch` of one (H, W, C) image with one (2, 3) matrix;
+    returns (out_h, out_w, C)."""
+    return warp_affine_batch(image[None],
+                             np.asarray(trans_inv, np.float32)[None],
+                             out_h, out_w)[0]
+
+
+def resize_u8(image, new_w, new_h):
+    """Bilinear resize of a uint8 (H, W, C) numpy image to (new_h, new_w):
+    the stand-in for cv2.resize(INTER_LINEAR) on a machine without cv2.
+    Half-pixel centres, no antialias (torch `interpolate`, align_corners
+    False), rounded half to even and clamped to uint8; the identity at the
+    same size. cv2 interpolates uint8 in 11-bit fixed point: the two differ
+    by at most one level."""
+    h, w = image.shape[0], image.shape[1]
+    if (new_h, new_w) == (h, w):
+        return image.copy()
+    x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)
+    out = torch.nn.functional.interpolate(
+        x[None].float(), size=(new_h, new_w), mode="bilinear",
+        align_corners=False, antialias=False)[0]
+    return out.round_().clamp_(0, 255).to(torch.uint8).permute(1, 2, 0) \
+        .contiguous().numpy()
 
 
 def invert_affine(trans):
@@ -142,8 +189,8 @@ def warp_affine_u8(image, trans_inv, out_h, out_w):
     OpenCV 5.0 gives the same pixels; builds that snap coordinates to
     1/32 px and interpolate in fixed point differ by a few levels at
     edges."""
-    warped = warp_affine(torch.from_numpy(np.ascontiguousarray(image))
-                         .float(), trans_inv, out_h, out_w)
+    warped = warp_affine(torch.from_numpy(np.ascontiguousarray(image)),
+                         trans_inv, out_h, out_w)
     return warped.round_().clamp_(0, 255).to(torch.uint8).numpy()
 
 
@@ -169,3 +216,34 @@ def gaussian_radius(det_size, min_overlap=0.7):
     sq3 = np.sqrt(b3 ** 2 - 4 * a3 * c3)
     r3 = (b3 + sq3) / 2
     return min(r1, r2, r3)
+
+
+def gaussian2D(shape, sigma=1):
+    """Unnormalised 2D gaussian, tails below eps * max zeroed (reference
+    lib/utils/image.py:113-119)."""
+    m, n = [(ss - 1.0) / 2.0 for ss in shape]
+    y, x = np.ogrid[-m:m + 1, -n:n + 1]
+    h = np.exp(-(x * x + y * y) / (2 * sigma * sigma))
+    h[h < np.finfo(h.dtype).eps * h.max()] = 0
+    return h
+
+
+def draw_umich_gaussian(heatmap, center, radius, k=1):
+    """Max-splat a gaussian onto a (H, W) heatmap in place (reference
+    lib/utils/image.py:122-137): the host-drawn heatmap of
+    --host_normalize batches."""
+    diameter = 2 * radius + 1
+    gaussian = gaussian2D((diameter, diameter), sigma=diameter / 6)
+
+    x, y = int(center[0]), int(center[1])
+    height, width = heatmap.shape[0:2]
+
+    left, right = min(x, radius), min(width - x, radius + 1)
+    top, bottom = min(y, radius), min(height - y, radius + 1)
+
+    masked_heatmap = heatmap[y - top:y + bottom, x - left:x + right]
+    masked_gaussian = gaussian[radius - top:radius + bottom,
+                               radius - left:radius + right]
+    if min(masked_gaussian.shape) > 0 and min(masked_heatmap.shape) > 0:
+        np.maximum(masked_heatmap, masked_gaussian * k, out=masked_heatmap)
+    return heatmap

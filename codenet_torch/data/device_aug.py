@@ -1,12 +1,13 @@
 """Input preprocessing and target rendering on the model's device (the JAX
 package's data/device_aug.py).
 
-The sampler ships the warped uint8 image plus 7 floats of per-sample
-augmentation state; brightness/contrast/saturation/PCA lighting and the
-normalisation run on the device, and the ctdet focal-loss heatmap is
-rendered there from the sparse object list. The host draws the random
-state in the reference's order (`draw_color_aug_params`), so the stream
-is the reference's.
+The sampler ships the warped uint8 image (or, with the image cache, a row
+index and a warp matrix: the warp runs here too) plus 7 floats of
+per-sample augmentation state; brightness/contrast/saturation/PCA
+lighting and the normalisation run on the device, and the ctdet
+focal-loss heatmap is rendered there from the sparse object list. The
+host draws the random state in the reference's order
+(`draw_color_aug_params`), so the stream is the reference's.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import itertools
 
 import numpy as np
 import torch
+
+from .affine import warp_affine_batch
 
 # canonical order of the 3 ops; a permutation index selects execution order
 PERMS = list(itertools.permutations((0, 1, 2)))
@@ -89,13 +92,21 @@ def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std):
     return (img - mean) / std
 
 
-def model_input(batch, mean, std):
-    """The model input of a batch: the device path (input_u8 + aug state)
-    or a host-normalised f32 'input'. The HBM image cache's `img_idx`
-    batches are not ported."""
+def model_input(batch, mean, std, out_hw=None, cache=None):
+    """The model input of a batch: the image cache path (img_idx + warp_ti
+    against `cache`, the device-resident (N, Hc, Wc, 3) uint8 stack of
+    data/device_cache.py, warped to out_hw = (input_h, input_w)), the
+    device path (input_u8 + aug state) or a host-normalised f32 'input'.
+
+    The cache path warps in f32 and is not rounded to uint8 (the host path
+    is): the JAX package's arithmetic."""
     if "img_idx" in batch:
-        raise NotImplementedError(
-            "--device_cache batches (img_idx) are queued in ROADMAP.md")
+        oh, ow = out_hw
+        warped = warp_affine_batch(cache, batch["warp_ti"], oh, ow,
+                                   rows=batch["img_idx"]) / 255.0
+        return color_norm_f01(warped, batch["aug_perm"],
+                              batch["aug_alphas"], batch["aug_light"],
+                              mean, std)
     if "input_u8" in batch:
         return device_preprocess(batch["input_u8"], batch["aug_perm"],
                                  batch["aug_alphas"], batch["aug_light"],

@@ -2,16 +2,27 @@
 reference lib/datasets/sample/ctdet.py:30-146), host numpy.
 
 `CTDetSampler.get_sample(index, rng)` returns fixed-shape numpy arrays
-ready to batch: the warped uint8 image with 7 floats of colour-aug state
-(normalised and augmented on the device, data/device_aug.py) and the sparse
-object list the device renders the heatmap from. Draws come from `rng` in
-the JAX sampler's order, so the same per-batch RandomState gives the same
-sample. The warp is the port's torch `warp_affine_u8`, not cv2 (the card's
-machine has no cv2); images come from the dataset's `load_image`, which a
-caller may override (e.g. with in-memory frames).
+ready to batch. Its input comes in one of three forms:
 
-Not ported: the host-normalised path (--host_normalize), the dense targets
-of --mse_loss and --dense_wh, and the HBM image cache; they raise.
+- device mode (the default): the warped uint8 image with 7 floats of
+  colour-aug state (normalised and augmented on the device,
+  data/device_aug.py) and the sparse object list the device renders the
+  heatmap from;
+- image cache mode (--device_cache, data/device_cache.py; train split):
+  no pixels are read or warped, the sample carries the row `img_idx` and
+  the warp matrix `warp_ti` (flip folded in) beside the aug state and the
+  sparse targets;
+- host mode (--host_normalize, the reference's path): the f32 image,
+  colour-augmented and normalised here, and the dense heatmap.
+
+Draws come from `rng` in the JAX sampler's order, so the same per-batch
+RandomState gives the same sample in every mode. The warp is the port's
+torch `warp_affine_u8`, not cv2 (the card's machine has no cv2); images
+come from the dataset's `load_image`, which a caller may override (e.g.
+with in-memory frames).
+
+Not ported: the dense targets of --mse_loss and --dense_wh, and the
+sharded image cache (--device_cache_shard); they raise.
 """
 
 from __future__ import annotations
@@ -20,12 +31,14 @@ import math
 
 import numpy as np
 
-from .affine import (affine_transform, gaussian_radius, get_affine_transform,
-                     invert_affine, warp_affine_u8)
+from .affine import (affine_transform, draw_umich_gaussian, gaussian_radius,
+                     get_affine_transform, invert_affine, warp_affine_u8)
 from .device_aug import draw_color_aug_params, identity_aug_params
+from .device_cache import flip_compose
+from .image_aug import color_aug
 
-_UNPORTED = {"host_normalize": "--host_normalize", "mse_loss": "--mse_loss",
-             "dense_wh": "--dense_wh", "device_cache": "--device_cache"}
+_UNPORTED = {"mse_loss": "--mse_loss", "dense_wh": "--dense_wh",
+             "device_cache_shard": "--device_cache_shard"}
 
 
 def check_sampler_opt(opt):
@@ -33,19 +46,35 @@ def check_sampler_opt(opt):
         if getattr(opt, flag, False):
             raise NotImplementedError(
                 "{} is queued in ROADMAP.md; the port's sampler ships "
-                "uint8 images and sparse ctdet targets".format(name))
+                "sparse ctdet targets".format(name))
 
 
 def finish_input(sampler, inp_u8, is_train, rng):
-    """Input tail, device mode: 'input_u8' plus the colour-aug state (the
-    trainer runs device_aug.device_preprocess on the card)."""
+    """Input tail. Device mode: 'input_u8' plus the colour-aug state (the
+    trainer runs device_aug on the card); inp_u8=None is the image cache
+    mode (the aug state alone; the caller adds img_idx and warp_ti).
+    --host_normalize: the reference's host path, /255 -> color_aug ->
+    normalise, an f32 'input'."""
+    if getattr(sampler.opt, "host_normalize", False):
+        if inp_u8 is None:
+            raise ValueError("--device_cache requires the device input "
+                             "path (drop --host_normalize)")
+        inp = inp_u8.astype(np.float32) / 255.0
+        if is_train and not sampler.opt.no_color_aug:
+            color_aug(rng, inp, sampler._eig_val, sampler._eig_vec,
+                      py_random=rng)
+        inp = (inp - sampler.mean) / sampler.std
+        return {"input": inp.astype(np.float32)}
     if is_train and not sampler.opt.no_color_aug:
         perm, alphas, light = draw_color_aug_params(
             rng, sampler._eig_val, sampler._eig_vec, py_random=rng)
     else:
         perm, alphas, light = identity_aug_params()
-    return {"aug_perm": np.int32(perm), "aug_alphas": alphas,
-            "aug_light": light, "input_u8": np.ascontiguousarray(inp_u8)}
+    fields = {"aug_perm": np.int32(perm), "aug_alphas": alphas,
+              "aug_light": light}
+    if inp_u8 is not None:
+        fields["input_u8"] = np.ascontiguousarray(inp_u8)
+    return fields
 
 
 def coco_box_to_bbox(box):
@@ -71,8 +100,18 @@ class CTDetSampler:
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
         anns = self.coco.loadAnns(ids=self.coco.getAnnIds(imgIds=[img_id]))
-        img = self.load_image(index)
-        height, width = img.shape[0], img.shape[1]
+        # image cache mode: the pixels sit on the card; the host needs
+        # only the frame's dims and ships the warp matrix (train split:
+        # the trainer holds one cache, built over its train dataset)
+        cache_dims = getattr(self, "_image_cache_dims", None)
+        use_cache = cache_dims is not None and self.split == "train"
+        if use_cache:
+            img = None
+            height, width = int(cache_dims[index][0]), \
+                int(cache_dims[index][1])
+        else:
+            img = self.load_image(index)
+            height, width = img.shape[0], img.shape[1]
         num_objs = min(len(anns), self.max_objs)
         c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
         if self.opt.keep_res:
@@ -99,19 +138,32 @@ class CTDetSampler:
                 s = s * np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
             if rng.random() < self.opt.flip:
                 flipped = True
-                img = img[:, ::-1, :]
+                if img is not None:
+                    img = img[:, ::-1, :]
                 c[0] = width - c[0] - 1
 
-        trans_input = get_affine_transform(c, s, 0, [input_w, input_h])
-        inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_h,
-                                input_w)
-        ret = finish_input(self, inp_u8, self.split == "train", rng)
+        if use_cache:
+            ti = get_affine_transform(c, s, 0, [input_w, input_h], inv=1)
+            if flipped:
+                ti = flip_compose(ti, width)
+            ret = finish_input(self, None, True, rng)
+            ret.update(img_idx=np.int32(index),
+                       warp_ti=np.asarray(ti, np.float32))
+        else:
+            trans_input = get_affine_transform(c, s, 0, [input_w, input_h])
+            inp_u8 = warp_affine_u8(img, invert_affine(trans_input),
+                                    input_h, input_w)
+            ret = finish_input(self, inp_u8, self.split == "train", rng)
 
         output_h = input_h // self.opt.down_ratio
         output_w = input_w // self.opt.down_ratio
         num_classes = self.num_classes
         trans_output = get_affine_transform(c, s, 0, [output_w, output_h])
 
+        # the device renders the heatmap from (ct, radius, cls); the host
+        # path draws it here, as the reference does
+        sparse_hm = "input" not in ret
+        hm = np.zeros((output_h, output_w, num_classes), dtype=np.float32)
         hm_ct = np.zeros((self.max_objs, 2), dtype=np.int32)
         hm_radius = np.zeros((self.max_objs,), dtype=np.int32)
         hm_cls = np.zeros((self.max_objs,), dtype=np.int32)
@@ -142,9 +194,14 @@ class CTDetSampler:
                 ct = np.array([(bbox[0] + bbox[2]) / 2,
                                (bbox[1] + bbox[3]) / 2], dtype=np.float32)
                 ct_int = ct.astype(np.int32)
-                hm_ct[k] = ct_int
-                hm_radius[k] = radius
-                hm_cls[k] = cls_id
+                if sparse_hm:
+                    hm_ct[k] = ct_int
+                    hm_radius[k] = radius
+                    hm_cls[k] = cls_id
+                else:
+                    hm_slice = np.ascontiguousarray(hm[:, :, cls_id])
+                    draw_umich_gaussian(hm_slice, ct_int, radius)
+                    hm[:, :, cls_id] = hm_slice
                 wh[k] = 1.0 * w, 1.0 * h
                 ind[k] = ct_int[1] * output_w + ct_int[0]
                 reg[k] = ct - ct_int
@@ -154,8 +211,11 @@ class CTDetSampler:
                 gt_det.append([ct[0] - w / 2, ct[1] - h / 2,
                                ct[0] + w / 2, ct[1] + h / 2, 1, cls_id])
 
-        ret.update(reg_mask=reg_mask, ind=ind, wh=wh, hm_ct=hm_ct,
-                   hm_radius=hm_radius, hm_cls=hm_cls)
+        ret.update(reg_mask=reg_mask, ind=ind, wh=wh)
+        if sparse_hm:
+            ret.update(hm_ct=hm_ct, hm_radius=hm_radius, hm_cls=hm_cls)
+        else:
+            ret["hm"] = hm
         if self.opt.cat_spec_wh:
             ret.update(cat_spec_wh=cat_spec_wh, cat_spec_mask=cat_spec_mask)
             del ret["wh"]

@@ -1,21 +1,29 @@
 """Inference engine (reference lib/detectors/base_detector.py, ctdet.py).
 
 The ctdet serving path of the JAX package's engine/detector.py in PyTorch:
-letterbox pre-process on the host (a torch bilinear warp stands in for
-cv2), then on the model's device forward -> sigmoid -> flip-test averaging
--> max-pool NMS top-k decode -> affine back-projection, with only the
-(K, 6) detections copied back. Per-stage wall-clock timers mirror
-base_detector.py:93-155 ({tot, load, pre, net, dec, post, merge}); on a
-card each stage ends in ``torch.cuda.synchronize``.
+letterbox pre-process on the host (torch bilinear resize and warp stand in
+for cv2), then on the model's device forward -> sigmoid -> flip-test
+averaging -> max-pool NMS top-k decode -> affine back-projection, with only
+the (K, 6) detections copied back; per class, the scales' detections are
+merged on the host with soft-NMS (gaussian, Nt 0.5) when there is more
+than one test scale or --nms is set, then cut to the global top 100.
+Per-stage wall-clock timers mirror base_detector.py:93-155 ({tot, load,
+pre, net, dec, post, merge}); on a card each stage ends in
+``torch.cuda.synchronize``.
 
-Served so far: ctdet, FP32, W4A8 fake-quant (``--resume-quantize``, with
-the recipe a port checkpoint records) or real int8 (``--resume-quantize
+Served: ctdet, FP32, W4A8 fake-quant (``--resume-quantize``, with the
+recipe a port checkpoint records) or real int8 (``--resume-quantize
 --int8_infer``), its weights from a checkpoint or from a W4A8 artifact
-(``--w4a8_artifact``, engine/w4a8.py; a checkpoint's integer weights
-are derived once, at construction); single test scale 1 with
-``fix_res``, with or without ``--flip_test``, per image (`run`) or batched
-(`process_batch`). Other options (soft-NMS, multi-scale, keep_res) raise
-and are queued in ROADMAP.md.
+(``--w4a8_artifact``, engine/w4a8.py; a checkpoint's integer weights are
+derived once, at construction); any test scales, ``fix_res`` or
+``--keep_res``, with or without ``--flip_test``, uint8 or (with
+``--host_normalize``) host-normalised f32 images, per image (`run`) or
+batched: `process_batch` over pre-warped images, `process_batch_raw` over
+raw frames warped on the device (``--device_warp``), and
+`process_batch_cached` / `process_batches_cached` over rows of a
+device-resident image stack (``--device_cache``). The bf16 model
+(``--dtype bfloat16``) and ``--device_cache_shard`` raise and are queued
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.affine import get_affine_transform, warp_affine_u8
+from ..data.affine import (get_affine_transform, resize_u8,
+                           warp_affine_batch, warp_affine_u8)
 from ..models import create_model
 from ..models import decode as D
 from ..models.layers import qspec_from_opt
+from ..ops.nms import soft_nms
 from . import checkpoint, w4a8
 
 
@@ -78,14 +88,10 @@ class BaseDetector:
                 "--w4a8_artifact needs --resume-quantize --int8_infer: the "
                 "artifact holds integer weights for the real-int8 path "
                 "only")
-        if opt.nms or len(opt.test_scales) != 1 or opt.test_scales[0] != 1:
+        if opt.device_cache_shard:
             raise NotImplementedError(
-                "--nms and multi-scale test need soft-NMS, queued in "
-                "ROADMAP.md")
-        if not opt.fix_res:
-            raise NotImplementedError(
-                "--keep_res pre-process needs a resize, queued in "
-                "ROADMAP.md")
+                "--device_cache_shard needs data-parallel training, queued "
+                "with DDP in ROADMAP.md")
         self.device = resolve_device(device or device_from_opt(opt))
         self.qspec = None
         if opt.resume_quantize:
@@ -120,20 +126,32 @@ class BaseDetector:
 
     # -- host-side preprocessing (reference base_detector.py:48-76) -------
     def pre_process(self, image, scale, meta=None):
-        """Letterbox warp of one BGR uint8 frame at scale 1 (fix_res):
-        (1 or 2 with flip_test, H, W, 3) uint8 images + meta."""
-        if scale != 1:
-            raise NotImplementedError(
-                "test scales other than 1 need a resize, queued in "
-                "ROADMAP.md")
+        """Resize one BGR uint8 frame by `scale`, then letterbox-warp it:
+        to (input_h, input_w) with fix_res, or with --keep_res to the
+        resized size padded up to a multiple of 32 (two resamplings, as in
+        the reference). Returns (1, or 2 with flip_test, H, W, 3) uint8
+        images (f32 normalised with --host_normalize) and meta."""
         height, width = image.shape[0:2]
-        inp_height, inp_width = self.opt.input_h, self.opt.input_w
-        c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
-        s = max(height, width) * 1.0
+        new_height = int(height * scale)
+        new_width = int(width * scale)
+        if self.opt.fix_res:
+            inp_height, inp_width = self.opt.input_h, self.opt.input_w
+            c = np.array([new_width / 2.0, new_height / 2.0],
+                         dtype=np.float32)
+            s = max(height, width) * 1.0
+        else:
+            inp_height = (new_height | self.opt.pad) + 1
+            inp_width = (new_width | self.opt.pad) + 1
+            c = np.array([new_width // 2, new_height // 2], dtype=np.float32)
+            s = np.array([inp_width, inp_height], dtype=np.float32)
         warp_inv = get_affine_transform(c, s, 0, [inp_width, inp_height],
                                         inv=1)
-        images = warp_affine_u8(image, warp_inv, inp_height,
-                                inp_width)[None]  # NHWC
+        resized = resize_u8(image, new_width, new_height)
+        inp_image = warp_affine_u8(resized, warp_inv, inp_height, inp_width)
+        if self.opt.host_normalize:
+            inp_image = ((inp_image / 255.0 - self.mean)
+                         / self.std).astype(np.float32)
+        images = inp_image[None]  # NHWC
         if self.opt.flip_test:
             images = np.concatenate((images, images[:, :, ::-1, :]), axis=0)
         out_h = inp_height // self.opt.down_ratio
@@ -251,6 +269,93 @@ class CtdetDetector(BaseDetector):
         ti = self._to_device(np.asarray(trans_invs, np.float32))
         return self._decode(hm, wh, reg, ti, 1.0)
 
+    # -- device warp and image cache (the JAX package's
+    #    engine/detector.py:267-424) -------------------------------------
+    def pre_process_geometry(self, height, width):
+        """The (warp_ti, trans_inv) pair of a raw (height, width) frame
+        under the scale-1 fix_res letterbox: model-input px -> raw px, and
+        output px -> raw px. The host half of the device-warp and cached
+        paths, where the pixels never pass through the host warp."""
+        c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+        s = max(height, width) * 1.0
+        inp_h, inp_w = self.opt.input_h, self.opt.input_w
+        warp_ti = get_affine_transform(
+            c, s, 0, [inp_w, inp_h], inv=1).astype(np.float32)
+        out_h = inp_h // self.opt.down_ratio
+        out_w = inp_w // self.opt.down_ratio
+        trans_inv = get_affine_transform(
+            c, s, 0, [out_w, out_h], inv=1).astype(np.float32)
+        return warp_ti, trans_inv
+
+    def pre_process_raw(self, image):
+        """Host side of the device-warp path: the raw frame zero-padded
+        into the fixed (max_h, max_w) buffer, and its two affines. None
+        when the frame does not fit (the caller takes the host warp).
+
+        The buffer is `opt._device_warp_hw` when the caller derived a
+        tight one from the dataset's metadata (cli/test.py batched_test:
+        every padded byte is copied to the card), else the square
+        --device_warp_max_res."""
+        hw = getattr(self.opt, "_device_warp_hw", None)
+        max_h, max_w = hw or (self.opt.device_warp_max_res,) * 2
+        height, width = image.shape[0:2]
+        if height > max_h or width > max_w:
+            return None
+        warp_ti, trans_inv = self.pre_process_geometry(height, width)
+        padded = np.zeros((max_h, max_w, 3), np.uint8)
+        padded[:height, :width] = image
+        return padded, warp_ti, trans_inv
+
+    def _warped_input(self, frames, warp_tis, rows=None):
+        """Letterbox warp on the device (f32, not rounded) of `frames`
+        (N, H, W, 3) uint8 (zero-padded raw frames, or the image stack
+        with `rows`), normalised, with the flipped copies after the
+        originals under flip_test."""
+        warped = warp_affine_batch(frames, self._to_device(
+            np.asarray(warp_tis, np.float32)), self.opt.input_h,
+            self.opt.input_w, rows=rows)
+        mean = torch.as_tensor(self.mean.reshape(3), device=self.device)
+        std = torch.as_tensor(self.std.reshape(3), device=self.device)
+        images = (warped / 255.0 - mean) / std
+        if self.opt.flip_test:
+            images = torch.cat([images, flip_w(images)], dim=0)
+        return images
+
+    @torch.inference_mode()
+    def process_batch_raw(self, raw_u8, warp_tis, trans_invs):
+        """Device-warp batched eval: raw (B, max_h, max_w, 3) uint8 frames
+        (pre_process_raw) -> warp -> normalise -> net -> decode ->
+        back-projection. warp_tis: (B, 2, 3) model-input px -> raw px;
+        trans_invs: (B, 2, 3). Returns (B, K, 6) on the device."""
+        images = self._warped_input(self._to_device(raw_u8), warp_tis)
+        hm, wh, reg = self._heads(images)
+        ti = self._to_device(np.asarray(trans_invs, np.float32))
+        return self._decode(hm, wh, reg, ti, 1.0)
+
+    @torch.inference_mode()
+    def process_batch_cached(self, cache_u8, img_idx, warp_tis, trans_invs):
+        """`process_batch_raw` over rows `img_idx` of the device-resident
+        (N, Hc, Wc, 3) stack (data/device_cache.py): per batch the host
+        sends only row indices and affines. The gather is the warp's."""
+        images = self._warped_input(
+            cache_u8, warp_tis,
+            rows=self._to_device(np.asarray(img_idx, np.int64)))
+        hm, wh, reg = self._heads(images)
+        ti = self._to_device(np.asarray(trans_invs, np.float32))
+        return self._decode(hm, wh, reg, ti, 1.0)
+
+    @torch.inference_mode()
+    def process_batches_cached(self, cache_u8, img_idx, warp_tis,
+                               trans_invs):
+        """K cached batches in one call: img_idx (K, B), warp_tis and
+        trans_invs (K, B, 2, 3). Returns (K, B, topk, 6) on the device;
+        nothing waits for the card inside (the JAX package scans the K
+        batches in one program)."""
+        return torch.stack([
+            self.process_batch_cached(cache_u8, img_idx[k], warp_tis[k],
+                                      trans_invs[k])
+            for k in range(len(img_idx))])
+
     def post_process(self, dets, meta, scale=1):
         """Bucket image-space dets by 1-based class (back-projection and
         /scale already ran on the device)."""
@@ -262,12 +367,15 @@ class CtdetDetector(BaseDetector):
         return ret
 
     def merge_outputs(self, detections):
-        """Concat scales + global top-100 (reference detectors/ctdet.py:
-        59-74; soft-NMS is refused at construction)."""
+        """Concat scales + soft-NMS (several scales or --nms) + global
+        top-100 (reference detectors/ctdet.py:59-74). Soft-NMS decays the
+        scores in place; its keep list is ignored, as in the reference."""
         results = {}
         for j in range(1, self.num_classes + 1):
             results[j] = np.concatenate(
                 [det[j] for det in detections], axis=0).astype(np.float32)
+            if len(self.scales) > 1 or self.opt.nms:
+                soft_nms(results[j], Nt=0.5, method=2)
         scores = np.hstack(
             [results[j][:, 4] for j in range(1, self.num_classes + 1)])
         if len(scores) > self.max_per_image:

@@ -2,7 +2,8 @@
 lib/trains/base_trainer.py and trains/ctdet.py).
 
 One train step: model input on the device (colour aug + normalisation of
-the uint8 batch) -> sparse targets rendered on the device -> forward ->
+the uint8 batch, or of the rows of the device image cache warped on the
+card, --device_cache) -> sparse targets rendered on the device -> forward ->
 loss -> backward -> Adam. FP32 training runs the model in train mode (BN
 on batch statistics, running statistics updated); QAT (a `QuantSpec`)
 runs it against frozen folded BN with `update_stats=True`, so only the
@@ -53,18 +54,21 @@ def batch_to_device(batch, device):
 
 
 def batch_size_of(batch):
-    key = "input_u8" if "input_u8" in batch else "input"
+    key = ("img_idx" if "img_idx" in batch else
+           "input_u8" if "input_u8" in batch else "input")
     return batch[key].shape[0]
 
 
 def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
-                    std, down_ratio=4, num_classes=None):
+                    std, down_ratio=4, num_classes=None, input_hw=None):
     """step(batch on the device) -> stats {name: 0-dim tensor}, after one
-    optimizer update."""
+    optimizer update. An image cache batch (img_idx) carries the device
+    stack as 'cache_images' and is warped to `input_hw`."""
 
     def step(batch):
         model.train(not quantized)
-        inp = model_input(batch, mean, std)
+        inp = model_input(batch, mean, std, input_hw,
+                          batch.get("cache_images"))
         batch = resolve_targets(batch, inp, down_ratio, num_classes)
         if quantized:
             out = model(inp, update_stats=True)
@@ -80,11 +84,12 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
 
 
 def make_val_step(model, loss_fn, loss_opts, mean, std, down_ratio=4,
-                  num_classes=None):
+                  num_classes=None, input_hw=None):
     @torch.no_grad()
     def step(batch):
         model.eval()
-        inp = model_input(batch, mean, std)
+        inp = model_input(batch, mean, std, input_hw,
+                          batch.get("cache_images"))
         batch = resolve_targets(batch, inp, down_ratio, num_classes)
         _, stats = loss_fn([model(inp)], batch, loss_opts)
         return {k: torch.as_tensor(v) for k, v in stats.items()}
@@ -120,9 +125,14 @@ class Trainer:
         self.lr = opt.lr
         self.optimizer = None
         self.train_step = None
+        self.input_hw = (opt.input_h, opt.input_w)
+        # the device-resident image stack (data/device_cache.py), set by
+        # the CLI with --device_cache; run_epoch hands it to cache batches
+        self.image_cache = None
         self.val_step = make_val_step(self.model, self.loss_fn,
                                       self.loss_opts, self.mean, self.std,
-                                      opt.down_ratio, opt.num_classes)
+                                      opt.down_ratio, opt.num_classes,
+                                      self.input_hw)
 
     # -- state ---------------------------------------------------------
     def init(self):
@@ -133,7 +143,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.loss_fn, self.loss_opts, self.optimizer,
             self.qspec is not None, self.mean, self.std,
-            self.opt.down_ratio, self.opt.num_classes)
+            self.opt.down_ratio, self.opt.num_classes, self.input_hw)
         return self.model
 
     def set_lr(self, lr):
@@ -166,6 +176,8 @@ class Trainer:
                 break
             bs = batch_size_of(batch)
             batch = batch_to_device(batch, self.device)
+            if "img_idx" in batch:
+                batch["cache_images"] = self.image_cache
             data_time.update(time.time() - end)
             pending.append((step(batch), bs))
             if len(pending) > 64:

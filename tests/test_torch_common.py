@@ -153,6 +153,74 @@ def adam_first_moment(state):
     return None
 
 
+def raise_bn_biases(model, heads, shift=3.0):
+    """Raise every BN bias by `shift` but those before the heads' last
+    convs: the conditioned start of the train-step parity tests
+    (test_torch_train.py::test_train_step_matches_jax says why)."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.BatchNorm2d) \
+                    and name not in {h + ".4" for h in heads}:
+                m.bias.add_(shift)
+
+
+def assert_train_step_matches_jax(trainer, jax_trainer, batch, lr,
+                                  cache=None):
+    """One Adam step of the port's `trainer` (initialised, on the CPU) and
+    of the JAX package's `jax_trainer` from the port's weights, on the
+    numpy `batch` (with `cache`, the (N, H, W, 3) uint8 image stack its
+    img_idx rows index): the loss parts within 2e-3, each gradient (read
+    from the JAX side's first Adam moment, mu = 0.1 g) within 5e-3 of its
+    max, the updated parameters within 2 lr, the BN running statistics
+    within 1e-3."""
+    import jax
+    import jax.numpy as jnp
+    from codenet_tpu.engine.torch_import import convert_shufflenetv2
+    from codenet_torch.engine.jax_weights import from_jax_variables
+    from codenet_torch.engine.trainer import batch_to_device
+
+    sd = {k: v.numpy().copy() for k, v in trainer.model.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
+    variables = convert_shufflenetv2(sd, heads=tuple(sorted(HEADS)))
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items() if k != "meta"}
+    tbatch = batch_to_device(batch, "cpu")
+    if cache is not None:
+        jbatch["cache_images"] = jnp.asarray(cache)
+        tbatch["cache_images"] = torch.from_numpy(cache)
+    jvars, jstate, jstats = jax_trainer.train_step(
+        jvars, jax_trainer.tx.init(jvars["params"]), jbatch)
+
+    stats = trainer.train_step(tbatch)
+    for k in ("loss", "hm_loss", "wh_loss", "off_loss"):
+        np.testing.assert_allclose(float(stats[k]), float(jstats[k]),
+                                   rtol=2e-3, err_msg=k)
+
+    grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1,
+                                   adam_first_moment(jstate))
+    ref_grads = from_jax_variables({"params": grads,
+                                    "batch_stats": variables["batch_stats"]})
+    after = from_jax_variables(jax.tree_util.tree_map(np.asarray,
+                                                      dict(jvars)))
+    params = dict(trainer.model.named_parameters())
+    assert set(params) <= set(ref_grads)
+    gmax = max(float(ref_grads[n].abs().max()) for n in params)
+    for name, p in params.items():
+        ref = ref_grads[name].numpy()
+        # a BN bias feeding another train-mode BN has a gradient of 0 in
+        # exact arithmetic (rounding noise only): scales floor at 1e-5 of
+        # the largest gradient
+        scale = max(float(np.abs(ref).max()), 1e-5 * gmax)
+        err = float(np.abs(to_np(p.grad) - ref).max())
+        assert err <= 5e-3 * scale, (name, err, scale)
+        np.testing.assert_allclose(to_np(p), after[name].numpy(), rtol=0,
+                                   atol=2 * lr + 1e-6, err_msg=name)
+    for name, buf in trainer.model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(to_np(buf), after[name].numpy(),
+                                       rtol=1e-3, atol=1e-5, err_msg=name)
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card, or skip: the kernel has no CPU interpret mode."""

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import cuda_device, deform_case  # noqa: F401
+from test_torch_common import (HEADS, calibrate_bn,  # noqa: F401
+                               cuda_device, deform_case)
 
 from codenet_torch.ops import deform_cuda as DC
 
@@ -176,6 +177,100 @@ def test_kernel_backward_matches_plain_on_card(shape, n, dtype, cuda_device):
         assert err <= tol * scale, (name, err, scale)
     bounds = torch.from_numpy((s == -7.0) | (s == 8.0)).to(cuda_device)
     assert float(st.grad[bounds].abs().max()) == 0.0
+
+
+# the three deform maps of --keep_res requests: a 500x375 frame at scales
+# 0.5 and 1.5, a 375x500 one at 1.5 (non-square, several bands per image)
+KEEP_RES_SHAPES = [(6, 8, 1024), (18, 24, 1024), (36, 48, 256),
+                   (72, 96, 128), (96, 72, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KEEP_RES_SHAPES)
+def test_kernel_forward_keep_res_shapes_on_card(shape, cuda_device):
+    """The forward kernel at --keep_res maps, flip-test batch 2, f32,
+    with s fractional, integer and exactly -7 and 8: within 1e-4."""
+    x, s, w = deform_case(shape, seed=22)
+    _fwd_check(torch.from_numpy(x).to(cuda_device),
+               torch.from_numpy(_mixed_s(s, 23)).to(cuda_device),
+               torch.from_numpy(w).to(cuda_device))
+
+
+# -- device warp and image cache -------------------------------------------------
+
+def _warp_case():
+    """A (4, 90, 120, 3) uint8 stack, five rows of it (one twice) and a
+    letterbox or crop affine each, every other one with the flip folded
+    in."""
+    from codenet_torch.data.affine import get_affine_transform
+    from codenet_torch.data.device_cache import flip_compose
+    r = np.random.RandomState(20)
+    stack = r.randint(0, 256, (4, 90, 120, 3)).astype(np.uint8)
+    rows = np.array([3, 0, 3, 1, 2])
+    tis = []
+    for i in range(len(rows)):
+        c = np.array([50.0 + 7 * i, 40.0 - 3 * i], np.float32)
+        ti = get_affine_transform(c, 100.0 + 13 * i, 0, [64, 48], inv=1)
+        tis.append(flip_compose(ti, 120) if i % 2 else ti)
+    return stack, rows, np.stack(tis).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_batched_warp_on_card_matches_cpu(cuda_device):
+    """warp_affine_batch on the card (one gather per corner over the
+    batch) against the same call on the CPU: within 1e-4 of a level."""
+    from codenet_torch.data.affine import warp_affine_batch
+    stack, rows, tis = _warp_case()
+    cpu = warp_affine_batch(torch.from_numpy(stack), tis, 48, 64, rows=rows)
+    card = warp_affine_batch(torch.from_numpy(stack).to(cuda_device),
+                             torch.from_numpy(tis).to(cuda_device), 48, 64,
+                             rows=torch.from_numpy(rows).to(cuda_device))
+    assert card.device.type == "cuda" and card.shape == (5, 48, 64, 3)
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_process_batch_cached_equals_raw_on_card(cuda_device):
+    """Three ragged frames served batched on the card, flip-test at 64^2:
+    from zero-padded raw frames (process_batch_raw), from rows of a
+    device stack (process_batch_cached) and as K = 2 batches in one call
+    (process_batches_cached). The warped pixels are the same, so the
+    detections agree within rtol 1e-5, atol 1e-4; 3 forward launches per
+    batch."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.models import create_model
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--flip_test"]),
+        cfg.DATASET_SPECS["pascal"])
+    model = create_model("shufflenetv2", HEADS, 64, device="cpu")
+    calibrate_bn(model, np.random.RandomState(21).randn(4, 64, 64, 3)
+                 .astype(np.float32))
+    det = CtdetDetector(opt, state_dict=model.state_dict(),
+                        device=cuda_device)
+    opt._device_warp_hw = (128, 128)
+    r = np.random.RandomState(24)
+    frames = [r.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in ((90, 120), (120, 90), (64, 100))]
+    stack = np.zeros((3, 120, 120, 3), np.uint8)
+    for i, f in enumerate(frames):
+        stack[i, :f.shape[0], :f.shape[1]] = f
+    raw, wti, ti = (np.stack(c) for c in
+                    zip(*(det.pre_process_raw(f) for f in frames)))
+    cache = torch.from_numpy(stack).to(cuda_device)
+    idx = np.arange(3, dtype=np.int32)
+    before = DC.LAUNCHES
+    a = det.process_batch_raw(raw, wti, ti)
+    b = det.process_batch_cached(cache, idx, wti, ti)
+    c = det.process_batches_cached(cache, np.stack([idx, idx[::-1]]),
+                                   np.stack([wti, wti[::-1]]),
+                                   np.stack([ti, ti[::-1]]))
+    torch.cuda.synchronize()
+    assert DC.LAUNCHES == before + 3 * 4
+    assert a.shape == b.shape == (3, 100, 6) and c.shape == (2, 3, 100, 6)
+    for got in (b, c[0], c[1].flip(0)):
+        torch.testing.assert_close(got, a, rtol=1e-5, atol=1e-4)
 
 
 # -- real-int8 eval --------------------------------------------------------------

@@ -125,16 +125,57 @@ def test_pre_process_letterbox(detectors):
     assert (meta["out_height"], meta["out_width"]) == (16, 16)
     # letterbox: the rows above and below the 120x90 frame stay black
     assert images[0, :4].max() == 0 and images[0, -4:].max() == 0
-    with pytest.raises(NotImplementedError):
-        tdet.pre_process(frame, 0.5)
+    # scale 0.5: the frame resized to 60x45, letterboxed into the same
+    # 64x64 input with the scale-1 extent (s = 120), so it fills the
+    # middle half and the border stays black
+    half, hmeta = tdet.pre_process(frame, 0.5)
+    assert half.dtype == np.uint8 and half.shape == (2, 64, 64, 3)
+    np.testing.assert_array_equal(half[1], half[0][:, ::-1])
+    assert half[0, :, :14].max() == 0 and half[0, :, -14:].max() == 0
+    assert half[0, 20:44, 20:44].max() > 0
+    np.testing.assert_array_equal(hmeta["c"], [30.0, 22.5])
+    assert hmeta["s"] == 120.0
+    np.testing.assert_allclose(hmeta["trans_inv"], meta["trans_inv"]
+                               - [[0, 0, 30], [0, 0, 22.5]], atol=1e-5)
+
+
+SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"])
 
 
 @pytest.mark.parametrize("extra", [["--nms"], ["--test_scales", "0.5,1"],
                                    ["--keep_res"],
-                                   ["--dtype", "bfloat16"]])
-def test_unserved_options_raise(extra):
-    with pytest.raises(NotImplementedError):
-        CtdetDetector(_opt(tcfg, ARGS + extra), device="cpu")
+                                   ["--dtype", "bfloat16"],
+                                   ["--device_cache_shard"]])
+def test_unserved_options_raise(extra, detectors):
+    """The bf16 model and the sharded image cache raise (ROADMAP.md items
+    18 and 20). The cases of options served since (SERVED_OPTIONS) keep
+    their ids and check instead that one request runs: every scale
+    through the network, --keep_res at the frame's own size rounded up to
+    a multiple of 32, and finite merged detections (the carried weights
+    of `detectors`: the init's tied scores would keep more than 100)."""
+    if extra not in SERVED_OPTIONS:
+        with pytest.raises(NotImplementedError):
+            CtdetDetector(_opt(tcfg, ARGS + extra), device="cpu")
+        return
+    det = CtdetDetector(_opt(tcfg, ARGS + extra),
+                        state_dict=detectors[1].model.state_dict(),
+                        device="cpu")
+    frame = rng(27).randint(0, 256, (90, 120, 3)).astype(np.uint8)
+    shapes = []
+    process = det.process
+
+    def spy(images, *args, **kw):
+        shapes.append(images.shape)
+        return process(images, *args, **kw)
+    det.process = spy
+    ret = det.run(frame)
+    scales = [0.5, 1.0] if "--test_scales" in extra else [1.0]
+    if "--keep_res" in extra:
+        assert shapes == [(2, 96, 128, 3)]
+    else:
+        assert shapes == [(2, 64, 64, 3)] * len(scales)
+    dets = np.concatenate([v for v in ret["results"].values()])
+    assert 0 < len(dets) <= 100 and np.isfinite(dets).all()
 
 
 def test_warp_affine_matches_jax():

@@ -27,6 +27,9 @@ def test_importing_every_module_loads_no_jax_and_no_cv2():
         "names = [m.name for m in pkgutil.walk_packages("
         "codenet_torch.__path__, 'codenet_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "own = {'codenet_torch.ops.nms', 'codenet_torch.data.image_aug',\n"
+        "       'codenet_torch.data.device_cache'}\n"
+        "assert own <= set(names), own - set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'codenet_tpu', 'cv2'))\n"
         "assert not bad, bad\n"

@@ -20,13 +20,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from test_torch_common import HEADS, adam_first_moment, rng, to_np
+from test_torch_common import (HEADS, assert_train_step_matches_jax,
+                               raise_bn_biases, rng, to_np)
 
 from codenet_tpu import config as jcfg
 from codenet_tpu.data import device_aug as JA
 from codenet_tpu.data.datasets import get_dataset as jax_get_dataset
 from codenet_tpu.data.loader import DataLoader as JaxDataLoader
-from codenet_tpu.engine.torch_import import convert_shufflenetv2
 from codenet_tpu.engine.trainer import Trainer as JaxTrainer
 from codenet_tpu.models import losses as JL
 from codenet_torch import config as tcfg
@@ -34,8 +34,7 @@ from codenet_torch.data import device_aug as TA
 from codenet_torch.data.affine import invert_affine, warp_affine_u8
 from codenet_torch.data.datasets import get_dataset
 from codenet_torch.data.loader import DataLoader
-from codenet_torch.engine.jax_weights import from_jax_variables
-from codenet_torch.engine.trainer import Trainer, batch_to_device
+from codenet_torch.engine.trainer import Trainer
 from codenet_torch.models import losses as TL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -275,50 +274,10 @@ def test_train_step_matches_jax(voc_root):
     assert int(batch["reg_mask"].sum()) >= 1
     trainer = Trainer(_opt(tcfg, voc_root), device="cpu")
     trainer.init()
-    with torch.no_grad():
-        for name, m in trainer.model.named_modules():
-            if isinstance(m, torch.nn.BatchNorm2d) \
-                    and name not in {h + ".4" for h in HEADS}:
-                m.bias.add_(3.0)
-    sd = {k: v.numpy().copy() for k, v in trainer.model.state_dict().items()
-          if not k.endswith("num_batches_tracked")}
-    variables = convert_shufflenetv2(sd, heads=tuple(sorted(HEADS)))
-
+    raise_bn_biases(trainer.model, HEADS)
     jtr = JaxTrainer(_opt(jcfg, voc_root))
     jtr.init()
-    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    jvars, jstate, jstats = jtr.train_step(
-        jvars, jtr.tx.init(jvars["params"]),
-        {k: jnp.asarray(v) for k, v in batch.items()})
-
-    stats = trainer.train_step(batch_to_device(batch, "cpu"))
-    for k in ("loss", "hm_loss", "wh_loss", "off_loss"):
-        np.testing.assert_allclose(float(stats[k]), float(jstats[k]),
-                                   rtol=2e-3, err_msg=k)
-
-    grads = jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1,
-                                   adam_first_moment(jstate))
-    ref_grads = from_jax_variables({"params": grads,
-                                    "batch_stats": variables["batch_stats"]})
-    after = from_jax_variables(jax.tree_util.tree_map(np.asarray,
-                                                      dict(jvars)))
-    params = dict(trainer.model.named_parameters())
-    assert set(params) <= set(ref_grads)
-    gmax = max(float(ref_grads[n].abs().max()) for n in params)
-    for name, p in params.items():
-        ref = ref_grads[name].numpy()
-        # a BN bias feeding another train-mode BN has a gradient of 0 in
-        # exact arithmetic (rounding noise only): scales floor at 1e-5 of
-        # the largest gradient
-        scale = max(float(np.abs(ref).max()), 1e-5 * gmax)
-        err = float(np.abs(to_np(p.grad) - ref).max())
-        assert err <= 5e-3 * scale, (name, err, scale)
-        np.testing.assert_allclose(to_np(p), after[name].numpy(), rtol=0,
-                                   atol=2 * LR + 1e-6, err_msg=name)
-    for name, buf in trainer.model.named_buffers():
-        if name.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(to_np(buf), after[name].numpy(),
-                                       rtol=1e-3, atol=1e-5, err_msg=name)
+    assert_train_step_matches_jax(trainer, jtr, batch, LR)
 
 
 # -- the training CLI ---------------------------------------------------------
@@ -352,15 +311,34 @@ def test_cli_main_trains_saves_and_drops_lr(voc_root, capsys):
         Trainer(_opt(tcfg, voc_root), device="cpu").model.state_dict())
 
 
+PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"])
+
+
 @pytest.mark.parametrize("extra", [
     ["--debug", "1"], ["--eval_oracle_hm"], ["--spatial_shard", "2"],
     ["--host_normalize"], ["--mse_loss"], ["--dense_wh"],
-    ["--device_cache"], ["--test"], ["--trace"], ["--dtype", "bfloat16"]])
-def test_unported_training_options_raise(extra):
+    ["--device_cache"], ["--test"], ["--trace"], ["--dtype", "bfloat16"],
+    ["--device_cache_shard"]])
+def test_unported_training_options_raise(extra, voc_root, capsys):
     """Options of the JAX trainer and sampler the port does not have yet
-    raise before any data is read (ROADMAP.md item 22)."""
+    raise before any data is read (ROADMAP.md items 18, 20 and 22). The
+    cases of options ported since (PORTED_TRAINING_OPTIONS) keep their
+    ids and check instead that `cli.main` trains one step with them: a
+    finite loss, and the cache's report line with --device_cache."""
     from codenet_torch.cli.main import main
-    with pytest.raises(NotImplementedError):
-        main(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
-              "--input_res", "64", "--gpus", "-1", "--data_dir",
-              "/nonexistent", "--exp_id", "torch_unported"] + extra)
+    args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+            "--input_res", "64", "--gpus", "-1", "--exp_id",
+            "torch_unported"] + extra
+    if extra not in PORTED_TRAINING_OPTIONS:
+        with pytest.raises(NotImplementedError):
+            main(args + ["--data_dir", "/nonexistent"])
+        return
+    main(args + ["--data_dir", voc_root, "--batch_size", "2",
+                 "--num_epochs", "1", "--num_iters", "1", "--val_intervals",
+                 "-1", "--num_workers", "1", "--print_iter", "1"])
+    out = capsys.readouterr().out
+    losses = [float(line.split(" loss ")[1].split()[0])
+              for line in out.splitlines() if line.startswith("train epoch")]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert ("device_cache: 6 images" in out) == (extra == ["--device_cache"])
+    assert "Mean AP" in out
