@@ -6,7 +6,8 @@ Builds the co-designed deform conv kernels (codenet_torch/csrc/
 deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
 against its plain PyTorch version at the shapes the model gives it (the
 forward at batches 2, 32, 64 and 128, and at the non-square maps of
---keep_res requests) and at ragged ones, timing both. Then it drives the
+--keep_res requests; the deform backbone's 32x32x58, 16x16x116 and
+8x8x232) and at ragged ones, timing both. Then it drives the
 port's paths at full width (ctdet ShuffleNetV2-DCN 1x, 256^2):
 
 - serving: flip-test per-image requests and a batch-32 request through
@@ -31,7 +32,16 @@ port's paths at full width (ctdet ShuffleNetV2-DCN 1x, 256^2):
 - batched eval (`cli.test --batch_eval 32`) with the host warp,
   --device_warp and --device_cache;
 - multi-scale flip-test requests merged by soft-NMS, at fix_res with
-  --nms and with --keep_res, card vs CPU port.
+  --nms and with --keep_res, card vs CPU port;
+- bf16 conv operands (--dtype bfloat16): served heads card vs CPU,
+  per-image and batch-32 requests in turns with f32, a --nms request and
+  `cli.test --batch_eval 32 --device_warp`; a train step card vs CPU,
+  timed steps in turns with f32 (the backward kernel in bf16), and QAT
+  steps against f32 QAT; the CLIs (`cli.main`, `cli.quant_main`,
+  `cli.test --resume-quantize` and `--int8_infer`) with --dtype
+  bfloat16 in the cli phase;
+- the deform backbone: a forward card vs CPU (16 forward launches), a
+  train step card vs CPU in f32 and in bf16, and the int8 refusal.
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -57,6 +67,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +77,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 # (H, W, C) of the three deconv-stage deform calls at 256^2 input, 1x
 MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
+# and of the deform backbone's stride-1 calls, with their count in one
+# forward (stages of 3, 7 and 3 stride-1 nodes)
+BACKBONE_SHAPES = [(32, 32, 58), (16, 16, 116), (8, 8, 232)]
+BACKBONE_CALLS = {(32, 32, 58): 3, (16, 16, 116): 7, (8, 8, 232): 3}
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
 # both kernels also at KITTI's largest deconv map (the forward's bands clip
 # at both edges; the backward's slices are 4 channels wide)
@@ -99,6 +114,16 @@ CACHE_PIXEL_TOL = 0.5 + 1e-3
 # over all parameters; the median tensor and each deform-block tensor
 # relative to its max)
 STEP_TOL = 5e-3
+# the same with bf16 conv operands (--dtype bfloat16): bf16 heads card vs
+# CPU, each within this of its max; a step's loss, and its gradients
+# (relative L2 over all parameters, the worst tensor reported)
+BF16_HEAD_TOL = 3e-2
+BF16_LOSS_TOL, BF16_GRAD_TOL = 3e-2, 5e-2
+# the deform backbone's f32 heads card vs CPU
+BACKBONE_HEAD_TOL = 2e-3
+# bf16 QAT against f32 QAT from one start (the JAX package's
+# test_qat_bf16_matches_f32_numerics): losses relative, ranges rtol/atol
+QAT_BF16_LOSS_TOL, QAT_BF16_RANGE_TOL = 0.05, 5e-2
 # the parity steps' start: BN biases raised by this (conditioned_init)
 BN_SHIFT = 3.0
 # int8 heads of the QAT-trained model: card vs CPU, and int8 (as served,
@@ -152,6 +177,20 @@ def cuda_time_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def cudnn_tf32(on):
+    """cuDNN convs allowed TF32 within the block (PyTorch's own default)
+    where `on`. The script sets it off for its f32 parity phases; the
+    bf16 model's convs take bf16 operands, which TF32 holds exactly, so
+    its phases allow it and run those convs on tensor cores."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = bool(on) or before
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
 def graph_time_ms(fn, iters):
@@ -253,7 +292,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
            "bound_us": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "model_shape": shape in MODEL_SHAPES}
+           "model_shape": shape in MODEL_SHAPES,
+           "backbone_shape": shape in BACKBONE_SHAPES}
     emit(row)
     if launched != 1 or not err <= TOL[dtype]:
         raise SystemExit("{} check failed: {}".format(phase, row))
@@ -262,11 +302,16 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
 
 def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
-    batch, dtype; each row with its launch plan (deform_cuda.fwd_plan)."""
+    batch, dtype; each row with its launch plan (deform_cuda.fwd_plan).
+    The deform backbone's shapes at the served and trained batches."""
     gen = torch.Generator().manual_seed(SEED)
+    cases = [(shape, n) for shape in BWD_SHAPES
+             for n in (BATCHES if shape in MODEL_SHAPES
+                       else RAGGED_BATCHES)]
+    cases += [(shape, n) for shape in BACKBONE_SHAPES
+              for n in (2, TRAIN_BATCH)]
     return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
-            for shape in BWD_SHAPES
-            for n in (BATCHES if shape in MODEL_SHAPES else RAGGED_BATCHES)
+            for shape, n in cases
             for dtype in (torch.float32, torch.bfloat16)]
 
 
@@ -316,78 +361,86 @@ def _bwd_case(shape, n, dtype, gen):
 
 
 def phase_kernel_bwd(bw, flops):
-    """Backward kernel vs the plain backward at every shape, batch, dtype:
-    error of dx, ds and dw relative to each output's max; each row with
-    its launch plan (deform_cuda.bwd_plan)."""
+    """Backward kernel vs the plain backward at every shape, batch, dtype
+    (the deform backbone's shapes at the trained batch): error of dx, ds
+    and dw relative to each output's max; each row with its launch plan
+    (deform_cuda.bwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 2)
     rows = []
-    for shape in BWD_SHAPES:
-        for n in BWD_BATCHES:
-            for dtype in (torch.float32, torch.bfloat16):
-                x, s, wt, g = _bwd_case(shape, n, dtype, gen)
-                before = DC.BWD_LAUNCHES
-                got = DC.codesign_deform_conv_bwd(x, s, wt, g)
-                torch.cuda.synchronize()
-                launched = DC.BWD_LAUNCHES - before
-                ref = DC.codesign_deform_conv_bwd_plain(x, s, wt, g)
-                errs = {}
-                for name, a, b in zip(("dx", "ds", "dw"), got, ref):
-                    scale = float(b.float().abs().max())
-                    errs[name] = float((a.float() - b.float()).abs().max())
-                    errs[name + "_rel"] = errs[name] / scale
-                at_bounds = (s == -7.0) | (s == 8.0)
-                ds_at_bounds = float(got[1][at_bounds].abs().max())
-                ms = graph_time_ms(
-                    lambda: DC.codesign_deform_conv_bwd(x, s, wt, g), 50)
-                plain_ms = graph_time_ms(
-                    lambda: DC.codesign_deform_conv_bwd_plain(x, s, wt, g),
-                    3)
-                elems = x.numel()
-                npos = s.numel()
-                # what the op must move: x, g, s and w read once, dx (x's
-                # type), ds and dw written once; the zeroing of ds and dw
-                # that the kernel's atomics need counts in `ms` only
-                nbytes = 3 * elems * x.element_size() + 2 * npos * 4 \
-                    + 2 * 9 * shape[2] * wt.element_size()
-                t_bytes = nbytes / bw * 1e3
-                t_ops = elems * BWD_FLOPS_PER_ELEM / flops * 1e3
-                plan = DC.bwd_plan(n, *shape)
-                row = {"phase": "kernel_bwd", "shape": list(shape), "n": n,
-                       "dtype": str(dtype).split(".")[-1],
-                       "cb": plan["cb"], "smem_bytes": plan["smem_bytes"],
-                       "blocks": plan["blocks"], **errs,
-                       "ds_at_bounds": ds_at_bounds, "tol_rel": TOL[dtype],
-                       "launches": launched, "ms": ms, "plain_ms": plain_ms,
-                       "bound_us": max(t_bytes, t_ops) * 1e3,
-                       "bound_by": "bytes" if t_bytes >= t_ops
-                       else "operations",
-                       "model_shape": shape in MODEL_SHAPES}
-                emit(row)
-                rows.append(row)
-                worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
-                if launched != 1 or not worst <= TOL[dtype] \
-                        or ds_at_bounds != 0.0:
-                    raise SystemExit("kernel_bwd check failed: {}".format(
-                        row))
+    cases = [(shape, n) for shape in BWD_SHAPES for n in BWD_BATCHES]
+    cases += [(shape, TRAIN_BATCH) for shape in BACKBONE_SHAPES]
+    for shape, n in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, s, wt, g = _bwd_case(shape, n, dtype, gen)
+            before = DC.BWD_LAUNCHES
+            got = DC.codesign_deform_conv_bwd(x, s, wt, g)
+            torch.cuda.synchronize()
+            launched = DC.BWD_LAUNCHES - before
+            ref = DC.codesign_deform_conv_bwd_plain(x, s, wt, g)
+            errs = {}
+            for name, a, b in zip(("dx", "ds", "dw"), got, ref):
+                scale = float(b.float().abs().max())
+                errs[name] = float((a.float() - b.float()).abs().max())
+                errs[name + "_rel"] = errs[name] / scale
+            at_bounds = (s == -7.0) | (s == 8.0)
+            ds_at_bounds = float(got[1][at_bounds].abs().max())
+            ms = graph_time_ms(
+                lambda: DC.codesign_deform_conv_bwd(x, s, wt, g), 50)
+            plain_ms = graph_time_ms(
+                lambda: DC.codesign_deform_conv_bwd_plain(x, s, wt, g),
+                3)
+            elems = x.numel()
+            npos = s.numel()
+            # what the op must move: x, g, s and w read once, dx (x's
+            # type), ds and dw written once; the zeroing of ds and dw
+            # that the kernel's atomics need counts in `ms` only
+            nbytes = 3 * elems * x.element_size() + 2 * npos * 4 \
+                + 2 * 9 * shape[2] * wt.element_size()
+            t_bytes = nbytes / bw * 1e3
+            t_ops = elems * BWD_FLOPS_PER_ELEM / flops * 1e3
+            plan = DC.bwd_plan(n, *shape)
+            row = {"phase": "kernel_bwd", "shape": list(shape), "n": n,
+                   "dtype": str(dtype).split(".")[-1],
+                   "cb": plan["cb"], "smem_bytes": plan["smem_bytes"],
+                   "blocks": plan["blocks"], **errs,
+                   "ds_at_bounds": ds_at_bounds, "tol_rel": TOL[dtype],
+                   "launches": launched, "ms": ms, "plain_ms": plain_ms,
+                   "bound_us": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations",
+                   "model_shape": shape in MODEL_SHAPES,
+                   "backbone_shape": shape in BACKBONE_SHAPES}
+            emit(row)
+            rows.append(row)
+            worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
+            if launched != 1 or not worst <= TOL[dtype] \
+                    or ds_at_bounds != 0.0:
+                raise SystemExit("kernel_bwd check failed: {}".format(
+                    row))
     return rows
 
 
 @torch.no_grad()
-def build_served_model(device="cuda"):
-    """Full-width PoseShuffleNetV2 1x on `device`, random but not
-    degenerate: conv_scale redrawn (s fractional, partly off the map), BN
-    running stats set from a random batch, each channel's variance at
-    least twice its layer's mean. Without that floor near-dead channels
-    are normalised to unit variance and the random network amplifies f32
+def build_served_model(device="cuda", deform_backbone=False):
+    """Full-width PoseShuffleNetV2 1x on `device` (with deform_backbone,
+    that variant), random but not degenerate: every deform block's
+    conv_scale redrawn (s fractional, partly off the map), BN running
+    stats set from a random batch, each channel's variance at least twice
+    its layer's mean. Without that floor near-dead channels are
+    normalised to unit variance and the random network amplifies f32
     rounding until the card's and the CPU's heads differ by ~1e-3 of
     their range; with it they agree to ~1e-6."""
     from codenet_torch.models import create_model
+    from codenet_torch.models.layers import CodesignDeformBlock
     gen = torch.Generator().manual_seed(SEED)
     model = create_model("shufflenetv2", {"hm": 20, "wh": 2, "reg": 2}, 64,
-                         device=device, generator=gen)
-    for i in range(3):
-        cs = model.deconv_layers[4 * i].conv_scale
+                         deform_backbone=deform_backbone, device=device,
+                         generator=gen)
+    for block in model.modules():
+        if not isinstance(block, CodesignDeformBlock):
+            continue
+        cs = block.conv_scale
         cin = cs.weight.shape[1]
         cs.weight.copy_(torch.randn(cs.weight.shape, generator=gen)
                         * 3.0 / cin ** 0.5)
@@ -410,8 +463,12 @@ def build_served_model(device="cuda"):
 
 
 @torch.no_grad()
-def phase_model(model):
-    """256^2 batch-2 forward on the card (kernel) vs on the CPU (plain)."""
+def heads_card_vs_cpu(model, tol, launches):
+    """A 256^2 batch-2 forward on the card (kernels) vs on the CPU (plain)
+    from the same weights: per head the shape, max |difference| and its
+    ratio to the head's max |value|, finiteness; ok when every head is
+    finite and within `tol` and the card's forward launched the forward
+    kernel `launches` times."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 1)
     images = torch.randn(2, 256, 256, 3, generator=gen)
@@ -422,7 +479,7 @@ def phase_model(model):
     launched = DC.LAUNCHES - before
     ref = cpu_model(images)
     heads = {}
-    ok = launched == 3
+    ok = launched == launches
     for name, r in ref.items():
         o = out[name].cpu()
         scale = float(r.abs().max())
@@ -430,9 +487,14 @@ def phase_model(model):
         heads[name] = {"shape": list(o.shape), "max_abs_err": err,
                        "max_rel_err": err / scale, "finite": bool(
                            torch.isfinite(o).all())}
-        ok = ok and heads[name]["finite"] and err <= 1e-3 * scale
-    emit({"phase": "model", "launches": launched, "heads": heads,
-          "tol_rel": 1e-3})
+        ok = ok and heads[name]["finite"] and err <= tol * scale
+    return {"launches": launched, "heads": heads, "tol_rel": tol}, ok
+
+
+def phase_model(model):
+    """256^2 batch-2 forward on the card (kernel) vs on the CPU (plain)."""
+    out, ok = heads_card_vs_cpu(model, 1e-3, 3)
+    emit({"phase": "model", **out})
     if not ok:
         raise SystemExit("model check failed")
 
@@ -593,7 +655,7 @@ def grads_vs(model, ref_model):
                                   if n.startswith(DEFORM_PARAMS)}}
 
 
-def conditioned_init(opt):
+def conditioned_init(opt, deform_backbone=False):
     """The port's seeded init (s == 1 in every deform block) with every BN
     bias raised by BN_SHIFT but those before the heads' last convs.
 
@@ -610,6 +672,7 @@ def conditioned_init(opt):
     the loss's sigmoid clamp."""
     from codenet_torch.models import create_model
     model = create_model(opt.arch, opt.heads, opt.head_conv, device="cpu",
+                         deform_backbone=deform_backbone,
                          generator=torch.Generator().manual_seed(opt.seed))
     keep = {head + ".4" for head in opt.heads}
     with torch.no_grad():
@@ -619,26 +682,44 @@ def conditioned_init(opt):
     return model.state_dict()
 
 
-def step_parity(data, state_dict, qspec=None):
+def make_trainer(opt, device, qspec=None, deform_backbone=False):
+    """A Trainer for `opt` on `device`; with deform_backbone, on that
+    variant (built through create_model: no CLI exposes it, as the JAX
+    package's do not)."""
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models import create_model
+    trainer = Trainer(opt, qspec=qspec, device=device)
+    if deform_backbone:
+        trainer.model = create_model(
+            opt.arch, opt.heads, opt.head_conv, qspec=qspec,
+            dtype=opt.dtype, deform_backbone=True, device=device,
+            generator=torch.Generator().manual_seed(opt.seed))
+    return trainer
+
+
+def step_parity(data, state_dict, qspec=None, deform_backbone=False,
+                bf16=False):
     """One train step at batch 4 on the card and on the CPU from the same
     weights and batch: the loss, the gradients over all parameters, the
     median tensor and each deform-block tensor (grads_vs), each held at
-    STEP_TOL; the step's kernel launches."""
+    STEP_TOL (with bf16 conv operands: the loss at BF16_LOSS_TOL and all
+    gradients together at BF16_GRAD_TOL); the step's kernel launches."""
     from codenet_torch.data.loader import DataLoader
-    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.engine.trainer import batch_to_device
     from codenet_torch.ops import deform_cuda as DC
-    opt = data.opt(4)
+    opt = data.opt(4, *(["--dtype", "bfloat16"] if bf16 else []))
     batch = next(iter(DataLoader(data.dataset(opt), 4, shuffle=True,
                                  num_workers=4, seed=1)))
-    card = Trainer(opt, qspec=qspec, device="cuda")
-    cpu = Trainer(opt, qspec=qspec, device="cpu")
+    card, cpu = (make_trainer(opt, dev, qspec, deform_backbone)
+                 for dev in ("cuda", "cpu"))
     card.model.load_state_dict(state_dict)
     cpu.model.load_state_dict(state_dict)
     card.init()
     cpu.init()
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0
-    got = card.train_step(batch_to_device(batch, "cuda"))
-    torch.cuda.synchronize()
+    with cudnn_tf32(bf16):
+        got = card.train_step(batch_to_device(batch, "cuda"))
+        torch.cuda.synchronize()
     launches = (DC.LAUNCHES, DC.BWD_LAUNCHES)
     ref = cpu.train_step(batch_to_device(batch, "cpu"))
     err = grads_vs(card.model, cpu.model)
@@ -646,7 +727,12 @@ def step_parity(data, state_dict, qspec=None):
            "loss_rel": abs(float(got["loss"]) - float(ref["loss"]))
            / abs(float(ref["loss"])),
            "launches_fwd_bwd": list(launches), **err}
-    ok = (launches == (3, 3) and out["loss_rel"] <= STEP_TOL
+    calls = 16 if deform_backbone else 3
+    if bf16:
+        return out, (launches == (calls, calls)
+                     and out["loss_rel"] <= BF16_LOSS_TOL
+                     and err["grad_rel_l2"] <= BF16_GRAD_TOL)
+    ok = (launches == (calls, calls) and out["loss_rel"] <= STEP_TOL
           and err["grad_rel_l2"] <= STEP_TOL
           and err["grad_tensor_rel_median"] <= STEP_TOL
           and len(err["deform_tensor_rel"]) == 12
@@ -808,24 +894,49 @@ def phase_qat(data, fp32_trainer, batches):
 def phase_cli(data):
     """python -m codenet_torch.cli.main then cli.quant_main from its
     checkpoint, 2 iterations each at batch 32, each ending in its
-    detection eval of the val frames."""
+    detection eval of the val frames; then the same two with --dtype
+    bfloat16, and cli.test --dtype bfloat16 --resume-quantize, fake-quant
+    and --int8_infer, on the bf16 QAT checkpoint. Returns the (forward,
+    backward) launches of the bf16 runs."""
     from codenet_torch.cli import main as cli_main
     from codenet_torch.cli import quant_main
+    from codenet_torch.cli import test as cli_test
     from codenet_torch.ops import deform_cuda as DC
     common = ["--num_epochs", "1", "--num_iters", "2", "--lr_step", "1",
               "--val_intervals", "-1", "--print_iter", "1"]
+
+    def ckpt(exp_id):
+        return str(ROOT / "exp" / "ctdet" / exp_id / "model_last.pth")
+    bf16 = ["--dtype", "bfloat16"]
+    quant = ["--resume-quantize", "--load_model", ckpt("chip_smoke_qat_bf16")]
+    # (name, entry point, batch, arguments, bf16, forward launches or
+    # None, backward launches): training runs 2 steps, evals 8 frames
+    runs = [("main", cli_main.main, TRAIN_BATCH,
+             common + ["--exp_id", "chip_smoke_fp32"], False, None, 6),
+            ("quant_main", quant_main.main, TRAIN_BATCH,
+             common + ["--exp_id", "chip_smoke_qat", "--load_model",
+                       ckpt("chip_smoke_fp32")], False, None, 6),
+            ("main_bf16", cli_main.main, TRAIN_BATCH,
+             common + bf16 + ["--exp_id", "chip_smoke_fp32_bf16"], True,
+             None, 6),
+            ("quant_main_bf16", quant_main.main, TRAIN_BATCH,
+             common + bf16 + ["--exp_id", "chip_smoke_qat_bf16",
+                              "--load_model", ckpt("chip_smoke_fp32_bf16")],
+             True, None, 6),
+            ("test_fake_quant_bf16", cli_test.main, 1,
+             bf16 + quant + ["--exp_id", "chip_smoke_fq_bf16"], True, 24, 0),
+            # from the .pth one more forward derives the integer weights
+            ("test_int8_bf16", cli_test.main, 1,
+             bf16 + quant + ["--int8_infer", "--exp_id",
+                             "chip_smoke_int8_bf16"], True, 27, 0)]
     out = {"phase": "cli"}
-    for name, fn, extra in (
-            ("main", cli_main.main, ["--exp_id", "chip_smoke_fp32"]),
-            ("quant_main", quant_main.main,
-             ["--exp_id", "chip_smoke_qat", "--load_model",
-              str(ROOT / "exp" / "ctdet" / "chip_smoke_fp32"
-                  / "model_last.pth")])):
+    bf16_launches = [0, 0]
+    for name, fn, batch, args, on, fwd, bwd in runs:
         DC.LAUNCHES = DC.BWD_LAUNCHES = 0
         log = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            fn(data.args(TRAIN_BATCH, *common, *extra))
+        with contextlib.redirect_stdout(log), cudnn_tf32(on):
+            fn(data.args(batch, *args))
         text = log.getvalue()
         losses = [float(ln.split(" loss ")[1].split()[0])
                   for ln in text.splitlines()
@@ -836,11 +947,18 @@ def phase_cli(data):
                      "mean_ap_line": ap[-1].strip() if ap else None,
                      "launches_fwd": DC.LAUNCHES,
                      "launches_bwd": DC.BWD_LAUNCHES}
-        if (len(losses) != 2 or not np.all(np.isfinite(losses)) or not ap
-                or DC.BWD_LAUNCHES != 6):
+        if on:
+            bf16_launches[0] += DC.LAUNCHES
+            bf16_launches[1] += DC.BWD_LAUNCHES
+        trains = fn is not cli_test.main
+        if (len(losses) != (2 if trains else 0) or not ap
+                or not np.all(np.isfinite(losses))
+                or DC.BWD_LAUNCHES != bwd
+                or fwd is not None and DC.LAUNCHES != fwd):
             emit(out)
             raise SystemExit("cli {} check failed".format(name))
     emit(out)
+    return bf16_launches
 
 
 def head_errs(ref, out):
@@ -1331,6 +1449,263 @@ def phase_multiscale(model, frames):
     return launches
 
 
+def _served_opt(*extra):
+    from codenet_torch import config as cfg
+    return cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch",
+                   "shufflenetv2", "--input_res", str(RES), "--flip_test",
+                   *extra]), cfg.DATASET_SPECS["pascal"])
+
+
+def phase_bf16(model, data):
+    """Serving with bf16 conv operands (--dtype bfloat16) from the served
+    model's weights: one flip-test request's heads, card vs CPU port
+    (held at BF16_HEAD_TOL) and card bf16 vs card f32 (reported); 8
+    per-image flip-test requests and 4 batch-32 requests, bf16 and f32 in
+    turns, with the forward launches by dtype; one --nms request at the
+    five test scales and `cli.test --batch_eval 32 --device_warp
+    --flip_test`, both in bf16. Returns (launches, the bf16 and f32
+    timings)."""
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.detector import CtdetDetector, eval_input
+    from codenet_torch.ops import deform_cuda as DC
+    out = {"phase": "bf16", "bf16_cudnn_allow_tf32": True}
+    fail = []
+    sd = model.state_dict()
+    bf16 = ("--dtype", "bfloat16")
+    dets = {"bf16": CtdetDetector(_served_opt(*bf16), state_dict=sd,
+                                  device="cuda"),
+            "f32": CtdetDetector(_served_opt(), state_dict=sd,
+                                 device="cuda")}
+    cpu = CtdetDetector(_served_opt(*bf16), state_dict=sd, device="cpu")
+    frames, _ = synthetic_frames(32)
+    det = dets["bf16"]
+    images, _ = det.pre_process(frames[0], 1)
+    x = eval_input(det._to_device(images), det.mean, det.std)
+    with torch.no_grad():
+        with cudnn_tf32(True):
+            card = det.model(x)
+        f32 = dets["f32"].model(x)
+        ref = cpu.model(x.cpu())
+    out["card_vs_cpu"] = head_errs(ref, card)
+    out["card_bf16_vs_card_f32"] = head_errs(f32, card)
+    out["rel_l2"] = {"card_vs_cpu": head_rel_l2(ref, card),
+                     "card_bf16_vs_card_f32": head_rel_l2(f32, card)}
+    out["tol"] = BF16_HEAD_TOL
+    if not all(bool(torch.isfinite(v).all()) for v in card.values()) \
+            or max(out["card_vs_cpu"].values()) > BF16_HEAD_TOL:
+        fail.append("heads")
+
+    dtypes = []
+    timings = {name: {"net_ms": [], "tot_ms": [], "batch_ms": []}
+               for name in dets}
+    pre = [det.pre_process(f, 1) for f in frames]
+    stack = np.concatenate([p[0][0:1] for p in pre]
+                           + [p[0][1:2] for p in pre], axis=0)
+    tis = np.stack([p[1]["trans_inv"] for p in pre])
+    with recording(DC, "_launch",
+                   lambda x, s, w: dtypes.append(str(x.dtype))):
+        DC.LAUNCHES = 0  # counts from here on are the served paths' own
+        for f in frames[:8]:
+            for name, d in dets.items():
+                with cudnn_tf32(name == "bf16"):
+                    ret = d.run(f)
+                timings[name]["net_ms"].append(ret["net"] * 1e3)
+                timings[name]["tot_ms"].append(ret["tot"] * 1e3)
+        for _ in range(4):
+            for name, d in dets.items():
+                with cudnn_tf32(name == "bf16"):
+                    d._sync()
+                    t0 = time.perf_counter()
+                    got = d.process_batch(stack, tis).cpu().numpy()
+                timings[name]["batch_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                if not np.isfinite(got).all():
+                    fail.append("batch " + name)
+        launches = DC.LAUNCHES
+    for t in timings.values():
+        t["batch_img_per_s"] = 32 / min(t["batch_ms"][1:]) * 1e3
+    out.update(timings=timings, launches=launches,
+               launches_bf16=dtypes.count("torch.bfloat16"),
+               launches_f32=dtypes.count("torch.float32"))
+    # 8 requests and 4 batches, each path 3 launches a forward
+    if launches != 2 * 3 * 12 or out["launches_bf16"] != 3 * 12:
+        fail.append("launches")
+
+    DC.LAUNCHES = 0
+    nms = CtdetDetector(_served_opt(*bf16, "--test_scales", TEST_SCALES,
+                                    "--nms"), state_dict=sd, device="cuda")
+    with cudnn_tf32(True):
+        ret = nms.run(frames[0])
+    out["nms_request_ms"] = {k: ret[k] * 1e3 for k in (
+        "tot", "pre", "net", "dec", "post", "merge")}
+    out["nms_launches"] = DC.LAUNCHES
+    if DC.LAUNCHES != 3 * len(TEST_SCALES.split(",")) or not all(
+            np.isfinite(v).all() for v in ret["results"].values()):
+        fail.append("nms")
+    launches += DC.LAUNCHES
+
+    path = str(ROOT / "exp" / "chip_smoke" / "served.pth")
+    checkpoint.save_model(path, 0, model)
+    DC.LAUNCHES = 0
+    with cudnn_tf32(True):
+        text, seconds = _cli_log(cli_test.main, data.args(
+            1, "--batch_eval", "32", "--flip_test", "--device_warp",
+            *bf16, "--load_model", path, "--exp_id",
+            "chip_smoke_eval_bf16"))
+    ap = _lines_with(text, "Mean AP")
+    out["batch_eval_device_warp"] = {
+        "seconds": seconds, "launches": DC.LAUNCHES,
+        "stages": _lines_with(text, "stages (s)"),
+        "mean_ap_line": ap[-1] if ap else None}
+    if DC.LAUNCHES != 3 or not ap:
+        fail.append("cli batch_eval")
+    launches += DC.LAUNCHES
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("bf16 check failed: {}".format(fail))
+    return launches, timings
+
+
+def with_tf32(trainer):
+    """`trainer`'s step under cudnn_tf32(True), for timed_steps_in_turns."""
+    def step(batch):
+        with cudnn_tf32(True):
+            return trainer.train_step(batch)
+    return types.SimpleNamespace(train_step=step)
+
+
+def phase_bf16_train(data, batches):
+    """Training with bf16 conv operands: one FP32-recipe step card vs CPU
+    at batch 4 from conditioned_init (loss BF16_LOSS_TOL, gradients
+    BF16_GRAD_TOL); 8 steps at batch 32, bf16 and f32 in turns, with the
+    backward launches by dtype; 3 QAT steps in bf16 and 3 in f32 from
+    the train phase's FP32 checkpoint, in turns: losses within
+    QAT_BF16_LOSS_TOL, every EMA range within QAT_BF16_RANGE_TOL.
+    Returns (forward, backward) launches and the timed steps."""
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    opts = {"bf16": data.opt(TRAIN_BATCH, "--dtype", "bfloat16"),
+            "f32": data.opt(TRAIN_BATCH)}
+    parity, ok = step_parity(data, conditioned_init(opts["bf16"]),
+                             bf16=True)
+    out = {"phase": "bf16_train", "parity": {
+        "batch": 4, **parity, "tol_loss": BF16_LOSS_TOL,
+        "tol_grad_rel_l2": BF16_GRAD_TOL}}
+    if not ok:
+        fail.append("parity")
+
+    def trainers(qspec=None, path=None):
+        made = {}
+        for name, opt in opts.items():
+            tr = Trainer(opt, qspec=qspec, device="cuda")
+            if path:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    checkpoint.load_model(path, tr.model)
+            tr.init()
+            made[name] = tr
+        return made
+
+    dtypes = []
+    steps = trainers()
+    with recording(DC, "_launch_bwd",
+                   lambda x, s, w, g: dtypes.append(str(x.dtype))):
+        runs = timed_steps_in_turns({
+            "bf16": (with_tf32(steps["bf16"]), batches[:8], None),
+            "f32": (steps["f32"], batches[:8], None)})
+    out["steps_in_turns"] = runs
+    out["bwd_launch_dtypes"] = {d: dtypes.count(d) for d in set(dtypes)}
+    for run in runs.values():
+        if not np.all(np.isfinite(run["losses"])) or any(
+                st != [3, 3] for st in run["launches_per_step"]):
+            fail.append("steps")
+    if out["bwd_launch_dtypes"].get("torch.bfloat16", 0) != 3 * 8:
+        fail.append("bf16 backward launches")
+
+    qat = trainers(QuantSpec(), str(ROOT / "exp" / "chip_smoke"
+                                    / "fp32.pth"))
+    qruns = timed_steps_in_turns({
+        "bf16": (with_tf32(qat["bf16"]), batches[:3], None),
+        "f32": (qat["f32"], batches[:3], None)})
+    l16 = np.asarray(qruns["bf16"]["losses"])
+    l32 = np.asarray(qruns["f32"]["losses"])
+    ranges = {name: {k: v.cpu() for k, v in tr.model.state_dict().items()
+                     if k.endswith(("x_min", "x_max"))}
+              for name, tr in qat.items()}
+    range_err = max(float(((ranges["bf16"][k] - ranges["f32"][k]).abs()
+                           - QAT_BF16_RANGE_TOL
+                           * ranges["f32"][k].abs()).max())
+                    for k in ranges["f32"])
+    out["qat"] = {"losses_bf16": l16.tolist(), "losses_f32": l32.tolist(),
+                  "loss_rel": (np.abs(l16 - l32) / np.abs(l32)).tolist(),
+                  "ranges": len(ranges["f32"]),
+                  "range_excess_over_rtol": range_err,
+                  "tol_loss": QAT_BF16_LOSS_TOL,
+                  "tol_range": QAT_BF16_RANGE_TOL,
+                  "ms_per_step": {k: r["ms_per_step"]
+                                  for k, r in qruns.items()}}
+    if not np.all(np.isfinite(l16)) \
+            or np.any(np.abs(l16 - l32) > QAT_BF16_LOSS_TOL * np.abs(l32)) \
+            or range_err > QAT_BF16_RANGE_TOL:
+        fail.append("qat")
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("bf16_train check failed: {}".format(fail))
+    launches = [sum(r[k] for r in list(runs.values())
+                    + list(qruns.values()))
+                for k in ("launches_fwd", "launches_bwd")]
+    return launches, runs
+
+
+def phase_deform_backbone(data):
+    """The deform backbone (create_model(..., deform_backbone=True)): a
+    256^2 forward card vs CPU port in f32 (BACKBONE_HEAD_TOL, calibrated
+    BN stats as build_served_model sets them), 16 forward launches (13
+    backbone, 3 deconv); one FP32 train step card vs CPU from
+    conditioned_init, f32 (STEP_TOL) and with bf16 conv operands
+    (BF16_LOSS_TOL, BF16_GRAD_TOL); int8 refused. Returns (forward,
+    backward) launches."""
+    from codenet_torch.models import create_model
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    model = build_served_model(deform_backbone=True)
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    with torch.no_grad():
+        fwd, ok = heads_card_vs_cpu(model, BACKBONE_HEAD_TOL, 16)
+    launches = [DC.LAUNCHES, 0]
+    out = {"phase": "deform_backbone", "forward": fwd}
+    if not ok:
+        fail.append("forward")
+    opt = data.opt(TRAIN_BATCH)
+    for name, bf16 in (("step_f32", False), ("step_bf16", True)):
+        parity, ok = step_parity(data, conditioned_init(opt, True),
+                                 deform_backbone=True, bf16=bf16)
+        out[name] = {"batch": 4, **parity}
+        launches = [a + b for a, b in zip(launches,
+                                          parity["launches_fwd_bwd"])]
+        if not ok:
+            fail.append(name)
+    try:
+        create_model(opt.arch, opt.heads, opt.head_conv,
+                     qspec=QuantSpec(int8_infer=True), deform_backbone=True,
+                     device="cuda")
+        fail.append("int8 not refused")
+    except NotImplementedError as e:
+        out["int8_refused"] = str(e)
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("deform_backbone check failed: {}".format(fail))
+    return launches
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -1347,6 +1722,22 @@ def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in path) else "operations",
             "library_ms": None}
+
+
+def path_ms(rows, name, n, dtype, backbone_calls=None):
+    """{"ms_<name>", "bound_ms_<name>", "launches_<name>"} of one pass of
+    a path over the kernel rows at batch n and `dtype`: the three deconv
+    calls, and with `backbone_calls` ({shape: calls}) the deform
+    backbone's too."""
+    calls = {tuple(shape): 1 for shape in MODEL_SHAPES}
+    calls.update(backbone_calls or {})
+    picked = [(r, calls[tuple(r["shape"])]) for r in rows
+              if tuple(r["shape"]) in calls and r["n"] == n
+              and r["dtype"] == dtype]
+    return {"ms_" + name: sum(r["ms"] * k for r, k in picked),
+            "bound_ms_" + name: sum(r["bound_us"] * k
+                                    for r, k in picked) / 1e3,
+            "launches_" + name: sum(k for _, k in picked)}
 
 
 def main(argv=None):
@@ -1372,12 +1763,15 @@ def main(argv=None):
     data = SmokeData()
     fp32, batches, train_run = phase_train(data)
     qat_run, qat_eval_launches, qat_model = phase_qat(data, fp32, batches)
-    phase_cli(data)
+    cli_bf16 = phase_cli(data)
     int8_launches, int8_cli_launches, int8_bf16 = phase_int8(
         data, qat_model, bw, flops)
     cache_fwd, cache_bwd = phase_devcache(data, train_run, batches)
     eval_paths_launches = phase_eval_paths(data, model)
     multiscale_launches = phase_multiscale(model, synthetic_frames(8)[0])
+    bf16_launches, _ = phase_bf16(model, data)
+    bf16_train, _ = phase_bf16_train(data, batches)
+    backbone = phase_deform_backbone(data)
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -1396,7 +1790,8 @@ def main(argv=None):
         serve_launches + train_run["launches_fwd"]
         + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
         + int8_cli_launches + cache_fwd + eval_paths_launches
-        + multiscale_launches, rows + keep_res_rows,
+        + multiscale_launches + bf16_launches + bf16_train[0]
+        + backbone[0] + cli_bf16[0], rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
     # and the three calls of each --keep_res request of the kernel cases
@@ -1409,20 +1804,30 @@ def main(argv=None):
     fwd_entry["ms_int8_forward_bf16"] = int8_bf16["ms_int8_forward_bf16"]
     fwd_entry["bound_ms_int8_forward_bf16"] = \
         int8_bf16["bound_ms_int8_forward_bf16"]
+    # and of one served forward with bf16 operands (batch 2)
+    fwd_entry.update(path_ms(rows, "served_forward_bf16", 2, "bfloat16"))
+    # backward: one train step's three calls (batch 32, f32); launches
+    # over the FP32, QAT, image-cache, bf16 and deform-backbone training
+    # paths and the bf16 CLIs
+    bwd_entry = kernel_line_entry(
+        "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
+        replaces("_bwd_kernel"),
+        train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
+        + bf16_train[1] + backbone[1] + cli_bf16[1], bwd_rows,
+        lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
+        and r["dtype"] == "float32")
+    # and of one bf16 train step (3 calls), and of one deform-backbone
+    # train step (16 calls: 13 backbone, 3 deconv; batch 32, f32)
+    bwd_entry.update(path_ms(bwd_rows, "train_step_bf16", TRAIN_BATCH,
+                             "bfloat16"))
+    bwd_entry.update(path_ms(bwd_rows, "train_step_deform_backbone",
+                             TRAIN_BATCH, "float32", BACKBONE_CALLS))
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,
-        # image-cache training, batched eval and multi-scale paths
-        fwd_entry,
-        # backward: one train step's three calls (batch 32, f32); launches
-        # over the FP32, QAT and image-cache training paths
-        kernel_line_entry(
-            "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
-            replaces("_bwd_kernel"),
-            train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd,
-            bwd_rows,
-            lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
-            and r["dtype"] == "float32")]})
+        # image-cache training, batched eval, multi-scale, bf16 and
+        # deform-backbone paths and the bf16 CLIs
+        fwd_entry, bwd_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -13,7 +13,9 @@ pre, net, dec, post, merge}); on a card each stage ends in
 
 Served: ctdet, FP32, W4A8 fake-quant (``--resume-quantize``, with the
 recipe a port checkpoint records) or real int8 (``--resume-quantize
---int8_infer``), its weights from a checkpoint or from a W4A8 artifact
+--int8_infer``), each with f32 or bf16 convs (``--dtype bfloat16``;
+checkpoints hold f32 tensors either way), its weights from a checkpoint
+or from a W4A8 artifact
 (``--w4a8_artifact``, engine/w4a8.py; a checkpoint's integer weights are
 derived once, at construction); any test scales, ``fix_res`` or
 ``--keep_res``, with or without ``--flip_test``, uint8 or (with
@@ -21,9 +23,8 @@ derived once, at construction); any test scales, ``fix_res`` or
 batched: `process_batch` over pre-warped images, `process_batch_raw` over
 raw frames warped on the device (``--device_warp``), and
 `process_batch_cached` / `process_batches_cached` over rows of a
-device-resident image stack (``--device_cache``). The bf16 model
-(``--dtype bfloat16``) and ``--device_cache_shard`` raise and are queued
-in ROADMAP.md.
+device-resident image stack (``--device_cache``). ``--device_cache_shard``
+raises and is queued in ROADMAP.md.
 """
 
 from __future__ import annotations

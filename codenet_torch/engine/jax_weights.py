@@ -4,8 +4,12 @@ One table (`module_table`) pairs each port module with its flax path in
 the JAX PoseShuffleNetV2, e.g. ``layer1.0.b2.0`` + ``layer1.0.b2.1`` with
 ('layer1', 'node0', 'b2_conv1'), ``deconv_layers.0.conv`` with ('deconv0',)
 (its ``deform_kernel``), ``hm.6`` with ('head_hm', 'out') and
-``layer1.share_act`` with ('layer1', 'share_act'). Both directions read
-it:
+``layer1.share_act`` with ('layer1', 'share_act'); with the deform
+backbone ``layer1.1.b2.3`` (its ``conv_scale``, ``conv`` and
+quantizers) with ('layer1', 'node1', 'b2_conv2') and its closing BN
+``layer1.1.b2.4`` with ('layer1', 'node1', 'b2_conv2', 'bn'), and
+``layerL.0.b1.{0,1}`` with ('layerL', 'node0', 'b1_conv1') likewise. Both
+directions read it:
 
 - `from_jax_variables` turns the JAX model's ``{'params', 'batch_stats'}``
   numpy trees (as saved in a ``.ckpt``) into this package's
@@ -27,11 +31,17 @@ import numpy as np
 import torch
 
 
+# a deform backbone block's flax name -> its port module (BaseNode.b1/b2)
+_DEFORM_NODES = {"b1_conv1": "b1.0", "b2_conv2": "b2.3"}
+
+
 def quant_stats_name(path):
     """Port module name of a JAX ``quant_stats`` node path, e.g.
     ('layer1', 'node0', 'b2_act1') -> 'layer1.0.b2_act1',
     ('deconv2', 'scale_act') -> 'deconv_layers.8.scale_act',
-    ('head_hm', 'act1') -> 'hm.act1'; top-level acts keep their name."""
+    ('layer1', 'node1', 'b2_conv2', 'scale_act') ->
+    'layer1.1.b2.3.scale_act', ('head_hm', 'act1') -> 'hm.act1';
+    top-level acts keep their name."""
     out = []
     for i, key in enumerate(path):
         inner = i < len(path) - 1
@@ -43,6 +53,8 @@ def quant_stats_name(path):
             out.append("deconv_layers.{}".format(4 * int(deconv.group(1))))
         elif key.startswith("head_") and inner:
             out.append(key[5:])
+        elif key in _DEFORM_NODES and inner:
+            out.append(_DEFORM_NODES[key])
         else:
             out.append(key)
     return ".".join(out)
@@ -61,10 +73,12 @@ class Row(NamedTuple):
 
 class Layout(NamedTuple):
     """What the table depends on: nodes per stage, whether each deconv
-    block has a mixer, and the heads' names."""
+    block has a mixer, the heads' names, and whether the backbone's
+    depthwise 3x3s are deform blocks (deform_backbone)."""
     stages: Tuple[int, ...]
     mixers: Tuple[bool, ...]
     heads: Tuple[str, ...]
+    deform: bool = False
 
 
 def layout_of_jax(params):
@@ -76,7 +90,8 @@ def layout_of_jax(params):
             len(mixers))])
     return Layout(tuple(nodes), tuple(mixers),
                   tuple(sorted(k[5:] for k in params if k.startswith(
-                      "head_"))))
+                      "head_"))),
+                  "conv_scale" in params["layer1"]["node0"]["b2_conv2"])
 
 
 def layout_of_state_dict(sd):
@@ -89,7 +104,8 @@ def layout_of_state_dict(sd):
             4 * len(mixers)) in sd)
     heads = sorted(k[:-len(".6.bias")] for k in sd
                    if re.fullmatch(r"[^.]+\.6\.bias", k))
-    return Layout(tuple(nodes), tuple(mixers), tuple(heads))
+    return Layout(tuple(nodes), tuple(mixers), tuple(heads),
+                  "layer1.0.b2.3.conv_scale.weight" in sd)
 
 
 def module_table(layout):
@@ -103,6 +119,25 @@ def module_table(layout):
     def act(*path):
         rows.append(Row("act", quant_stats_name(path), path))
 
+    def deform_block(port, bn, path, mixer=False):
+        """A co-designed deform block: its scale predictor and deform
+        kernel, then its mixer + BN `bn` or the BN `bn` that closes it,
+        then its quantizers."""
+        rows.append(Row("conv", port + ".conv_scale", path + ("conv_scale",)))
+        rows.append(Row("deform", port + ".conv", path))
+        if mixer:
+            conv_bn(port + ".conv_channel", bn, path + ("conv_channel",))
+        else:
+            rows.append(Row("bn", bn, path + ("bn",)))
+        act(*path, "scale_act")
+        act(*path, "deform_act")
+
+    def dw(port, bn, path):
+        if layout.deform:
+            deform_block(port, bn, path)
+        else:
+            conv_bn(port, bn, path)
+
     conv_bn("layer0.0", "layer0.1", ("layer0",))
     act("layer0_act")
     for stage, nodes in enumerate(layout.stages, 1):
@@ -110,11 +145,11 @@ def module_table(layout):
         for k in range(nodes):
             base, path = "{}.{}".format(layer, k), (layer, "node{}".format(k))
             if k == 0:
-                conv_bn(base + ".b1.0", base + ".b1.1", path + ("b1_conv1",))
+                dw(base + ".b1.0", base + ".b1.1", path + ("b1_conv1",))
                 conv_bn(base + ".b1.2", base + ".b1.3", path + ("b1_conv2",))
                 act(*path, "b1_act1")
             conv_bn(base + ".b2.0", base + ".b2.1", path + ("b2_conv1",))
-            conv_bn(base + ".b2.3", base + ".b2.4", path + ("b2_conv2",))
+            dw(base + ".b2.3", base + ".b2.4", path + ("b2_conv2",))
             conv_bn(base + ".b2.5", base + ".b2.6", path + ("b2_conv3",))
             act(*path, "b2_act1")
             act(*path, "b2_act2")
@@ -125,14 +160,7 @@ def module_table(layout):
         name = "deconv{}".format(i)
         base = "deconv_layers.{}".format(4 * i)
         bn = "deconv_layers.{}".format(4 * i + 1)
-        rows.append(Row("conv", base + ".conv_scale", (name, "conv_scale")))
-        rows.append(Row("deform", base + ".conv", (name,)))
-        if mixer:
-            conv_bn(base + ".conv_channel", bn, (name, "conv_channel"))
-        else:
-            rows.append(Row("bn", bn, (name, "bn")))
-        act(name, "scale_act")
-        act(name, "deform_act")
+        deform_block(base, bn, (name,), mixer)
         act(name + "_act")
     for head in layout.heads:
         path = ("head_" + head,)

@@ -9,7 +9,9 @@ on batch statistics, running statistics updated); QAT (a `QuantSpec`)
 runs it against frozen folded BN with `update_stats=True`, so only the
 activation-range EMA moves (the JAX step's `train=False,
 update_stats=True`). `torch.optim.Adam` is optax.adam: same moments, same
-bias correction, eps outside the square root.
+bias correction, eps outside the square root. With ``--dtype bfloat16``
+the model's convs take bf16 operands (models/layers.py); its heads, the
+loss, the parameters and Adam's state stay f32.
 
 The epoch loop is the JAX package's per-step path. Its scan-epoch engine,
 fused train heads, oracle probes and debug / result hooks are not ported

@@ -16,6 +16,17 @@ from .shufflenetv2 import get_shufflenetv2_dcn
 MODEL_FACTORY = {
     "shufflenetv2": get_shufflenetv2_dcn,
 }
+_DTYPES = {None: None, "float32": None, torch.float32: None,
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def compute_dtype(dtype):
+    """The model's compute dtype for a `--dtype` value or a torch dtype:
+    None (f32) or torch.bfloat16."""
+    if dtype not in _DTYPES:
+        raise ValueError("dtype must be float32 or bfloat16, got "
+                         "{}".format(dtype))
+    return _DTYPES[dtype]
 
 
 def create_model(arch, heads, head_conv, w2=False, maxpool=False,
@@ -25,8 +36,9 @@ def create_model(arch, heads, head_conv, w2=False, maxpool=False,
     drawn from `generator` (default: seeded 0); `qspec` (a QuantSpec)
     selects W4A8 fake-quant execution, or real int8 with `int8_infer`.
 
-    dtype None or float32 only: the bf16 model path is queued in
-    ROADMAP.md.
+    dtype, the compute dtype of the convs (the JAX ``--dtype``): None,
+    "float32" or torch.float32 for f32; "bfloat16" or torch.bfloat16 for
+    bf16. Parameters and buffers are f32 either way.
     """
     num_layers = int(arch[arch.find("_") + 1:]) if "_" in arch else 0
     arch_name = arch[:arch.find("_")] if "_" in arch else arch
@@ -34,15 +46,12 @@ def create_model(arch, heads, head_conv, w2=False, maxpool=False,
         raise NotImplementedError(
             "arch {} is not ported yet (ROADMAP.md); codenet_torch has: "
             "{}".format(arch, sorted(MODEL_FACTORY)))
-    if dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError(
-            "dtype {} is queued in ROADMAP.md; the served model is "
-            "FP32".format(dtype))
     device = resolve_device(device)
     model = MODEL_FACTORY[arch_name](num_layers, heads, head_conv, w2=w2,
                                      maxpool=maxpool,
                                      deform_backbone=deform_backbone,
-                                     qspec=qspec)
+                                     qspec=qspec,
+                                     dtype=compute_dtype(dtype))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model.reset_parameters(generator)

@@ -27,6 +27,17 @@ Integer weights are derived on the fly from the float ones, or set on
 each conv module as non-persistent ``deploy_*`` buffers (engine/w4a8.py:
 from a W4A8 artifact, or derived once for serving): no ``state_dict``
 carries them.
+
+The compute dtype (``dtype``: None for f32, or ``torch.bfloat16``, the
+JAX ``--dtype bfloat16``) is the type of the operands of every conv and of
+the deform op, rounded as the JAX layers are once XLA has compiled them
+(XLA keeps the excess precision of a bf16 result that is widened again;
+measured on the CPU, jitted against op by op): each conv rounds its input
+and weight to bf16 and sums their products in f32; a conv followed by a
+BN keeps that f32 result, one with a bias rounds it to bf16 and adds the
+bf16 bias in f32. The deform op samples bf16 x with the bf16 weight and
+its bf16 output is widened. Everything else (BN, activations,
+quantizers) is f32. Parameters, buffers and optimizer state stay f32.
 """
 
 from __future__ import annotations
@@ -284,30 +295,54 @@ def _int8_conv(conv_mod, x, float_weights, qspec, w_bit):
                        conv_mod.padding, conv_mod.groups)
 
 
-def conv_q(conv_mod, x, qspec, w_bit=None):
+def _conv(conv_mod, x, weight, bias, dtype):
+    """`conv_mod`'s convolution of x with `weight` and `bias` (or None).
+    dtype None: in x's type, the bias fused. A compute dtype: the conv of
+    x and weight rounded to it, in f32 (on a card cuDNN runs it on TF32
+    tensor cores where TF32 is allowed: bf16 operands are exact in TF32);
+    with a bias, that result rounded to it and the rounded bias added in
+    f32 (the JAX conv2d and Conv, layers.py:176-188, 430-435, as XLA
+    compiles them)."""
+    if dtype is None:
+        return F.conv2d(x, weight, bias, conv_mod.stride, conv_mod.padding,
+                        conv_mod.dilation, conv_mod.groups)
+    y = F.conv2d(x.to(dtype).float(), weight.to(dtype).float(), None,
+                 conv_mod.stride, conv_mod.padding, conv_mod.dilation,
+                 conv_mod.groups)
+    if bias is None:
+        return y
+    return (y.to(dtype).float()
+            + bias.to(dtype).float()[None, :, None, None])
+
+
+def conv_q(conv_mod, x, qspec, w_bit=None, dtype=None):
     """Conv with the weight fake-quantized in quant mode; the bias stays
     full precision (reference Quant_Conv2d, quant_modules.py:228-321). A
-    QTensor input runs the int8 conv (the JAX ``Conv``'s int8 branch)."""
+    QTensor input runs the int8 conv (the JAX ``Conv``'s int8 branch).
+    `dtype`: the operands' compute dtype (`_conv`)."""
     if qspec is None:
-        return conv_mod(x)
+        if dtype is None:
+            return conv_mod(x)
+        return _conv(conv_mod, x, conv_mod.weight, conv_mod.bias, dtype)
     if isinstance(x, Q.QTensor):
         return _int8_conv(conv_mod, x,
                           lambda: (conv_mod.weight, conv_mod.bias), qspec,
                           w_bit)
-    return F.conv2d(x, fake_quant(conv_mod.weight, qspec, w_bit),
-                    conv_mod.bias, conv_mod.stride, conv_mod.padding,
-                    conv_mod.dilation, conv_mod.groups)
+    return _conv(conv_mod, x, fake_quant(conv_mod.weight, qspec, w_bit),
+                 conv_mod.bias, dtype)
 
 
-def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None):
-    """Conv + BN. FP32: the two modules (BN in its train/eval mode).
-    Quant: BN folded from its running statistics, the folded weight
-    fake-quantized, one conv (reference QuantBnConv2d,
-    quant_modules.py:324-419): QAT trains against frozen folded BN. A
-    QTensor input runs the folded conv in int8 (the JAX ``ConvBN``'s int8
-    branch)."""
+def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None, dtype=None):
+    """Conv + BN. FP32: the two modules (BN in its train/eval mode, on the
+    f32 conv result whatever the operands' `dtype`). Quant: BN folded from
+    its running statistics, the folded weight fake-quantized, one conv
+    (reference QuantBnConv2d, quant_modules.py:324-419): QAT trains
+    against frozen folded BN. A QTensor input runs the folded conv in
+    int8 (the JAX ``ConvBN``'s int8 branch)."""
     if qspec is None:
-        return bn_mod(conv_mod(x))
+        if dtype is None:
+            return bn_mod(conv_mod(x))
+        return bn_mod(_conv(conv_mod, x, conv_mod.weight, None, dtype))
 
     def folded():
         return Q.fold_bn(conv_mod.weight, None, bn_mod.weight, bn_mod.bias,
@@ -316,8 +351,7 @@ def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None):
     if isinstance(x, Q.QTensor):
         return _int8_conv(conv_mod, x, folded, qspec, w_bit)
     w, b = folded()
-    return F.conv2d(x, fake_quant(w, qspec, w_bit), b, conv_mod.stride,
-                    conv_mod.padding, conv_mod.dilation, conv_mod.groups)
+    return _conv(conv_mod, x, fake_quant(w, qspec, w_bit), b, dtype)
 
 
 class DeformWeight(nn.Module):
@@ -352,12 +386,19 @@ class CodesignDeformBlock(nn.Module):
     int8 conv, s dequantized, x dequantized and sampled in bf16 with the
     quantized weight in bf16 (the bf16 kernel on a card), and `deform_act`
     hands the mixer a QTensor.
+
+    bf16 (`dtype`, layers.py:511-591): conv_scale takes bf16 operands
+    (its f32 result is s); the fast path samples x with the weight both
+    rounded to bf16 (the bf16 kernels on a card, forward and backward),
+    and its bf16 output is widened to x's type; stride 2 samples in x's
+    type (f32), as the JAX block does.
     """
 
     def __init__(self, in_channels, features, stride=1, offset_bound=8,
-                 qspec=None):
+                 qspec=None, dtype=None):
         super().__init__()
         self.qspec = qspec
+        self.dtype = dtype
         self.stride = stride
         self.offset_bound = offset_bound
         self.conv_scale = conv(in_channels, 1, 1, stride, 0, bias=True)
@@ -380,7 +421,7 @@ class CodesignDeformBlock(nn.Module):
     def forward(self, x, bn, update=False):
         q = self.qspec
         int8 = q is not None and q.int8_infer
-        s = F.hardtanh(conv_q(self.conv_scale, x, q),
+        s = F.hardtanh(conv_q(self.conv_scale, x, q, dtype=self.dtype),
                        -self.offset_bound + 1, self.offset_bound)
         s = as_float(apply_act(self.scale_act, s, update))
         x = as_float(x)
@@ -395,16 +436,18 @@ class CodesignDeformBlock(nn.Module):
             weight = fake_quant(self.conv.weight, q)
         w_hwio = weight.permute(2, 3, 1, 0)
         if self.stride == 1:
-            if int8:
-                x_nhwc = x_nhwc.to(INT8_SAMPLE_DTYPE)
-                w_hwio = w_hwio.to(INT8_SAMPLE_DTYPE)
-            y = codesign_deform_conv_fast(x_nhwc, s_nhwc, w_hwio)
+            kdtype = INT8_SAMPLE_DTYPE if int8 else self.dtype
+            if kdtype is not None:
+                x_nhwc = x_nhwc.to(kdtype)
+                w_hwio = w_hwio.to(kdtype)
+            y = codesign_deform_conv_fast(x_nhwc, s_nhwc, w_hwio).to(
+                x.dtype)
         else:
             y = codesign_deform_conv(x_nhwc, s_nhwc, w_hwio,
                                      stride=self.stride)
         y = apply_act(self.deform_act, nchw(y), update)
         if self.conv_channel is not None:
-            return conv_bn(self.conv_channel, bn, y, q)
+            return conv_bn(self.conv_channel, bn, y, q, dtype=self.dtype)
         if q is None:
             return bn(y)
         # quant mode without a mixer: BN from running stats, unfolded (the

@@ -1,7 +1,10 @@
 """ShuffleNetV2 + co-designed deformable deconv — the CoDeNet flagship.
 
 PyTorch port of the JAX package's models/shufflenetv2.py (reference
-lib/models/networks/shufflenetv2_dcn.py:189-330), FP32 or W4A8 fake-quant.
+lib/models/networks/shufflenetv2_dcn.py:189-330), FP32 or W4A8 fake-quant
+(or real int8), in f32 or with bf16 convs (``dtype``, layers.py), with
+plain depthwise 3x3s in the backbone or, with ``deform_backbone``,
+co-designed deform blocks in their place.
 Module names follow the reference ``state_dict`` layout (the one the JAX
 package's engine/torch_import.py::convert_shufflenetv2 reads):
 ``layer0.{0,1}``, ``layerL.k.b1.{0..3}``, ``layerL.k.b2.{0,1,3,4,5,6}``,
@@ -15,6 +18,15 @@ quantizer per stage, called at every branch merge in the JAX order),
 ``layerL.k.{b1_act1,b2_act1,b2_act2}``, ``layer4_act``,
 ``deconv_layers.{4i}.{scale_act,deform_act}``, ``deconv{i}_act`` and
 ``{head}.{act1,act2}``. Layer0's weights quantize to 8 bits.
+
+With ``deform_backbone`` (the JAX ``BaseNode._dw``, shufflenetv2.py:47-60)
+a `CodesignDeformBlock` without a mixer replaces ``b1.0`` (stride 2) and
+``b2.3`` (the kernels at stride 1, the plain op at stride 2), and the BNs
+``b1.1`` and ``b2.4`` close those blocks (reference shufflenetv2_dcn.py:
+216-230); in quant mode each block adds its ``scale_act`` and
+``deform_act``, whose ranges, as in the JAX package, never update. The
+JAX package cannot run it in int8 (its block-final BatchNorm receives a
+QTensor), so neither does the port.
 
 `forward(images, update_stats=False)` takes (N, H, W, 3) images and
 returns {head: (N, H/4, W/4, C)}, NHWC like the JAX model; inside,
@@ -50,17 +62,22 @@ class BaseNode(nn.Module):
     takes x2 always and x1 only at stride 2.
     """
 
-    def __init__(self, inp, oup, stride, deform=False, qspec=None):
+    def __init__(self, inp, oup, stride, deform=False, qspec=None,
+                 dtype=None):
         super().__init__()
-        if deform:
-            raise NotImplementedError(
-                "deform_backbone is queued in ROADMAP.md")
         self.stride = stride
         self.qspec = qspec
+        self.dtype = dtype
         oup_inc = oup // 2
+
+        def dw(c):
+            if deform:
+                return CodesignDeformBlock(c, c, stride, qspec=qspec,
+                                           dtype=dtype)
+            return conv(c, c, 3, stride, 1, groups=c)
         if stride == 2:
             self.b1 = nn.Sequential(
-                conv(inp, inp, 3, 2, 1, groups=inp), bn(inp),
+                dw(inp), bn(inp),
                 conv(inp, oup_inc), bn(oup_inc), nn.ReLU(inplace=True))
             self.b1_act1 = quant_act(qspec)
             b2_in = inp
@@ -68,28 +85,35 @@ class BaseNode(nn.Module):
             b2_in = oup_inc
         self.b2 = nn.Sequential(
             conv(b2_in, oup_inc), bn(oup_inc), nn.ReLU(inplace=True),
-            conv(oup_inc, oup_inc, 3, stride, 1, groups=oup_inc),
-            bn(oup_inc),
+            dw(oup_inc), bn(oup_inc),
             conv(oup_inc, oup_inc), bn(oup_inc), nn.ReLU(inplace=True))
         self.b2_act1 = quant_act(qspec)
         self.b2_act2 = quant_act(qspec)
 
+    def _cbn(self, conv_mod, bn_mod, x):
+        """Conv + BN, or a deform block and the BN that closes it. The
+        block's quantizers keep their ranges: the JAX BaseNode._dw calls
+        the block without `update_stats`, so in QAT they never leave their
+        empty init, where fake-quant is the identity to f32 rounding."""
+        if isinstance(conv_mod, CodesignDeformBlock):
+            return conv_mod(x, bn_mod)
+        return conv_bn(conv_mod, bn_mod, x, self.qspec, dtype=self.dtype)
+
     def forward(self, x, share=None, update=False):
-        q = self.qspec
         if self.stride == 1:
             split = (x.values if isinstance(x, QTensor) else x).shape[1] // 2
             x1 = qt_spatial(lambda v: v[:, :split], x)
             x2 = qt_spatial(lambda v: v[:, split:], x)
         else:
-            y = conv_bn(self.b1[0], self.b1[1], x, q)
+            y = self._cbn(self.b1[0], self.b1[1], x)
             y = apply_act(self.b1_act1, y, update)
-            x1 = F.relu(conv_bn(self.b1[2], self.b1[3], y, q))
+            x1 = F.relu(self._cbn(self.b1[2], self.b1[3], y))
             x2 = x
-        y = F.relu(conv_bn(self.b2[0], self.b2[1], x2, q))
+        y = F.relu(self._cbn(self.b2[0], self.b2[1], x2))
         y = apply_act(self.b2_act1, y, update)
-        y = conv_bn(self.b2[3], self.b2[4], y, q)
+        y = self._cbn(self.b2[3], self.b2[4], y)
         y = apply_act(self.b2_act2, y, update)
-        x2 = F.relu(conv_bn(self.b2[5], self.b2[6], y, q))
+        x2 = F.relu(self._cbn(self.b2[5], self.b2[6], y))
         if share is not None:
             if self.stride == 2:
                 x1 = share(x1, update)
@@ -103,9 +127,10 @@ class Stage(nn.Sequential):
     indices 0..repeats, and in quant mode their shared quantizer
     `share_act` (quantize_model.py:40-51), registered after them."""
 
-    def __init__(self, inp, oup, repeats, deform=False, qspec=None):
-        nodes = [BaseNode(inp, oup, 2, deform, qspec)]
-        nodes += [BaseNode(oup, oup, 1, deform, qspec)
+    def __init__(self, inp, oup, repeats, deform=False, qspec=None,
+                 dtype=None):
+        nodes = [BaseNode(inp, oup, 2, deform, qspec, dtype)]
+        nodes += [BaseNode(oup, oup, 1, deform, qspec, dtype)
                   for _ in range(repeats)]
         super().__init__(*nodes)
         self.num_nodes = len(nodes)
@@ -123,23 +148,24 @@ class Head(nn.Sequential):
     mode `act1`/`act2` after each ReLU and the last conv's weight
     fake-quantized."""
 
-    def __init__(self, classes, head_conv, qspec=None):
+    def __init__(self, classes, head_conv, qspec=None, dtype=None):
         super().__init__(
             conv(64, head_conv), bn(head_conv), nn.ReLU(inplace=True),
             conv(head_conv, head_conv, 3, 1, 1, groups=head_conv),
             bn(head_conv), nn.ReLU(inplace=True),
             conv(head_conv, classes, bias=True))
         self.qspec = qspec
+        self.dtype = dtype
         self.act1 = quant_act(qspec)
         self.act2 = quant_act(qspec)
 
     def forward(self, x, update=False):
-        q = self.qspec
-        y = F.relu(conv_bn(self[0], self[1], x, q))
+        q, dt = self.qspec, self.dtype
+        y = F.relu(conv_bn(self[0], self[1], x, q, dtype=dt))
         y = apply_act(self.act1, y, update)
-        y = F.relu(conv_bn(self[3], self[4], y, q))
+        y = F.relu(conv_bn(self[3], self[4], y, q, dtype=dt))
         y = apply_act(self.act2, y, update)
-        return conv_q(self[6], y, q)
+        return conv_q(self[6], y, q, dtype=dt)
 
 
 class PoseShuffleNetV2(nn.Module):
@@ -150,9 +176,16 @@ class PoseShuffleNetV2(nn.Module):
     """
 
     def __init__(self, heads, head_conv=64, w2=False, maxpool=False,
-                 deform_backbone=False, qspec=None):
+                 deform_backbone=False, qspec=None, dtype=None):
         super().__init__()
+        if deform_backbone and qspec is not None and qspec.int8_infer:
+            raise NotImplementedError(
+                "int8_infer with deform_backbone: the JAX package cannot "
+                "run it either (its deform blocks' closing BatchNorm "
+                "receives a QTensor and raises a TypeError), so the port "
+                "does not add it")
         self.qspec = qspec
+        self.dtype = dtype
         self.maxpool = maxpool
         heads = dict(heads)
         self.heads = tuple(sorted(heads.items()))
@@ -171,7 +204,7 @@ class PoseShuffleNetV2(nn.Module):
         for idx, repeats in enumerate([3, 7, 3]):
             setattr(self, "layer{}".format(idx + 1),
                     Stage(channels[idx], channels[idx + 1], repeats,
-                          deform_backbone, qspec))
+                          deform_backbone, qspec, dtype))
 
         # layer4: 1x1 expand (reference :233-235)
         self.layer4 = nn.Sequential(conv(channels[3], channels[4]),
@@ -184,7 +217,8 @@ class PoseShuffleNetV2(nn.Module):
         deconv = []
         cin = channels[4]
         for i, planes in enumerate((256, 128, 64)):
-            deconv += [CodesignDeformBlock(cin, planes, qspec=qspec),
+            deconv += [CodesignDeformBlock(cin, planes, qspec=qspec,
+                                           dtype=dtype),
                        bn(planes), nn.ReLU(inplace=True),
                        nn.Upsample(scale_factor=2, mode="nearest")]
             setattr(self, "deconv{}_act".format(i), quant_act(qspec))
@@ -192,7 +226,7 @@ class PoseShuffleNetV2(nn.Module):
         self.deconv_layers = nn.Sequential(*deconv)
 
         for name, classes in self.heads:
-            setattr(self, name, Head(classes, head_conv, qspec))
+            setattr(self, name, Head(classes, head_conv, qspec, dtype))
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -216,16 +250,16 @@ class PoseShuffleNetV2(nn.Module):
                 torch_conv_init_(m.weight, generator)
 
     def forward(self, images, update_stats=False):
-        q = self.qspec
+        q, dt = self.qspec, self.dtype
         up = update_stats
         y = F.relu(conv_bn(self.layer0[0], self.layer0[1], nchw(images), q,
-                           w_bit=8))
+                           w_bit=8, dtype=dt))
         y = apply_act(self.layer0_act, y, up)
         if self.maxpool:
             y = qt_module(self.layer0[3], y)
         for stage in (self.layer1, self.layer2, self.layer3):
             y = stage(y, up)
-        y = F.relu(conv_bn(self.layer4[0], self.layer4[1], y, q))
+        y = F.relu(conv_bn(self.layer4[0], self.layer4[1], y, q, dtype=dt))
         y = apply_act(self.layer4_act, y, up)
         for i in range(3):
             block, block_bn = self.deconv_layers[4 * i:4 * i + 2]
@@ -237,10 +271,12 @@ class PoseShuffleNetV2(nn.Module):
 
 
 def get_shufflenetv2_dcn(num_layers, heads, head_conv=64, w2=False,
-                         maxpool=False, deform_backbone=False, qspec=None):
+                         maxpool=False, deform_backbone=False, qspec=None,
+                         dtype=None):
     """Factory (reference shufflenetv2_dcn.py:364-373) with w2/maxpool
     honoured."""
     del num_layers  # the reference ignores it too
     return PoseShuffleNetV2(heads, head_conv=head_conv, w2=w2,
                             maxpool=maxpool,
-                            deform_backbone=deform_backbone, qspec=qspec)
+                            deform_backbone=deform_backbone, qspec=qspec,
+                            dtype=dtype)

@@ -60,7 +60,7 @@ SMEM_RESERVED = 1024
 BWD_GROUP = 64
 BWD_MAX_THREADS = 1024
 BWD_MAX_CB = 256
-BWD_GRID_MIN_CB = 32
+BWD_GRID_MIN_CB = 8
 # forward launch plan (fwd_plan); FWD_GROUP, FWD_MAX_THREADS and FWD_REACH
 # are deform_fwd.cu's kGroup, kMaxThreads and kReach (a tap reaches
 # |a * s| <= 8 rows, its lower corner one more)
@@ -71,6 +71,9 @@ FWD_MAX_CB = 256
 FWD_MIN_SLICE_BYTES = 32
 FWD_WIDE_SLICE_BYTES = 128
 FWD_VEC_BYTES = 16
+# a band is halved to fill the card only while its tile holds at most this
+# many input rows per output row; past it the slice narrows first
+FWD_MAX_RESTAGE = 8
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -293,15 +296,23 @@ def _fwd_plan(n, h, w, c, dtype, align):
     conflicts); rows, the output rows of a band.
 
     The tallest band whose tile fits two blocks to an SM at a 128-byte
-    slice, else one block, else one block at the narrowest slice; then the
-    widest slice (up to 256 channels and c rounded up to a power of two)
-    that still fits that budget at that band. Then, while the grid (one
-    block per image, band and slice) has fewer blocks than the card has
-    SMs and one more split keeps it within them: the slice halved down to
-    128 bytes, then the band, then the slice down to its narrowest. A last
-    slice past c and a last band past h are masked. Returns
+    slice, else one block at the widest slice from 128 bytes down to the
+    narrowest at which a band fits; then the widest slice (up to 256
+    channels and c rounded up to a power of two) that still fits that
+    budget at that band. Then, while the grid (one block per image, band
+    and slice) has fewer blocks than the card has SMs, one more split that
+    keeps it within them: the slice halved down to 128 bytes; then the
+    band halved while its tile stays within FWD_MAX_RESTAGE input rows
+    per output row, else the slice down to its narrowest (the other of
+    the two where the first would overfill the card).
+    A last slice past c and a last band past h are masked. Returns
     `fwd_plan_for`'s dict; raises ValueError where even one row at the
-    narrowest slice does not fit (w above ~380)."""
+    narrowest slice does not fit (w above ~380).
+
+    (tools_torch/fwd_plan_sweep.py times every plan: a band of 1-2 rows
+    restages its 17 rows of reach 9-18 times, which costs more than a
+    slice under 128 bytes; a slice that fits no band at 128 bytes is
+    better halved once than cut to its narrowest.)"""
     esize = _ESIZE[dtype]
     vec = FWD_VEC_BYTES // esize
     while vec > 1 and (c % vec or align % (vec * esize)):
@@ -320,8 +331,12 @@ def _fwd_plan(n, h, w, c, dtype, align):
         return r if smem(r, k) <= budget else None
 
     pair = SMEM_PER_SM // 2 - SMEM_RESERVED
-    for budget, cb in ((pair, wide_cb), (SMEM_PER_BLOCK, wide_cb),
-                       (SMEM_PER_BLOCK, min_cb)):
+    tries = [(pair, wide_cb)]
+    cb = wide_cb
+    while cb >= min_cb:
+        tries.append((SMEM_PER_BLOCK, cb))
+        cb //= 2
+    for budget, cb in tries:
         rows = tallest(cb, budget)
         if rows is not None:
             break
@@ -335,17 +350,18 @@ def _fwd_plan(n, h, w, c, dtype, align):
         return n * -(-h // r) * -(-c // k)
 
     while blocks(rows, cb) < NUM_SMS:
+        band, slice_ = (-(-rows // 2), cb), (rows, cb // 2)
+        short = min(h, band[0] + 2 * FWD_REACH + 1) \
+            > FWD_MAX_RESTAGE * band[0]
         if cb > wide_cb:
-            split = rows, cb // 2
-        elif rows > 1:
-            split = -(-rows // 2), cb
-        elif cb > min_cb:
-            split = rows, cb // 2
+            splits = [slice_]
         else:
+            splits = [slice_, band] if short else [band, slice_]
+        splits = [sp for sp in splits if sp != (rows, cb)
+                  and sp[1] >= min_cb and blocks(*sp) <= NUM_SMS]
+        if not splits:
             break
-        if blocks(*split) > NUM_SMS:
-            break
-        rows, cb = split
+        rows, cb = splits[0]
     return fwd_plan_for(n, h, w, c, dtype, rows, cb, vec)
 
 
@@ -418,9 +434,11 @@ def bwd_plan(n, h, w, c):
 
     cb, the channels of a block's slice, is a power of two: the largest up
     to 256 (and up to c rounded up to a power of two) whose dx tile and
-    geometry fit SMEM_PER_BLOCK; then halved, but not below 32, while the
+    geometry fit SMEM_PER_BLOCK; then halved, but not below 8, while the
     grid (one block per image and slice) has fewer blocks than the card
-    has SMs. A last slice past c is masked. Returns {"cb", "threads",
+    has SMs and the halved one no more (tools_torch/bwd_plan_sweep.py: a
+    grid short of the SMs leaves them idle, one past them runs a second
+    wave). A last slice past c is masked. Returns {"cb", "threads",
     "smem_bytes", "slices", "blocks"}; raises ValueError where even cb = 1
     does not fit (h * w above ~51,000 positions)."""
     hw = h * w
@@ -430,7 +448,8 @@ def bwd_plan(n, h, w, c):
     if _bwd_smem_bytes(hw, cb) > SMEM_PER_BLOCK:
         raise ValueError("deform backward: a {}x{} map does not fit one "
                          "block's shared memory".format(h, w))
-    while cb > BWD_GRID_MIN_CB and n * -(-c // cb) < NUM_SMS:
+    while (cb > BWD_GRID_MIN_CB and n * -(-c // cb) < NUM_SMS
+           and n * -(-c // (cb // 2)) <= NUM_SMS):
         cb //= 2
     return bwd_plan_for(n, hw, c, cb)
 

@@ -53,9 +53,11 @@ def deform_case(shape, seed=0, n=2, s_range=(-9.0, 10.0), dtype=np.float32):
     return x, s, wt
 
 
-def perturb_variables(variables, seed, res=64):
+def perturb_variables(variables, seed, res=64, deform_backbone=False):
     """Numpy copy of JAX PoseShuffleNetV2 {'params', 'batch_stats'} trees
-    that makes a random-weight model a fair test of the port:
+    that makes a random-weight model a fair test of the port (with
+    `deform_backbone`, of that variant, whose trees only the port's
+    `to_jax_variables` writes):
 
     - every deform block's conv_scale is redrawn, so that s is fractional
       and partly out of the map (at init s == 1 and every tap lands on a
@@ -67,7 +69,8 @@ def perturb_variables(variables, seed, res=64):
       constant and their top scores tie.
     """
     from codenet_tpu.engine.torch_import import convert_shufflenetv2
-    from codenet_torch.engine.jax_weights import from_jax_variables
+    from codenet_torch.engine.jax_weights import (from_jax_variables,
+                                                  to_jax_variables)
     from codenet_torch.models import create_model
 
     r = rng(seed)
@@ -94,9 +97,14 @@ def perturb_variables(variables, seed, res=64):
     variables = {col: walk(tree, ()) for col, tree in variables.items()}
     heads = {k[5:]: v["out"]["bias"].shape[0]
              for k, v in variables["params"].items() if k.startswith("head_")}
-    model = create_model("shufflenetv2", heads, 64, device="cpu")
+    model = create_model("shufflenetv2", heads, 64, device="cpu",
+                         deform_backbone=deform_backbone)
     model.load_state_dict(from_jax_variables(variables))
     calibrate_bn(model, r.randn(4, res, res, 3).astype(np.float32))
+    if deform_backbone:
+        variables["batch_stats"] = to_jax_variables(
+            model.state_dict())["batch_stats"]
+        return variables
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
     variables["batch_stats"] = convert_shufflenetv2(
         sd, heads=tuple(sorted(heads)))["batch_stats"]
@@ -153,6 +161,27 @@ def adam_first_moment(state):
     return None
 
 
+def qat_batch():
+    """A 64^2 batch of 2 for the QAT step tests: uint8 images with their
+    colour-aug draws and sparse targets (4 objects each)."""
+    r = rng(73)
+    m = 50
+    batch = {"input_u8": r.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+             "aug_perm": np.array([2, 5], np.int32),
+             "aug_alphas": r.uniform(-0.4, 0.4, (2, 3)).astype(np.float32),
+             "aug_light": (r.randn(2, 3) * 0.02).astype(np.float32),
+             "hm_ct": r.randint(0, 16, (2, m, 2)).astype(np.int32),
+             "hm_radius": r.randint(0, 3, (2, m)).astype(np.int32),
+             "hm_cls": r.randint(0, 20, (2, m)).astype(np.int32),
+             "reg_mask": (np.arange(m) < 4).astype(np.uint8)[None]
+             .repeat(2, 0),
+             "wh": r.uniform(1, 9, (2, m, 2)).astype(np.float32),
+             "reg": r.rand(2, m, 2).astype(np.float32)}
+    batch["ind"] = (batch["hm_ct"][..., 1] * 16
+                    + batch["hm_ct"][..., 0]).astype(np.int64)
+    return batch
+
+
 def raise_bn_biases(model, heads, shift=3.0):
     """Raise every BN bias by `shift` but those before the heads' last
     convs: the conditioned start of the train-step parity tests
@@ -172,16 +201,23 @@ def assert_train_step_matches_jax(trainer, jax_trainer, batch, lr,
     img_idx rows index): the loss parts within 2e-3, each gradient (read
     from the JAX side's first Adam moment, mu = 0.1 g) within 5e-3 of its
     max, the updated parameters within 2 lr, the BN running statistics
-    within 1e-3."""
+    within 1e-3. The weights go across through the JAX package's own
+    converter, or, for the deform backbone, which it does not know,
+    through the port's `to_jax_variables`."""
     import jax
     import jax.numpy as jnp
     from codenet_tpu.engine.torch_import import convert_shufflenetv2
-    from codenet_torch.engine.jax_weights import from_jax_variables
+    from codenet_torch.engine.jax_weights import (from_jax_variables,
+                                                  layout_of_state_dict,
+                                                  to_jax_variables)
     from codenet_torch.engine.trainer import batch_to_device
 
     sd = {k: v.numpy().copy() for k, v in trainer.model.state_dict().items()
           if not k.endswith("num_batches_tracked")}
-    variables = convert_shufflenetv2(sd, heads=tuple(sorted(HEADS)))
+    if layout_of_state_dict(sd).deform:
+        variables = to_jax_variables(trainer.model.state_dict())
+    else:
+        variables = convert_shufflenetv2(sd, heads=tuple(sorted(HEADS)))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items() if k != "meta"}
     tbatch = batch_to_device(batch, "cpu")

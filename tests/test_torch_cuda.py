@@ -138,8 +138,27 @@ def test_kernel_forward_refuses_a_bad_plan(cuda_device, monkeypatch):
 
 # the forward's shapes at batch 2; KITTI's 48x160 map (slices of 4
 # channels: several positions per warp); one image alone
+# the deform backbone's stride-1 maps (channels no multiple of 16)
+BACKBONE_SHAPES = [(32, 32, 58), (16, 16, 116), (8, 8, 232)]
 BWD_CASES = [(shape, 2) for shape in SHAPES] + [((48, 160, 64), 2),
-                                                ((16, 16, 256), 1)]
+                                                ((16, 16, 256), 1)] \
+    + [(shape, 32) for shape in BACKBONE_SHAPES] \
+    + [(shape, 32) for shape in SHAPES[:3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BACKBONE_SHAPES)
+@pytest.mark.parametrize("n", [2, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_forward_backbone_shapes_on_card(shape, n, dtype,
+                                                cuda_device):
+    """The forward kernel at the deform backbone's maps, at the served and
+    trained batches, s fractional, integer and exactly -7 and 8 (58
+    channels take 8-byte f32 and 4-byte bf16 vectors)."""
+    x, s, w = deform_case(shape, seed=30, n=n)
+    _fwd_check(torch.from_numpy(x).to(cuda_device, dtype),
+               torch.from_numpy(_mixed_s(s, 31)).to(cuda_device),
+               torch.from_numpy(w).to(cuda_device, dtype))
 
 
 @pytest.mark.cuda
@@ -380,3 +399,73 @@ def test_int8_deform_block_launches_bf16_kernel(cuda_device, monkeypatch):
     assert torch.equal(x.cpu(), samples["cpu"][0])
     err = float((card.cpu() - cpu).norm() / cpu.norm())
     assert err <= 1e-2, err
+
+
+# -- bf16 conv operands and the deform backbone ----------------------------
+
+@pytest.mark.cuda
+def test_bf16_detector_request_on_card(cuda_device):
+    """One flip-test request with --dtype bfloat16 at 64^2: the forward
+    kernel launches in bf16 three times, and the heads agree with the
+    CPU port's bf16 heads within 3e-2 of each head's max."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector, eval_input
+    from codenet_torch.models import create_model
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--flip_test", "--dtype",
+                   "bfloat16"]), cfg.DATASET_SPECS["pascal"])
+    model = create_model("shufflenetv2", HEADS, 64, device="cpu")
+    calibrate_bn(model, np.random.RandomState(32).randn(4, 64, 64, 3)
+                 .astype(np.float32))
+    card = CtdetDetector(opt, state_dict=model.state_dict(),
+                         device=cuda_device)
+    cpu = CtdetDetector(opt, state_dict=model.state_dict(), device="cpu")
+    frame = np.random.RandomState(33).randint(0, 256, (90, 120, 3)) \
+        .astype(np.uint8)
+    dtypes = []
+    launch = DC._launch
+
+    def record(x, s, w):
+        dtypes.append(x.dtype)
+        return launch(x, s, w)
+    DC._launch = record
+    try:
+        ret = card.run(frame)
+    finally:
+        DC._launch = launch
+    assert dtypes == [torch.bfloat16] * 3
+    dets = np.concatenate(list(ret["results"].values()))
+    assert 0 < len(dets) <= 100 and np.isfinite(dets).all()
+    images, _ = card.pre_process(frame, 1)
+    x = eval_input(torch.from_numpy(images), card.mean, card.std)
+    with torch.no_grad():
+        got = card.model(x.to(cuda_device))
+        ref = cpu.model(x)
+    for name in ref:
+        scale = float(ref[name].abs().max())
+        err = float((got[name].cpu() - ref[name]).abs().max())
+        assert err <= 3e-2 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_deform_backbone_step_on_card(cuda_device):
+    """A deform-backbone model (64^2, batch 2, train-mode BN) forward and
+    backward on the card: 16 forward and 16 backward launches (13
+    backbone blocks, 3 deconv), f32 and with bf16 conv operands, finite
+    gradients for every parameter."""
+    from codenet_torch.models import create_model
+    for dtype in (None, "bfloat16"):
+        model = create_model("shufflenetv2", HEADS, 64, dtype=dtype,
+                             deform_backbone=True, device=cuda_device)
+        model.train()
+        x = torch.randn(2, 64, 64, 3,
+                        generator=torch.Generator().manual_seed(34))
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        out = model(x.to(cuda_device))
+        sum(v.sum() for v in out.values()).backward()
+        torch.cuda.synchronize()
+        assert (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]) == \
+            (16, 16)
+        for name, p in model.named_parameters():
+            assert torch.isfinite(p.grad).all(), name

@@ -399,18 +399,21 @@ def test_block_train_grads_match_jax(monkeypatch):
 # -- backward launch plan ---------------------------------------------------
 
 # (H, W, C) and the slice width cb at batch 32: chip_smoke.py's backward
-# shapes (the model's three, the ragged ones, KITTI's 48x160), a 64x64 map
-# whose tile allows less than 32 channels; None: a map past one block
+# shapes (the model's three, the ragged ones, KITTI's 48x160, the deform
+# backbone's three), a 64x64 map whose tile allows less than 32 channels;
+# None: a map past one block
 @pytest.mark.parametrize("shape,cb_at_32", [
-    ((8, 8, 1024), 128), ((16, 16, 256), 32), ((32, 32, 128), 32),
-    ((12, 12, 58), 32), ((16, 16, 2153), 128), ((24, 24, 32), 32),
-    ((48, 160, 64), 4), ((64, 64, 64), 8), ((256, 256, 8), None)])
+    ((8, 8, 1024), 256), ((16, 16, 256), 64), ((32, 32, 128), 32),
+    ((12, 12, 58), 16), ((16, 16, 2153), 128), ((24, 24, 32), 8),
+    ((48, 160, 64), 4), ((64, 64, 64), 8), ((32, 32, 58), 16),
+    ((16, 16, 116), 32), ((8, 8, 232), 64), ((256, 256, 8), None)])
 def test_bwd_plan(shape, cb_at_32):
     """The backward kernel's launch plan: the dx tile and geometry fit a
     block's 232,448 bytes; the slices cover C, the last one partly; cb is
-    the largest power of two that fits, halved (not below 32) only while
-    the grid has fewer than 132 blocks; the threads tile the slice and
-    divide the geometry group, 1024 where an SM holds one block only."""
+    the largest power of two that fits, halved (not below 8) only while
+    the grid has fewer than 132 blocks and the halved one no more; the
+    threads tile the slice and divide the geometry group, 1024 where an
+    SM holds one block only."""
     h, w, c = shape
     if cb_at_32 is None:
         with pytest.raises(ValueError):
@@ -431,10 +434,11 @@ def test_bwd_plan(shape, cb_at_32):
         alone = (plan["blocks"] <= 132
                  or 2 * (plan["smem_bytes"] + 1024) > 233_472)
         assert threads == min(1024 if alone else 512, 64 * cb)
-        if c >= 32 and fits(32):
-            assert cb >= 32
-        # halved only to fill the card, never below 32
-        assert cb <= 32 or plan["blocks"] >= 132
+        if c >= 8 and fits(8):
+            assert cb >= 8
+        # halved only to fill the card, never below 8 or past its SMs
+        assert cb <= 8 or plan["blocks"] >= 132 \
+            or n * -(-c // (cb // 2)) > 132
         # twice cb was refused: past 256 or c, too large, or too few blocks
         up = 2 * cb
         assert (up > min(256, 1 << (c - 1).bit_length()) or not fits(up)
@@ -447,8 +451,10 @@ def test_bwd_plan(shape, cb_at_32):
 _F32, _BF16 = torch.float32, torch.bfloat16
 # (rows, cb, vec, threads, blocks) at batches 2 and 32 for the model's
 # three shapes: at 2, slices of 128 bytes or less and short bands make one
-# wave of 128 blocks; at 32, 128-byte slices or wider, banded at 32x32 so
-# that two blocks fit an SM
+# wave of 128 blocks, the slice narrowed before a band would restage more
+# than FWD_MAX_RESTAGE input rows per row (32x32 at 4 rows of 16
+# channels); at 32, 128-byte slices or wider, banded at 32x32 so that two
+# blocks fit an SM
 _FWD_MODEL_PLANS = {
     (8, 8, 1024): {(2, _F32): (4, 32, 4, 256, 128),
                    (32, _F32): (8, 256, 4, 256, 128),
@@ -456,11 +462,11 @@ _FWD_MODEL_PLANS = {
                    (32, _BF16): (8, 256, 8, 256, 128)},
     (16, 16, 256): {(2, _F32): (2, 32, 4, 256, 128),
                     (32, _F32): (16, 64, 4, 256, 128),
-                    (2, _BF16): (1, 64, 8, 256, 128),
+                    (2, _BF16): (2, 32, 8, 256, 128),
                     (32, _BF16): (16, 64, 8, 256, 128)},
-    (32, 32, 128): {(2, _F32): (2, 32, 4, 256, 128),
+    (32, 32, 128): {(2, _F32): (4, 16, 4, 256, 128),
                     (32, _F32): (8, 32, 4, 256, 512),
-                    (2, _BF16): (1, 64, 8, 256, 128),
+                    (2, _BF16): (4, 16, 8, 256, 128),
                     (32, _BF16): (8, 64, 8, 256, 256)},
 }
 

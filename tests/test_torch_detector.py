@@ -139,7 +139,8 @@ def test_pre_process_letterbox(detectors):
                                - [[0, 0, 30], [0, 0, 22.5]], atol=1e-5)
 
 
-SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"])
+SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"],
+                  ["--dtype", "bfloat16"])
 
 
 @pytest.mark.parametrize("extra", [["--nms"], ["--test_scales", "0.5,1"],
@@ -147,8 +148,8 @@ SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"])
                                    ["--dtype", "bfloat16"],
                                    ["--device_cache_shard"]])
 def test_unserved_options_raise(extra, detectors):
-    """The bf16 model and the sharded image cache raise (ROADMAP.md items
-    18 and 20). The cases of options served since (SERVED_OPTIONS) keep
+    """The sharded image cache raises (ROADMAP.md item 20). The cases of
+    options served since (SERVED_OPTIONS, the bf16 model among them) keep
     their ids and check instead that one request runs: every scale
     through the network, --keep_res at the frame's own size rounded up to
     a multiple of 32, and finite merged detections (the carried weights

@@ -20,8 +20,8 @@ import pytest
 import torch
 
 from test_torch_common import (HEADS, adam_first_moment, hwio_to_oihw,
-                               oihw_to_hwio, perturb_variables, rng,
-                               to_np)
+                               oihw_to_hwio, perturb_variables, qat_batch,
+                               rng, to_np)
 
 from codenet_tpu import config as jcfg
 from codenet_tpu.engine.torch_import import convert_shufflenetv2
@@ -230,25 +230,6 @@ def _qat_opts():
                 tcfg.parse(args), tcfg.DATASET_SPECS["pascal"]))
 
 
-def _qat_batch():
-    r = rng(73)
-    m = 50
-    batch = {"input_u8": r.randint(0, 256, (2, 64, 64, 3)).astype(np.uint8),
-             "aug_perm": np.array([2, 5], np.int32),
-             "aug_alphas": r.uniform(-0.4, 0.4, (2, 3)).astype(np.float32),
-             "aug_light": (r.randn(2, 3) * 0.02).astype(np.float32),
-             "hm_ct": r.randint(0, 16, (2, m, 2)).astype(np.int32),
-             "hm_radius": r.randint(0, 3, (2, m)).astype(np.int32),
-             "hm_cls": r.randint(0, 20, (2, m)).astype(np.int32),
-             "reg_mask": (np.arange(m) < 4).astype(np.uint8)[None]
-             .repeat(2, 0),
-             "wh": r.uniform(1, 9, (2, m, 2)).astype(np.float32),
-             "reg": r.rand(2, m, 2).astype(np.float32)}
-    batch["ind"] = (batch["hm_ct"][..., 1] * 16
-                    + batch["hm_ct"][..., 0]).astype(np.int64)
-    return batch
-
-
 def test_qat_step_matches_jax():
     """One QAT step (JAX: make_train_step with a QuantSpec, train=False,
     update_stats=True), in f64 for the reason given above, on the same
@@ -264,7 +245,7 @@ def test_qat_step_matches_jax():
 
     variables = _quant_variables(72)
     jopt, topt = _qat_opts()
-    batch = _qat_batch()
+    batch = qat_batch()
     trainer = Trainer(topt, qspec=QuantSpec(), device="cpu")
     trainer.init()
     jtr = JaxTrainer(jopt, qspec=JaxQuantSpec())

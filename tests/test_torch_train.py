@@ -311,7 +311,8 @@ def test_cli_main_trains_saves_and_drops_lr(voc_root, capsys):
         Trainer(_opt(tcfg, voc_root), device="cpu").model.state_dict())
 
 
-PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"])
+PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
+                           ["--dtype", "bfloat16"])
 
 
 @pytest.mark.parametrize("extra", [
@@ -321,7 +322,7 @@ PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"])
     ["--device_cache_shard"]])
 def test_unported_training_options_raise(extra, voc_root, capsys):
     """Options of the JAX trainer and sampler the port does not have yet
-    raise before any data is read (ROADMAP.md items 18, 20 and 22). The
+    raise before any data is read (ROADMAP.md items 20 and 22). The
     cases of options ported since (PORTED_TRAINING_OPTIONS) keep their
     ids and check instead that `cli.main` trains one step with them: a
     finite loss, and the cache's report line with --device_cache."""

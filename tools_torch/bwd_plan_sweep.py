@@ -1,8 +1,10 @@
 """Time the deform backward kernel at every slice width cb, on a CUDA card.
 
     python tools_torch/bwd_plan_sweep.py [--batch 32] [--iters 50]
+        [--shapes 32x32x58 16x16x116 ...]
 
-For each of `chip_smoke.py`'s backward shapes, in f32 and bf16, launches
+For each backward shape (H x W x C; by default `chip_smoke.py`'s), in f32
+and bf16, launches
 csrc/deform_bwd.cu with every cb whose shared memory fits one block (the
 plan of `deform_cuda.bwd_plan_for`) and prints one JSON line per launch
 plan: cb, threads, shared bytes, blocks, device time per launch (CUDA
@@ -29,6 +31,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--shapes", nargs="+", default=None,
+                        help="HxWxC maps (default: chip_smoke.BWD_SHAPES)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("bwd_plan_sweep.py needs a CUDA card; none is visible")
@@ -41,7 +45,9 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip(), flush=True)
     chosen_plan = DC.bwd_plan
     gen = torch.Generator().manual_seed(cs.SEED)
-    for shape in cs.BWD_SHAPES:
+    shapes = ([tuple(int(v) for v in sh.split("x")) for sh in args.shapes]
+              if args.shapes else cs.BWD_SHAPES)
+    for shape in shapes:
         h, w, c = shape
         for dtype in (torch.float32, torch.bfloat16):
             x, s, wt, g = cs._bwd_case(shape, args.batch, dtype, gen)

@@ -1,10 +1,12 @@
 """Time the deform forward kernel at every admissible launch plan, on a card.
 
     python tools_torch/fwd_plan_sweep.py [--batches 2 32] [--iters 100]
+        [--shapes 32x32x58 16x16x116 ...]
 
-For each of the model's three deform shapes (`chip_smoke.MODEL_SHAPES`), at
-each batch, in f32 and bf16, launches csrc/deform_fwd.cu with every band
-height `rows` (the map's height, halved down to 1) and every slice width
+For each deform shape (H x W x C; by default the model's three,
+`chip_smoke.MODEL_SHAPES`), at each batch, in f32 and bf16, launches
+csrc/deform_fwd.cu with every band height `rows` (the map's height,
+halved down to 1, and `fwd_plan`'s own) and every slice width
 `cb` (powers of two from 32 bytes up to 256 channels) whose tile fits one
 block (the plan of `deform_cuda.fwd_plan_for`), and prints one JSON line
 per plan: the plan, device time per launch (CUDA graph replay,
@@ -28,13 +30,15 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def candidates(n, h, w, c, dtype, vec):
-    """Every (rows, cb) whose plan fits one block's shared memory."""
+def candidates(n, h, w, c, dtype, vec, chosen_rows):
+    """Every (rows, cb) whose plan fits one block's shared memory, rows
+    the map's height halved down to 1 and `chosen_rows`."""
     from codenet_torch.ops import deform_cuda as DC
     esize = DC._ESIZE[dtype]
-    heights, rows = [], h
+    heights, rows = [chosen_rows], h
     while True:
-        heights.append(rows)
+        if rows not in heights:
+            heights.append(rows)
         if rows == 1:
             break
         rows = -(-rows // 2)
@@ -55,6 +59,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--batches", type=int, nargs="+", default=[2, 32])
     parser.add_argument("--iters", type=int, default=100)
+    parser.add_argument("--shapes", nargs="+", default=None,
+                        help="HxWxC maps (default: the model's three)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("fwd_plan_sweep.py needs a CUDA card; none is visible")
@@ -67,14 +73,17 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip(), flush=True)
     chosen_plan = DC.fwd_plan
     gen = torch.Generator().manual_seed(cs.SEED)
-    for shape in cs.MODEL_SHAPES:
+    shapes = ([tuple(int(v) for v in sh.split("x")) for sh in args.shapes]
+              if args.shapes else cs.MODEL_SHAPES)
+    for shape in shapes:
         for n in args.batches:
             for dtype in (torch.float32, torch.bfloat16):
                 x, s, wt = cs._case(shape, n, dtype, gen)
                 chosen = chosen_plan(n, *shape, dtype)
                 ref = DC.codesign_deform_conv_fast(x, s, wt)
                 times = []
-                for plan in candidates(n, *shape, dtype, chosen["vec"]):
+                for plan in candidates(n, *shape, dtype, chosen["vec"],
+                                       chosen["rows"]):
                     DC.fwd_plan = lambda *_, plan=plan, **__: plan
                     got = DC.codesign_deform_conv_fast(x, s, wt)
                     us = cs.graph_time_ms(
