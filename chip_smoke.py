@@ -7,8 +7,9 @@ deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
 against its plain PyTorch version at the shapes the model gives it (the
 forward at batches 2, 32, 64 and 128, and at the non-square maps of
 --keep_res requests; the deform backbone's 32x32x58, 16x16x116 and
-8x8x232) and at ragged ones, timing both. Then it drives the
-port's paths at full width (ctdet ShuffleNetV2-DCN 1x, 256^2):
+8x8x232; the 512^2 maps 16x16x1024, 32x32x256 and 64x64x128) and at
+ragged ones, timing both. Then it drives the port's paths at full width
+(ctdet ShuffleNetV2-DCN 1x, 256^2, unless said otherwise):
 
 - serving: flip-test per-image requests and a batch-32 request through
   CtdetDetector, scored with the port's VOC evaluator;
@@ -41,7 +42,15 @@ port's paths at full width (ctdet ShuffleNetV2-DCN 1x, 256^2):
   `cli.test --resume-quantize` and `--int8_infer`) with --dtype
   bfloat16 in the cli phase;
 - the deform backbone: a forward card vs CPU (16 forward launches), a
-  train step card vs CPU in f32 and in bf16, and the int8 refusal.
+  train step card vs CPU in f32 and in bf16, and the int8 refusal;
+- ctdet on COCO at 512^2 (80 classes): heads card vs CPU, flip-test
+  requests and batch-32 requests, `cli.test` per image and batched,
+  scored by the port's COCO evaluator;
+- multi_pose (COCO keypoints) at 512^2: heads and multi_pose_decode card
+  vs CPU, flip-test requests and a 5-scale --nms request, a train step
+  card vs CPU and timed steps at batch 32, then `cli.main` ->
+  `cli.quant_main` -> `cli.test --resume-quantize`, scored by the
+  keypoint COCO evaluator.
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -81,6 +90,15 @@ MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
 # forward (stages of 3, 7 and 3 stride-1 nodes)
 BACKBONE_SHAPES = [(32, 32, 58), (16, 16, 116), (8, 8, 232)]
 BACKBONE_CALLS = {(32, 32, 58): 3, (16, 16, 116): 7, (8, 8, 232): 3}
+# the COCO family (ctdet on COCO, multi_pose on COCO keypoints) at
+# CenterNet's published 512^2: its three deconv-stage maps
+COCO_RES = 512
+COCO_SHAPES = [(16, 16, 1024), (32, 32, 256), (64, 64, 128)]
+COCO_HEADS = {"hm": 80, "wh": 2, "reg": 2}
+POSE_HEADS = {"hm": 1, "wh": 2, "hps": 34, "reg": 2, "hm_hp": 17,
+              "hp_offset": 2}
+# multi_pose_decode on the same heads, card vs CPU (output-map pixels)
+DECODE_TOL = 1e-4
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
 # both kernels also at KITTI's largest deconv map (the forward's bands clip
 # at both edges; the backward's slices are 4 channels wide)
@@ -293,7 +311,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
            "bound_us": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "model_shape": shape in MODEL_SHAPES,
-           "backbone_shape": shape in BACKBONE_SHAPES}
+           "backbone_shape": shape in BACKBONE_SHAPES,
+           "coco_shape": shape in COCO_SHAPES}
     emit(row)
     if launched != 1 or not err <= TOL[dtype]:
         raise SystemExit("{} check failed: {}".format(phase, row))
@@ -303,12 +322,13 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
 def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
     batch, dtype; each row with its launch plan (deform_cuda.fwd_plan).
-    The deform backbone's shapes at the served and trained batches."""
+    The deform backbone's and the 512^2 maps at the served and trained
+    batches."""
     gen = torch.Generator().manual_seed(SEED)
     cases = [(shape, n) for shape in BWD_SHAPES
              for n in (BATCHES if shape in MODEL_SHAPES
                        else RAGGED_BATCHES)]
-    cases += [(shape, n) for shape in BACKBONE_SHAPES
+    cases += [(shape, n) for shape in BACKBONE_SHAPES + COCO_SHAPES
               for n in (2, TRAIN_BATCH)]
     return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
             for shape, n in cases
@@ -362,14 +382,15 @@ def _bwd_case(shape, n, dtype, gen):
 
 def phase_kernel_bwd(bw, flops):
     """Backward kernel vs the plain backward at every shape, batch, dtype
-    (the deform backbone's shapes at the trained batch): error of dx, ds
-    and dw relative to each output's max; each row with its launch plan
-    (deform_cuda.bwd_plan)."""
+    (the deform backbone's and the 512^2 maps at the trained batch): error
+    of dx, ds and dw relative to each output's max; each row with its
+    launch plan (deform_cuda.bwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 2)
     rows = []
     cases = [(shape, n) for shape in BWD_SHAPES for n in BWD_BATCHES]
-    cases += [(shape, TRAIN_BATCH) for shape in BACKBONE_SHAPES]
+    cases += [(shape, TRAIN_BATCH) for shape in BACKBONE_SHAPES
+              + COCO_SHAPES]
     for shape, n in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, s, wt, g = _bwd_case(shape, n, dtype, gen)
@@ -410,7 +431,8 @@ def phase_kernel_bwd(bw, flops):
                    "bound_by": "bytes" if t_bytes >= t_ops
                    else "operations",
                    "model_shape": shape in MODEL_SHAPES,
-                   "backbone_shape": shape in BACKBONE_SHAPES}
+                   "backbone_shape": shape in BACKBONE_SHAPES,
+                   "coco_shape": shape in COCO_SHAPES}
             emit(row)
             rows.append(row)
             worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
@@ -422,9 +444,11 @@ def phase_kernel_bwd(bw, flops):
 
 
 @torch.no_grad()
-def build_served_model(device="cuda", deform_backbone=False):
+def build_served_model(device="cuda", deform_backbone=False,
+                       heads=None, res=RES):
     """Full-width PoseShuffleNetV2 1x on `device` (with deform_backbone,
-    that variant), random but not degenerate: every deform block's
+    that variant; the VOC ctdet heads unless `heads`; calibrated at
+    `res`^2), random but not degenerate: every deform block's
     conv_scale redrawn (s fractional, partly off the map), BN running
     stats set from a random batch, each channel's variance at least twice
     its layer's mean. Without that floor near-dead channels are
@@ -434,7 +458,8 @@ def build_served_model(device="cuda", deform_backbone=False):
     from codenet_torch.models import create_model
     from codenet_torch.models.layers import CodesignDeformBlock
     gen = torch.Generator().manual_seed(SEED)
-    model = create_model("shufflenetv2", {"hm": 20, "wh": 2, "reg": 2}, 64,
+    model = create_model("shufflenetv2",
+                         heads or {"hm": 20, "wh": 2, "reg": 2}, 64,
                          deform_backbone=deform_backbone, device=device,
                          generator=gen)
     for block in model.modules():
@@ -451,7 +476,7 @@ def build_served_model(device="cuda", deform_backbone=False):
         m.reset_running_stats()
         m.momentum = None
     model.train()
-    model(torch.randn(8, 256, 256, 3, generator=gen).to(device))
+    model(torch.randn(8, res, res, 3, generator=gen).to(device))
     for m in bns:
         m.momentum = 0.1
         m.running_var.clamp_(min=2.0 * float(m.running_var.mean()))
@@ -463,15 +488,15 @@ def build_served_model(device="cuda", deform_backbone=False):
 
 
 @torch.no_grad()
-def heads_card_vs_cpu(model, tol, launches):
-    """A 256^2 batch-2 forward on the card (kernels) vs on the CPU (plain)
+def heads_card_vs_cpu(model, tol, launches, res=RES):
+    """A `res`^2 batch-2 forward on the card (kernels) vs on the CPU (plain)
     from the same weights: per head the shape, max |difference| and its
     ratio to the head's max |value|, finiteness; ok when every head is
     finite and within `tol` and the card's forward launched the forward
     kernel `launches` times."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 1)
-    images = torch.randn(2, 256, 256, 3, generator=gen)
+    images = torch.randn(2, res, res, 3, generator=gen)
     cpu_model = copy.deepcopy(model).cpu()
     before = DC.LAUNCHES
     out = model(images.cuda())
@@ -586,16 +611,27 @@ def phase_detector(model, device="cuda"):
     return launches
 
 
+# the synthetic sets' frames, by (the dataset's image directory, image id)
+FRAMES = {}
+
+
+def serve_frames_from_memory():
+    """Every dataset's `load_image` returns the in-memory frame of FRAMES
+    (the card's machine has no cv2 to read files with)."""
+    from codenet_torch.data.datasets import BaseDataset
+    BaseDataset.load_image = \
+        lambda ds, index: FRAMES[ds.img_dir, ds.images[index]]
+
+
 class SmokeData:
     """A synthetic VOC set for the training phases: `n_train` + `n_val`
     frames (synthetic_frames) held in memory, their annotations written
     under exp/ (the layout data/datasets.py::PascalVOC reads), and every
     dataset's `load_image` overridden to return the in-memory frames."""
+    task, name, res = "ctdet", "pascal", RES
 
     def __init__(self, n_train=64, n_val=8):
-        from codenet_torch.data.datasets import BaseDataset
         frames, gt = synthetic_frames(n_train + n_val)
-        self.frames = {img["id"]: f for img, f in zip(gt["images"], frames)}
         self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
         ann_dir = self.data_dir / "voc" / "annotations"
         ann_dir.mkdir(parents=True, exist_ok=True)
@@ -609,24 +645,95 @@ class SmokeData:
                                       if a["image_id"] in keep])
             (ann_dir / "pascal_{}.json".format(name)).write_text(
                 json.dumps(split))
-        frames_by_id = self.frames
-        BaseDataset.load_image = \
-            lambda ds, index: frames_by_id[ds.images[index]]
+        img_dir = str(self.data_dir / "voc" / "images")
+        for img, f in zip(gt["images"], frames):
+            FRAMES[img_dir, img["id"]] = f
+        serve_frames_from_memory()
 
     def args(self, batch, *extra):
-        return ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
-                "--input_res", str(RES), "--batch_size", str(batch),
+        return [self.task, "--dataset", self.name, "--arch", "shufflenetv2",
+                "--input_res", str(self.res), "--batch_size", str(batch),
                 "--num_workers", "8", "--data_dir", str(self.data_dir),
                 *extra]
 
     def opt(self, batch, *extra):
         from codenet_torch import config as cfg
         return cfg.update_dataset_info_and_set_heads(
-            cfg.parse(self.args(batch, *extra)), cfg.DATASET_SPECS["pascal"])
+            cfg.parse(self.args(batch, *extra)),
+            cfg.DATASET_SPECS[self.name])
 
     def dataset(self, opt, split="train"):
         from codenet_torch.data.datasets import get_dataset
-        return get_dataset("pascal", "ctdet")(opt, split)
+        return get_dataset(self.name, self.task)(opt, split)
+
+
+def coco_frames(n):
+    """COCO-sized uint8 BGR frames (640x480 / 480x640) of noise with 1-3
+    filled boxes each, and their ground truth twice: COCO instances (80
+    classes, COCO's category ids) and person keypoints (every box a
+    person with 17 joints inside it, a fifth of them unlabelled)."""
+    from codenet_torch.data.datasets import COCO
+    rng = np.random.RandomState(SEED + 7)
+    frames, images, anns, kanns = [], [], [], []
+    for i in range(n):
+        w, h = (640, 480) if i % 2 == 0 else (480, 640)
+        img = (rng.rand(h, w, 3) * 60).astype(np.uint8)
+        for _ in range(rng.randint(1, 4)):
+            bw, bh = rng.randint(24, w // 2), rng.randint(24, h // 2)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            cls = int(rng.randint(0, 80))
+            img[y:y + bh, x:x + bw] = (60 + 2 * cls, 200, 37 * cls % 255)
+            ann = {"id": len(anns) + 1, "image_id": i + 1,
+                   "category_id": COCO._valid_ids[cls],
+                   "bbox": [float(x), float(y), float(bw), float(bh)],
+                   "area": float(bw * bh), "iscrowd": 0}
+            anns.append(ann)
+            vis = rng.choice([0, 2], 17, p=[0.2, 0.8])
+            kps = np.stack([x + rng.rand(17) * bw, y + rng.rand(17) * bh,
+                            vis], axis=1).reshape(-1)
+            kanns.append(dict(ann, category_id=1, keypoints=kps.tolist(),
+                              num_keypoints=int((vis > 0).sum())))
+        frames.append(img)
+        images.append({"id": i + 1, "file_name": "{:012d}.jpg".format(i + 1),
+                       "width": w, "height": h})
+    cats = [{"id": c, "name": str(c)} for c in COCO._valid_ids]
+    return frames, ({"images": images, "annotations": anns,
+                     "categories": cats},
+                    {"images": images, "annotations": kanns,
+                     "categories": [{"id": 1, "name": "person"}]})
+
+
+class CocoSmokeData(SmokeData):
+    """A synthetic COCO set for the coco_ctdet and multi_pose phases, at
+    COCO_RES: `n_train` + `n_val` frames (coco_frames) held in memory,
+    their instances_*.json (task ctdet) or person_keypoints_*.json (task
+    multi_pose) written under exp/ (the layout data/datasets.py::COCO and
+    COCOHP read)."""
+    res = COCO_RES
+
+    def __init__(self, task, n_train=64, n_val=8):
+        self.task = task
+        self.name = "coco" if task == "ctdet" else "coco_hp"
+        frames, (boxes, keypoints) = coco_frames(n_train + n_val)
+        gt, prefix = (boxes, "instances") if task == "ctdet" \
+            else (keypoints, "person_keypoints")
+        self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
+        ann_dir = self.data_dir / "coco" / "annotations"
+        ann_dir.mkdir(parents=True, exist_ok=True)
+        for split, ids in (("train", range(1, n_train + 1)),
+                           ("val", range(n_train + 1,
+                                         n_train + n_val + 1))):
+            keep = set(ids)
+            (ann_dir / "{}_{}2017.json".format(prefix, split)).write_text(
+                json.dumps(dict(gt, images=[i for i in gt["images"]
+                                            if i["id"] in keep],
+                                annotations=[a for a in gt["annotations"]
+                                             if a["image_id"] in keep])))
+            img_dir = str(self.data_dir / "coco" / "{}2017".format(split))
+            for img, f in zip(gt["images"], frames):
+                if img["id"] in keep:
+                    FRAMES[img_dir, img["id"]] = f
+        serve_frames_from_memory()
 
 
 def grads_vs(model, ref_model):
@@ -1706,6 +1813,220 @@ def phase_deform_backbone(data):
     return launches
 
 
+def _ms(ret):
+    return {k: ret[k] * 1e3 for k in ("tot", "pre", "net", "dec", "post",
+                                      "merge")}
+
+
+def _stats_lines(text):
+    """The COCO evaluator's printed summary lines (' AP = 0.000', ...)."""
+    return [ln.strip() for ln in text.splitlines()
+            if ln.startswith(" ") and " = " in ln]
+
+
+def phase_coco_ctdet(data):
+    """ctdet on COCO at COCO_RES^2 (80 classes): a batch-2 forward card vs
+    CPU (1e-3 of each head's max, 3 launches); 8 flip-test requests
+    through CtdetDetector with their stage timers and 4 batch-32 requests
+    (64 forwards with the flipped copies); `cli.test --flip_test` over
+    the 8 val frames, per image and with --batch_eval 32, each scored by
+    the port's COCO evaluator (bbox, 12 stats). Returns the forward
+    launches of the served paths."""
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    model = build_served_model(heads=COCO_HEADS, res=COCO_RES)
+    fwd, ok = heads_card_vs_cpu(model, 1e-3, 3, res=COCO_RES)
+    out = {"phase": "coco_ctdet", "res": COCO_RES,
+           "heads_card_vs_cpu": fwd}
+    if not ok:
+        fail.append("heads")
+    opt = data.opt(1, "--flip_test")
+    det = CtdetDetector(opt, state_dict=model.state_dict(), device="cuda")
+    train, val = data.dataset(opt), data.dataset(opt, "val")
+    DC.LAUNCHES = 0  # counts from here on are the served paths' own
+    requests = []
+    for i in range(len(val)):
+        ret = det.run(val.load_image(i))
+        requests.append(dict(_ms(ret), dets=int(sum(
+            len(v) for v in ret["results"].values()))))
+    pre = [det.pre_process(train.load_image(i), 1) for i in range(32)]
+    stack = np.concatenate([p[0][0:1] for p in pre]
+                           + [p[0][1:2] for p in pre], axis=0)
+    tis = np.stack([p[1]["trans_inv"] for p in pre])
+    batch_ms = []
+    for _ in range(4):
+        det._sync()
+        t0 = time.perf_counter()
+        dets = det.process_batch(stack, tis).cpu().numpy()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = DC.LAUNCHES
+    out.update(requests_ms=requests, batch=32, batch_ms=batch_ms,
+               batch_img_per_s=32 / min(batch_ms[1:]) * 1e3,
+               launches=launches)
+    if launches != 3 * (len(val) + 4) or not np.isfinite(dets).all() \
+            or dets.shape != (32, opt.K, 6):
+        fail.append("served")
+
+    path = str(ROOT / "exp" / "chip_smoke" / "coco_served.pth")
+    checkpoint.save_model(path, 0, model)
+    out["cli"] = {}
+    for name, extra in (("per_image", []), ("batch_eval", ["--batch_eval",
+                                                            "32"])):
+        DC.LAUNCHES = 0
+        text, seconds = _cli_log(cli_test.main, data.args(
+            1, "--flip_test", "--load_model", path, "--exp_id",
+            "chip_smoke_coco_" + name, *extra))
+        stats = _stats_lines(text)
+        out["cli"][name] = {"seconds": seconds, "launches": DC.LAUNCHES,
+                            "stats": stats,
+                            "stages": _lines_with(text, "stages (s)")}
+        launches += DC.LAUNCHES
+        want = 3 * len(val) if name == "per_image" else 3
+        if DC.LAUNCHES != want or len(stats) != 12:
+            fail.append("cli " + name)
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("coco_ctdet check failed: {}".format(fail))
+    return launches
+
+
+def phase_multi_pose(data):
+    """multi_pose (COCO keypoints) at COCO_RES^2, six heads: a batch-2
+    forward card vs CPU (1e-3 of each head's max, 3 launches) and
+    multi_pose_decode card vs CPU on the same flip-test heads
+    (DECODE_TOL); 8 flip-test requests with their stage timers and one
+    request at the five test scales with --nms (soft_nms_39); one FP32
+    train step card vs CPU at batch 4 from conditioned_init (STEP_TOL);
+    6 timed steps at batch 32 on sampler batches (the loader timed
+    apart); then `cli.main multi_pose` -> `cli.quant_main` -> `cli.test
+    --resume-quantize --flip_test`, scored by the port's keypoint COCO
+    evaluator (10 stats). Returns (forward, backward) launches of the
+    served, training and CLI paths."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import quant_main
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.detector import MultiPoseDetector
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.decode import multi_pose_decode
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    model = build_served_model(heads=POSE_HEADS, res=COCO_RES)
+    fwd, ok = heads_card_vs_cpu(model, 1e-3, 3, res=COCO_RES)
+    out = {"phase": "multi_pose", "res": COCO_RES,
+           "heads_card_vs_cpu": fwd}
+    if not ok:
+        fail.append("heads")
+    sd = model.state_dict()
+    opt = data.opt(1, "--flip_test")
+    det = MultiPoseDetector(opt, state_dict=sd, device="cuda")
+    val = data.dataset(opt, "val")
+    frames = [val.load_image(i) for i in range(len(val))]
+
+    # the decode on one request's heads, card vs CPU (rows of score 0 are
+    # tied peaks whose order is the top-k's own: held by count)
+    images, _ = det.pre_process(frames[0], 1)
+    with torch.inference_mode():
+        heads = det._heads(det._to_device(images))
+        card = multi_pose_decode(*heads, k=opt.K).cpu()
+        cpu = multi_pose_decode(*(h.cpu() if h is not None else None
+                                  for h in heads), k=opt.K)
+    live = cpu[0, :, 4] > 0
+    err = float((card[0][live] - cpu[0][live]).abs().max())
+    out["decode_card_vs_cpu"] = {
+        "max_abs_err": err, "tol": DECODE_TOL, "rows": int(live.sum()),
+        "rows_card": int((card[0, :, 4] > 0).sum()),
+        "finite": bool(torch.isfinite(card).all())}
+    if not err <= DECODE_TOL or int((card[0, :, 4] > 0).sum()) \
+            != int(live.sum()) or not out["decode_card_vs_cpu"]["finite"]:
+        fail.append("decode")
+
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    requests = []
+    for f in frames:
+        ret = det.run(f)
+        requests.append(dict(_ms(ret), dets=len(ret["results"][1])))
+    nms = MultiPoseDetector(data.opt(1, "--flip_test", "--test_scales",
+                                     TEST_SCALES, "--nms"),
+                            state_dict=sd, device="cuda")
+    ret = nms.run(frames[0])
+    rows = np.asarray(ret["results"][1], np.float32)
+    served = DC.LAUNCHES
+    scales = len(TEST_SCALES.split(","))
+    out.update(requests_ms=requests, nms_request_ms=_ms(ret),
+               nms_rows=len(rows), served_launches=served)
+    if served != 3 * (len(frames) + scales) or not np.isfinite(rows).all() \
+            or rows.shape != (scales * opt.K, 39):
+        fail.append("served")
+
+    topt = data.opt(TRAIN_BATCH)
+    parity, ok = step_parity(data, conditioned_init(topt))
+    out["train_parity"] = {"batch": 4, **parity, "tol": STEP_TOL}
+    if not ok:
+        fail.append("train parity")
+    loader = DataLoader(data.dataset(topt), TRAIN_BATCH, shuffle=True,
+                        num_workers=topt.num_workers, seed=topt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < 6:
+        batches.extend(loader)
+    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
+        / len(batches)
+    trainer = Trainer(topt, device="cuda")
+    trainer.init()
+    run = timed_steps(trainer, batches[:6])
+    out["train"] = run
+    if not np.all(np.isfinite(run["losses"])) or any(
+            st != [3, 3] for st in run["launches_per_step"]):
+        fail.append("train")
+    launches = [served + run["launches_fwd"], run["launches_bwd"]]
+
+    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
+              "-1", "--print_iter", "1"]
+
+    def ckpt(exp_id):
+        return str(ROOT / "exp" / "multi_pose" / exp_id / "model_last.pth")
+    runs = [("main", cli_main.main, TRAIN_BATCH,
+             common + ["--exp_id", "chip_smoke_pose"], 6, 6),
+            ("quant_main", quant_main.main, TRAIN_BATCH,
+             common + ["--exp_id", "chip_smoke_pose_qat", "--load_model",
+                       ckpt("chip_smoke_pose")], 6, 6),
+            ("test_fake_quant", cli_test.main, 1,
+             ["--flip_test", "--resume-quantize", "--load_model",
+              ckpt("chip_smoke_pose_qat"), "--exp_id",
+              "chip_smoke_pose_fq"], 3 * len(frames), 0)]
+    out["cli"] = {}
+    for name, fn, batch, args, want_fwd, want_bwd in runs:
+        DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+        text, seconds = _cli_log(fn, data.args(batch, *args))
+        losses = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in _lines_with(text, "train epoch")]
+        stats = _stats_lines(text)
+        out["cli"][name] = {"seconds": seconds, "losses": losses,
+                            "stats": stats, "launches_fwd": DC.LAUNCHES,
+                            "launches_bwd": DC.BWD_LAUNCHES}
+        launches[0] += DC.LAUNCHES
+        launches[1] += DC.BWD_LAUNCHES
+        trains = fn is not cli_test.main
+        # training runs no final eval for multi_pose (as in the JAX
+        # package); the eval prints the 10 keypoint stats
+        if (len(losses) != (2 if trains else 0)
+                or not np.all(np.isfinite(losses))
+                or len(stats) != (0 if trains else 10)
+                or "Running final eval" in text
+                or (DC.LAUNCHES, DC.BWD_LAUNCHES) != (want_fwd, want_bwd)):
+            fail.append("cli " + name)
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("multi_pose check failed: {}".format(fail))
+    return launches
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -1724,12 +2045,12 @@ def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
             "library_ms": None}
 
 
-def path_ms(rows, name, n, dtype, backbone_calls=None):
+def path_ms(rows, name, n, dtype, backbone_calls=None, shapes=MODEL_SHAPES):
     """{"ms_<name>", "bound_ms_<name>", "launches_<name>"} of one pass of
     a path over the kernel rows at batch n and `dtype`: the three deconv
-    calls, and with `backbone_calls` ({shape: calls}) the deform
-    backbone's too."""
-    calls = {tuple(shape): 1 for shape in MODEL_SHAPES}
+    calls at `shapes` (256^2 by default), and with `backbone_calls`
+    ({shape: calls}) the deform backbone's too."""
+    calls = {tuple(shape): 1 for shape in shapes}
     calls.update(backbone_calls or {})
     picked = [(r, calls[tuple(r["shape"])]) for r in rows
               if tuple(r["shape"]) in calls and r["n"] == n
@@ -1772,6 +2093,8 @@ def main(argv=None):
     bf16_launches, _ = phase_bf16(model, data)
     bf16_train, _ = phase_bf16_train(data, batches)
     backbone = phase_deform_backbone(data)
+    coco_launches = phase_coco_ctdet(CocoSmokeData("ctdet"))
+    pose = phase_multi_pose(CocoSmokeData("multi_pose"))
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -1791,7 +2114,8 @@ def main(argv=None):
         + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
-        + backbone[0] + cli_bf16[0], rows + keep_res_rows,
+        + backbone[0] + cli_bf16[0] + coco_launches + pose[0],
+        rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
     # and the three calls of each --keep_res request of the kernel cases
@@ -1806,6 +2130,9 @@ def main(argv=None):
         int8_bf16["bound_ms_int8_forward_bf16"]
     # and of one served forward with bf16 operands (batch 2)
     fwd_entry.update(path_ms(rows, "served_forward_bf16", 2, "bfloat16"))
+    # and of one served forward at 512^2 (the COCO family; batch 2, f32)
+    fwd_entry.update(path_ms(rows, "served_forward_512", 2, "float32",
+                             shapes=COCO_SHAPES))
     # backward: one train step's three calls (batch 32, f32); launches
     # over the FP32, QAT, image-cache, bf16 and deform-backbone training
     # paths and the bf16 CLIs
@@ -1813,7 +2140,7 @@ def main(argv=None):
         "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
-        + bf16_train[1] + backbone[1] + cli_bf16[1], bwd_rows,
+        + bf16_train[1] + backbone[1] + cli_bf16[1] + pose[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone
@@ -1822,6 +2149,9 @@ def main(argv=None):
                              "bfloat16"))
     bwd_entry.update(path_ms(bwd_rows, "train_step_deform_backbone",
                              TRAIN_BATCH, "float32", BACKBONE_CALLS))
+    # and of one train step at 512^2 (multi_pose; batch 32, f32)
+    bwd_entry.update(path_ms(bwd_rows, "train_step_512", TRAIN_BATCH,
+                             "float32", shapes=COCO_SHAPES))
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,

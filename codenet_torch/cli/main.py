@@ -2,16 +2,19 @@
 19-102).
 
 dataset -> heads -> model -> Adam -> epoch loop with val, checkpoints and
-step-LR decay (x0.1 at each lr_step epoch), then a detection eval of the
-last checkpoint (reference quant_main.py:104-107).
+step-LR decay (x0.1 at each lr_step epoch), then, for ctdet, a detection
+eval of the last checkpoint (reference quant_main.py:104-107).
 
     python -m codenet_torch.cli.main ctdet --dataset pascal \\
         --arch shufflenetv2 --input_res 256 --batch_size 32 [--gpus -1]
+    python -m codenet_torch.cli.main multi_pose --dataset coco_hp \\
+        --arch shufflenetv2 --batch_size 32 [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
-``--device_cache`` holds the train split's raw frames on the device and
-warps them there; ``--host_normalize`` augments and normalises on the
-host (the reference's path). Checkpoints are .pth files in exp/ctdet/<exp_id>/.
+``--device_cache`` (ctdet) holds the train split's raw frames on the
+device and warps them there; ``--host_normalize`` augments and normalises
+on the host (the reference's path). Checkpoints are .pth files in
+exp/<task>/<exp_id>/.
 """
 
 from __future__ import annotations
@@ -57,6 +60,11 @@ def run_training(opt, qspec=None):
                             num_workers=1)
     train_dataset = Dataset(opt, "train")
     if opt.device_cache:
+        if opt.task != "ctdet":
+            raise SystemExit(
+                "--device_cache is only implemented for the ctdet task "
+                "(the {} sampler has no cached-feed path); drop the flag"
+                .format(opt.task))
         # the raw frames on the card, copied once; steps then ship only
         # row indices, warp matrices and targets (data/device_cache.py)
         from ..data.device_cache import ImageCache
@@ -104,7 +112,9 @@ def run_training(opt, qspec=None):
             print("Drop LR to", lr)
             trainer.set_lr(lr)
 
-    if opt.num_epochs > start_epoch:
+    # the final eval runs for ctdet only, as in the JAX package; unlike
+    # there, an eval that fails raises
+    if opt.task == "ctdet" and opt.num_epochs > start_epoch:
         from .test import prefetch_test
         last = "model_{}.pth".format(opt.num_epochs) if opt.save_all \
             else "model_last.pth"

@@ -3,8 +3,8 @@ quant_main.py:19-113).
 
 Loads an FP32 checkpoint into the same module tree in W4A8 fake-quant
 execution (BN folded and frozen, weights fake-quantized, activation ranges
-tracked by EMA), fine-tunes with straight-through gradients, and ends with
-a fake-quant detection eval of the result.
+tracked by EMA), fine-tunes with straight-through gradients, and, for
+ctdet, ends with a fake-quant detection eval of the result.
 
     python -m codenet_torch.cli.quant_main ctdet --dataset pascal \\
         --arch shufflenetv2 --input_res 256 --batch_size 32 \\

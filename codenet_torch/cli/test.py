@@ -6,13 +6,15 @@ per-stage timers, and calls the dataset's in-process evaluator.
 
     python -m codenet_torch.cli.test ctdet --dataset pascal \\
         --arch shufflenetv2 --input_res 256 --flip_test [--gpus -1]
+    python -m codenet_torch.cli.test multi_pose --dataset coco_hp \\
+        --arch shufflenetv2 --flip_test [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
 ``--test_scales`` with several scales or ``--nms`` merges with soft-NMS;
 ``--keep_res`` evaluates at each frame's own size. ``--batch_eval N``
-batches single-scale fix_res eval, its letterbox warp on the host, on the
-device (``--device_warp``) or from a device-resident copy of the split
-(``--device_cache``).
+batches single-scale fix_res ctdet eval, its letterbox warp on the host,
+on the device (``--device_warp``) or from a device-resident copy of the
+split (``--device_cache``).
 """
 
 from __future__ import annotations
@@ -124,10 +126,11 @@ def batched_test(opt):
     copies each raw frame, zero-padded into a fixed buffer, and warps it
     there (a frame larger than the buffer takes the host warp);
     --device_cache copies the whole split to the device once, then sends
-    only row indices and affines, K batches per call. Several test scales
-    or --keep_res fall back to the per-image eval."""
-    if len(opt.test_scales) != 1 or opt.test_scales[0] != 1 \
-            or not opt.fix_res:
+    only row indices and affines, K batches per call. Tasks other than
+    ctdet, several test scales or --keep_res fall back to the per-image
+    eval."""
+    if (opt.task != "ctdet" or len(opt.test_scales) != 1
+            or opt.test_scales[0] != 1 or not opt.fix_res):
         print("batch_eval: unsupported config (needs ctdet, single scale, "
               "fixed res); falling back to per-image eval")
         return prefetch_test(opt)

@@ -230,8 +230,8 @@ def gaussian2D(shape, sigma=1):
 
 def draw_umich_gaussian(heatmap, center, radius, k=1):
     """Max-splat a gaussian onto a (H, W) heatmap in place (reference
-    lib/utils/image.py:122-137): the host-drawn heatmap of
-    --host_normalize batches."""
+    lib/utils/image.py:122-137): the host-drawn heatmaps of
+    --host_normalize ctdet batches and of every multi_pose batch."""
     diameter = 2 * radius + 1
     gaussian = gaussian2D((diameter, diameter), sigma=diameter / 6)
 

@@ -1,10 +1,11 @@
 """Dataset classes: metadata, annotation indexing, image reading, results
 I/O, eval entry.
 
-Reference lib/datasets/dataset/pascal.py on top of the self-contained
-CocoIndex and the in-process VOC evaluator, composed with the ctdet
-training sampler (data/samplers.py) as the reference's dataset factory
-does. Only Pascal VOC with ctdet is ported so far (ROADMAP.md).
+Reference lib/datasets/dataset/{pascal,coco,coco_hp}.py on top of the
+self-contained CocoIndex and the in-process VOC and COCO evaluators,
+composed with the task's training sampler (data/samplers.py) as the
+reference's dataset factory does: ctdet on pascal or coco, multi_pose on
+coco_hp. KITTI (ddd) and exdet are queued in ROADMAP.md and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..engine.detector import imread
 from .coco_io import CocoIndex
-from .samplers import CTDetSampler
+from .samplers import CTDetSampler, MultiPoseSampler
 
 
 class BaseDataset:
@@ -48,6 +49,11 @@ class BaseDataset:
 
     def __len__(self):
         return self.num_samples
+
+    def save_results(self, results, save_dir):
+        """results.json in the dataset's eval format."""
+        with open("{}/results.json".format(save_dir), "w") as f:
+            json.dump(self.convert_eval_format(results), f)
 
     def load_image(self, index):
         """BGR uint8 (H, W, 3) pixels of image `index`: every reader of
@@ -96,10 +102,6 @@ class PascalVOC(BaseDataset):
                     detections[j][i] = all_bboxes[img_id][j]
         return detections
 
-    def save_results(self, results, save_dir):
-        with open("{}/results.json".format(save_dir), "w") as f:
-            json.dump(self.convert_eval_format(results), f)
-
     def run_eval(self, results, save_dir):
         """In-process VOC AP50 (reference shells to tools/reval.py)."""
         self.save_results(results, save_dir)
@@ -109,19 +111,148 @@ class PascalVOC(BaseDataset):
             class_names=self.class_name[1:], use_07_metric=True)
 
 
+class COCO(BaseDataset):
+    """COCO 2017 (reference dataset/coco.py)."""
+    num_classes = 80
+    default_resolution = [512, 512]
+    mean = np.array([0.40789654, 0.44719302, 0.47026115],
+                    np.float32).reshape(1, 1, 3)
+    std = np.array([0.28863828, 0.27408164, 0.27809835],
+                   np.float32).reshape(1, 1, 3)
+    max_objs = 128
+    iou_type = "bbox"
+    _valid_ids = [
+        1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13,
+        14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
+        24, 25, 27, 28, 31, 32, 33, 34, 35, 36,
+        37, 38, 39, 40, 41, 42, 43, 44, 46, 47,
+        48, 49, 50, 51, 52, 53, 54, 55, 56, 57,
+        58, 59, 60, 61, 62, 63, 64, 65, 67, 70,
+        72, 73, 74, 75, 76, 77, 78, 79, 80, 81,
+        82, 84, 85, 86, 87, 88, 89, 90]
+
+    def __init__(self, opt, split):
+        self.data_dir = os.path.join(opt.data_dir, "coco")
+        self.img_dir = os.path.join(self.data_dir, "{}2017".format(split))
+        if split == "test":
+            self.annot_path = os.path.join(
+                self.data_dir, "annotations",
+                "image_info_test-dev2017.json")
+        elif getattr(opt, "task", "") == "exdet":
+            self.annot_path = os.path.join(
+                self.data_dir, "annotations",
+                "instances_extreme_{}2017.json".format(split))
+        else:
+            self.annot_path = os.path.join(
+                self.data_dir, "annotations",
+                "instances_{}2017.json".format(split))
+        self.cat_ids = {v: i for i, v in enumerate(self._valid_ids)}
+        super().__init__(opt, split)
+
+    @staticmethod
+    def _to_float(x):
+        return float("{:.2f}".format(x))
+
+    def convert_eval_format(self, all_bboxes):
+        """COCO detection dicts, 2-decimal rounding (reference
+        coco.py:90-112)."""
+        detections = []
+        for image_id in all_bboxes:
+            for cls_ind in all_bboxes[image_id]:
+                category_id = self._valid_ids[cls_ind - 1]
+                for bbox in all_bboxes[image_id][cls_ind]:
+                    bbox = list(bbox)
+                    bbox[2] -= bbox[0]
+                    bbox[3] -= bbox[1]
+                    detection = {
+                        "image_id": int(image_id),
+                        "category_id": int(category_id),
+                        "bbox": list(map(self._to_float, bbox[0:4])),
+                        "score": float("{:.2f}".format(bbox[4])),
+                    }
+                    if len(bbox) > 5:
+                        detection["extreme_points"] = list(
+                            map(self._to_float, bbox[5:13]))
+                    detections.append(detection)
+        return detections
+
+    def run_eval(self, results, save_dir):
+        """COCO AP (`iou_type`: 12 bbox stats, or 10 keypoint stats),
+        printed and returned."""
+        self.save_results(results, save_dir)
+        from ..eval.coco_eval import CocoDetEval
+        ev = CocoDetEval(self.coco, "{}/results.json".format(save_dir),
+                         iou_type=self.iou_type)
+        ev.evaluate()
+        return ev.summarize()
+
+
+class COCOHP(COCO):
+    """COCO person keypoints (reference dataset/coco_hp.py): COCO's
+    frames, normalisation and evaluator, scored by keypoint OKS."""
+    num_classes = 1
+    num_joints = 17
+    max_objs = 32
+    iou_type = "keypoints"
+    flip_idx = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12],
+                [13, 14], [15, 16]]
+    _valid_ids = [1]
+
+    def __init__(self, opt, split):
+        self.data_dir = os.path.join(opt.data_dir, "coco")
+        self.img_dir = os.path.join(self.data_dir, "{}2017".format(split))
+        self.annot_path = os.path.join(
+            self.data_dir, "annotations",
+            "person_keypoints_{}2017.json".format(split))
+        self.cat_ids = {1: 0}
+        BaseDataset.__init__(self, opt, split)
+
+    def convert_eval_format(self, all_bboxes):
+        """COCO keypoint dicts: the box rounded to 2 decimals, the 17
+        joints with visibility 1 (reference coco_hp.py:90-120)."""
+        detections = []
+        for image_id in all_bboxes:
+            for cls_ind in all_bboxes[image_id]:
+                for dets in all_bboxes[image_id][cls_ind]:
+                    bbox = [dets[0], dets[1], dets[2] - dets[0],
+                            dets[3] - dets[1]]
+                    kps = np.concatenate([
+                        np.array(dets[5:39], np.float32).reshape(-1, 2),
+                        np.ones((17, 1), np.float32)], axis=1).reshape(
+                        51).tolist()
+                    detections.append({
+                        "image_id": int(image_id),
+                        "category_id": 1,
+                        "bbox": list(map(self._to_float, bbox)),
+                        "score": float("{:.2f}".format(dets[4])),
+                        "keypoints": kps,
+                    })
+        return detections
+
+
 DATASET_FACTORY = {
+    "coco": COCO,
     "pascal": PascalVOC,
+    "coco_hp": COCOHP,
+}
+
+# the datasets each task's sampler serves (reference dataset_factory.py)
+SAMPLE_FACTORY = {
+    "ctdet": (CTDetSampler, ("pascal", "coco")),
+    "multi_pose": (MultiPoseSampler, ("coco_hp",)),
 }
 
 
 def get_dataset(dataset, task):
     """The dataset class for (dataset, task): the dataset's metadata with
     the task sampler mixed in (reference dataset_factory.py:31-34)."""
-    if task != "ctdet" or dataset not in DATASET_FACTORY:
+    sampler, datasets = SAMPLE_FACTORY.get(task, (None, ()))
+    if dataset not in datasets:
         raise NotImplementedError(
-            "codenet_torch has ctdet on pascal so far; {} / {} is "
+            "codenet_torch has ctdet on pascal and coco and multi_pose on "
+            "coco_hp so far; {} / {} (kitti, ddd and exdet among them) is "
             "queued in ROADMAP.md".format(task, dataset))
 
-    class Dataset(DATASET_FACTORY[dataset], CTDetSampler):
+    class Dataset(DATASET_FACTORY[dataset], sampler):
         pass
     return Dataset

@@ -1,8 +1,9 @@
-"""ctdet training targets (the JAX package's data/samplers.py:28-257;
-reference lib/datasets/sample/ctdet.py:30-146), host numpy.
+"""Training targets of ctdet and multi_pose (the JAX package's
+data/samplers.py:28-257 and 412-584; reference lib/datasets/sample/
+ctdet.py:30-146 and multi_pose.py:30-184), host numpy.
 
-`CTDetSampler.get_sample(index, rng)` returns fixed-shape numpy arrays
-ready to batch. Its input comes in one of three forms:
+`get_sample(index, rng)` returns fixed-shape numpy arrays ready to batch.
+The ctdet sampler's input comes in one of three forms:
 
 - device mode (the default): the warped uint8 image with 7 floats of
   colour-aug state (normalised and augmented on the device,
@@ -15,14 +16,17 @@ ready to batch. Its input comes in one of three forms:
 - host mode (--host_normalize, the reference's path): the f32 image,
   colour-augmented and normalised here, and the dense heatmap.
 
+The multi_pose sampler takes the device or the host mode; its targets are
+dense on the host in either, as the JAX sampler emits them.
+
 Draws come from `rng` in the JAX sampler's order, so the same per-batch
 RandomState gives the same sample in every mode. The warp is the port's
 torch `warp_affine_u8`, not cv2 (the card's machine has no cv2); images
 come from the dataset's `load_image`, which a caller may override (e.g.
 with in-memory frames).
 
-Not ported: the dense targets of --mse_loss and --dense_wh, and the
-sharded image cache (--device_cache_shard); they raise.
+Not ported: the dense targets of --mse_loss, --dense_wh and --dense_hp,
+and the sharded image cache (--device_cache_shard); they raise.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .device_cache import flip_compose
 from .image_aug import color_aug
 
 _UNPORTED = {"mse_loss": "--mse_loss", "dense_wh": "--dense_wh",
+             "dense_hp": "--dense_hp",
              "device_cache_shard": "--device_cache_shard"}
 
 
@@ -45,8 +50,8 @@ def check_sampler_opt(opt):
     for flag, name in _UNPORTED.items():
         if getattr(opt, flag, False):
             raise NotImplementedError(
-                "{} is queued in ROADMAP.md; the port's sampler ships "
-                "sparse ctdet targets".format(name))
+                "{} is queued in ROADMAP.md; the port's samplers ship the "
+                "focal-loss targets".format(name))
 
 
 def finish_input(sampler, inp_u8, is_train, rng):
@@ -224,6 +229,145 @@ class CTDetSampler:
         if self.opt.debug > 0 or not self.split == "train":
             gt_det = np.array(gt_det, dtype=np.float32) if gt_det \
                 else np.zeros((1, 6), dtype=np.float32)
+            ret["meta"] = {"c": c, "s": s, "gt_det": gt_det,
+                           "img_id": img_id}
+        return ret
+
+
+class MultiPoseSampler:
+    """COCO keypoint targets (reference sample/multi_pose.py:30-184): the
+    person heatmap, box size and offset, the 17 joints' offsets from the
+    centre (hps), their heatmaps (hm_hp) and sub-pixel offsets, all dense
+    or fixed-size on the host in the JAX sampler's dtypes."""
+
+    def get_sample(self, index, rng=None):
+        check_sampler_opt(self.opt)
+        rng = rng if rng is not None else self._data_rng
+        img_id = self.images[index]
+        anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
+        num_objs = min(len(anns), self.max_objs)
+        img = self.load_image(index)
+
+        height, width = img.shape[0], img.shape[1]
+        c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
+        s = max(height, width) * 1.0
+        rot = 0
+
+        flipped = False
+        if self.split == "train":
+            if not self.opt.not_rand_crop:
+                s = s * rng.choice(np.arange(0.6, 1.4, 0.1))
+                w_border = get_border(128, width)
+                h_border = get_border(128, height)
+                c[0] = rng.randint(low=w_border, high=width - w_border)
+                c[1] = rng.randint(low=h_border, high=height - h_border)
+            else:
+                sf, cf = self.opt.scale, self.opt.shift
+                c[0] += s * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+                c[1] += s * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+                s = s * np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
+            if rng.random() < self.opt.aug_rot:
+                rf = self.opt.rotate
+                rot = np.clip(rng.randn() * rf, -rf * 2, rf * 2)
+            if rng.random() < self.opt.flip:
+                flipped = True
+                img = img[:, ::-1, :]
+                c[0] = width - c[0] - 1
+
+        input_res = self.opt.input_res
+        trans_input = get_affine_transform(c, s, rot, [input_res, input_res])
+        inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_res,
+                                input_res)
+        ret = finish_input(self, inp_u8, self.split == "train", rng)
+
+        output_res = self.opt.output_res
+        num_joints = self.num_joints
+        trans_output_rot = get_affine_transform(c, s, rot,
+                                                [output_res, output_res])
+        trans_output = get_affine_transform(c, s, 0,
+                                            [output_res, output_res])
+
+        hm = np.zeros((output_res, output_res, self.num_classes), np.float32)
+        hm_hp = np.zeros((output_res, output_res, num_joints), np.float32)
+        wh = np.zeros((self.max_objs, 2), np.float32)
+        kps = np.zeros((self.max_objs, num_joints * 2), np.float32)
+        reg = np.zeros((self.max_objs, 2), np.float32)
+        ind = np.zeros((self.max_objs,), np.int64)
+        reg_mask = np.zeros((self.max_objs,), np.uint8)
+        kps_mask = np.zeros((self.max_objs, num_joints * 2), np.uint8)
+        hp_offset = np.zeros((self.max_objs * num_joints, 2), np.float32)
+        hp_ind = np.zeros((self.max_objs * num_joints,), np.int64)
+        hp_mask = np.zeros((self.max_objs * num_joints,), np.int64)
+
+        def splat(heat, ch, ct, radius):
+            sl = np.ascontiguousarray(heat[:, :, ch])
+            draw_umich_gaussian(sl, ct, radius)
+            heat[:, :, ch] = sl
+
+        gt_det = []
+        for k in range(num_objs):
+            ann = anns[k]
+            bbox = coco_box_to_bbox(ann["bbox"])
+            cls_id = int(ann["category_id"]) - 1
+            pts = np.array(ann["keypoints"], np.float32).reshape(
+                num_joints, 3)
+            if flipped:
+                bbox[[0, 2]] = width - bbox[[2, 0]] - 1
+                pts[:, 0] = width - pts[:, 0] - 1
+                for e in self.flip_idx:
+                    pts[e[0]], pts[e[1]] = pts[e[1]].copy(), pts[e[0]].copy()
+            bbox[:2] = affine_transform(bbox[:2], trans_output)
+            bbox[2:] = affine_transform(bbox[2:], trans_output)
+            bbox = np.clip(bbox, 0, output_res - 1)
+            h, w = bbox[3] - bbox[1], bbox[2] - bbox[0]
+            if (h > 0 and w > 0) or (rot != 0):
+                radius = max(0, int(gaussian_radius((math.ceil(h),
+                                                     math.ceil(w)))))
+                ct = np.array([(bbox[0] + bbox[2]) / 2,
+                               (bbox[1] + bbox[3]) / 2], dtype=np.float32)
+                ct_int = ct.astype(np.int32)
+                wh[k] = 1.0 * w, 1.0 * h
+                ind[k] = ct_int[1] * output_res + ct_int[0]
+                reg[k] = ct - ct_int
+                reg_mask[k] = 1
+                if pts[:, 2].sum() == 0:
+                    hm[ct_int[1], ct_int[0], cls_id] = 0.9999
+                    reg_mask[k] = 0
+                for j in range(num_joints):
+                    if pts[j, 2] > 0:
+                        pts[j, :2] = affine_transform(pts[j, :2],
+                                                      trans_output_rot)
+                        if 0 <= pts[j, 0] < output_res and \
+                                0 <= pts[j, 1] < output_res:
+                            kps[k, j * 2: j * 2 + 2] = pts[j, :2] - ct_int
+                            kps_mask[k, j * 2: j * 2 + 2] = 1
+                            pt_int = pts[j, :2].astype(np.int32)
+                            hp_offset[k * num_joints + j] = \
+                                pts[j, :2] - pt_int
+                            hp_ind[k * num_joints + j] = \
+                                pt_int[1] * output_res + pt_int[0]
+                            hp_mask[k * num_joints + j] = 1
+                            splat(hm_hp, j, pt_int, radius)
+                splat(hm, cls_id, ct_int, radius)
+                gt_det.append([ct[0] - w / 2, ct[1] - h / 2,
+                               ct[0] + w / 2, ct[1] + h / 2, 1]
+                              + pts[:, :2].reshape(num_joints * 2).tolist()
+                              + [cls_id])
+        if rot != 0:
+            hm = hm * 0 + 0.9999
+            reg_mask *= 0
+            kps_mask *= 0
+        ret.update(hm=hm, reg_mask=reg_mask, ind=ind, wh=wh, hps=kps,
+                   hps_mask=kps_mask)
+        if self.opt.reg_offset:
+            ret["reg"] = reg
+        if self.opt.hm_hp:
+            ret["hm_hp"] = hm_hp
+        if self.opt.reg_hp_offset:
+            ret.update(hp_offset=hp_offset, hp_ind=hp_ind, hp_mask=hp_mask)
+        if self.opt.debug > 0 or not self.split == "train":
+            gt_det = np.array(gt_det, dtype=np.float32) if gt_det \
+                else np.zeros((1, 40), dtype=np.float32)
             ret["meta"] = {"c": c, "s": s, "gt_det": gt_det,
                            "img_id": img_id}
         return ret

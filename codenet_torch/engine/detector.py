@@ -1,10 +1,12 @@
-"""Inference engine (reference lib/detectors/base_detector.py, ctdet.py).
+"""Inference engine (reference lib/detectors/base_detector.py, ctdet.py,
+multi_pose.py).
 
-The ctdet serving path of the JAX package's engine/detector.py in PyTorch:
-letterbox pre-process on the host (torch bilinear resize and warp stand in
-for cv2), then on the model's device forward -> sigmoid -> flip-test
-averaging -> max-pool NMS top-k decode -> affine back-projection, with only
-the (K, 6) detections copied back; per class, the scales' detections are
+The ctdet and multi_pose serving paths of the JAX package's
+engine/detector.py in PyTorch. ctdet: letterbox pre-process on the host
+(torch bilinear resize and warp stand in for cv2), then on the model's
+device forward -> sigmoid -> flip-test averaging -> max-pool NMS top-k
+decode -> affine back-projection, with only the (K, 6) detections copied
+back; per class, the scales' detections are
 merged on the host with soft-NMS (gaussian, Nt 0.5) when there is more
 than one test scale or --nms is set, then cut to the global top 100.
 Per-stage wall-clock timers mirror base_detector.py:93-155 ({tot, load,
@@ -25,6 +27,13 @@ raw frames warped on the device (``--device_warp``), and
 `process_batch_cached` / `process_batches_cached` over rows of a
 device-resident image stack (``--device_cache``). ``--device_cache_shard``
 raises and is queued in ROADMAP.md.
+
+multi_pose (COCO keypoints): the same pre-process, then on the device
+forward -> sigmoid -> flip-test averaging (joint channels swapped, x
+offsets negated) -> decode with the keypoint-heatmap association; the
+(K, 40) detections go back to image pixels on the host
+(utils/post_process.py) and several scales or --nms merge with
+soft_nms_39. Per image only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,13 +49,36 @@ from ..data.affine import (get_affine_transform, resize_u8,
 from ..models import create_model
 from ..models import decode as D
 from ..models.layers import qspec_from_opt
-from ..ops.nms import soft_nms
+from ..ops.nms import soft_nms, soft_nms_39
+from ..utils.post_process import multi_pose_post_process
 from . import checkpoint, w4a8
 
 
 def flip_w(x):
     """Horizontal flip, NHWC (reference models/utils.py:32-33)."""
     return torch.flip(x, dims=[2])
+
+
+def _joint_perm(n, flip_idx):
+    perm = list(range(n))
+    for a, b in flip_idx:
+        perm[a], perm[b] = perm[b], perm[a]
+    return perm
+
+
+def flip_lr(x, flip_idx):
+    """Flip a joint heatmap stack (N, H, W, J): mirror W and swap the
+    left/right joint channels (reference models/utils.py:38-44)."""
+    return flip_w(x)[..., _joint_perm(x.shape[-1], flip_idx)]
+
+
+def flip_lr_off(x, flip_idx):
+    """Flip a joint-offset stack (N, H, W, 2J): mirror W, negate the x
+    offsets and swap the joint pairs (reference models/utils.py:47-56)."""
+    n, h, w, c = x.shape
+    x = flip_w(x).reshape(n, h, w, c // 2, 2)
+    x = torch.stack([-x[..., 0], x[..., 1]], dim=-1)
+    return x[..., _joint_perm(c // 2, flip_idx), :].reshape(n, h, w, c)
 
 
 def eval_input(images, mean, std):
@@ -388,8 +420,72 @@ class CtdetDetector(BaseDetector):
         return results
 
 
+class MultiPoseDetector(BaseDetector):
+    """COCO keypoints detector (reference lib/detectors/multi_pose.py)."""
+
+    def _heads(self, images):
+        """Forward + sigmoid (+ flip-test average of the two halves, the
+        flipped half's joints swapped back)."""
+        opt = self.opt
+        output = self.model(eval_input(images, self.mean, self.std))
+        hm = output["hm"].sigmoid()
+        hm_hp = output["hm_hp"] if opt.hm_hp else None
+        if hm_hp is not None and not opt.mse_loss:
+            hm_hp = hm_hp.sigmoid()
+        wh, hps = output["wh"], output["hps"]
+        reg = output["reg"] if opt.reg_offset else None
+        hp_offset = output["hp_offset"] if opt.reg_hp_offset else None
+        if opt.flip_test:
+            b = hm.shape[0] // 2
+            hm = (hm[:b] + flip_w(hm[b:])) / 2
+            wh = (wh[:b] + flip_w(wh[b:])) / 2
+            hps = (hps[:b] + flip_lr_off(hps[b:], opt.flip_idx)) / 2
+            if hm_hp is not None:
+                hm_hp = (hm_hp[:b] + flip_lr(hm_hp[b:], opt.flip_idx)) / 2
+            reg = reg[:b] if reg is not None else None
+            hp_offset = hp_offset[:b] if hp_offset is not None else None
+        return hm, wh, hps, reg, hm_hp, hp_offset
+
+    @torch.inference_mode()
+    def process(self, images, trans_inv, scale, return_time=False):
+        """One image: images (1, or 2 with flip_test, H, W, 3). Returns
+        (1, K, 40) output-map detections on the device (and, with
+        return_time, the host time at which the forward finished); the
+        host post-process maps them back."""
+        hm, wh, hps, reg, hm_hp, hp_offset = self._heads(
+            self._to_device(images))
+        self._sync()
+        forward_time = time.time()
+        dets = D.multi_pose_decode(hm, wh, hps, reg=reg, hm_hp=hm_hp,
+                                   hp_offset=hp_offset, k=self.opt.K)
+        return (dets, forward_time) if return_time else dets
+
+    def post_process(self, dets, meta, scale=1):
+        dets = np.asarray(dets).reshape(1, -1, dets.shape[2])
+        dets = multi_pose_post_process(
+            dets.copy(), [meta["c"]], [meta["s"]], meta["out_height"],
+            meta["out_width"])
+        for j in range(1, self.num_classes + 1):
+            dets[0][j] = np.array(dets[0][j], dtype=np.float32).reshape(
+                -1, 39)
+            dets[0][j][:, :4] /= scale
+            dets[0][j][:, 5:] /= scale
+        return dets[0]
+
+    def merge_outputs(self, detections):
+        """Concat the scales; soft_nms_39 for several scales or --nms
+        (reference detectors/multi_pose.py:80-88). No top-100 cut."""
+        results = {1: np.concatenate([d[1] for d in detections],
+                                     axis=0).astype(np.float32)}
+        if self.opt.nms or len(self.scales) > 1:
+            soft_nms_39(results[1], Nt=0.5, method=2)
+        results[1] = results[1].tolist()
+        return results
+
+
 DETECTOR_FACTORY = {
     "ctdet": CtdetDetector,
+    "multi_pose": MultiPoseDetector,
 }
 
 

@@ -1,9 +1,10 @@
 """Training engine (the JAX package's engine/trainer.py; reference
-lib/trains/base_trainer.py and trains/ctdet.py).
+lib/trains/base_trainer.py, trains/ctdet.py and trains/multi_pose.py).
 
 One train step: model input on the device (colour aug + normalisation of
 the uint8 batch, or of the rows of the device image cache warped on the
-card, --device_cache) -> sparse targets rendered on the device -> forward ->
+card, --device_cache) -> sparse ctdet targets rendered on the device (the
+dense multi_pose targets arrive as the sampler made them) -> forward ->
 loss -> backward -> Adam. FP32 training runs the model in train mode (BN
 on batch statistics, running statistics updated); QAT (a `QuantSpec`)
 runs it against frozen folded BN with `update_stats=True`, so only the
@@ -42,7 +43,8 @@ class LossOpts:
 
     FIELDS = ("mse_loss", "dense_wh", "cat_spec_wh", "norm_wh", "reg_loss",
               "reg_offset", "reg_bbox", "hm_weight", "wh_weight",
-              "off_weight")
+              "off_weight", "hp_weight", "hm_hp_weight", "hm_hp",
+              "reg_hp_offset", "dense_hp")
 
     def __init__(self, opt):
         for f in self.FIELDS:

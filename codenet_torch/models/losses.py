@@ -1,5 +1,6 @@
-"""ctdet losses, NHWC (the JAX package's models/losses.py:14-179; reference
-lib/models/losses.py and lib/trains/ctdet.py).
+"""ctdet and multi_pose losses, NHWC (the JAX package's models/losses.py:
+14-179 and 218-254; reference lib/models/losses.py, lib/trains/ctdet.py and
+lib/trains/multi_pose.py).
 
 Pure functions of (outputs, targets). The data-dependent branch of the
 focal loss (no positive in the batch) is a `torch.where`, as in the JAX
@@ -133,4 +134,39 @@ def ctdet_loss(outputs, batch, opt):
                   "off_loss": off_loss}
 
 
-LOSS_FACTORY = {"ctdet": ctdet_loss}
+def multi_pose_loss(outputs, batch, opt):
+    """MultiPoseLoss (reference trains/multi_pose.py:16-85). The dense
+    joint targets of --dense_hp are not ported (the sampler refuses the
+    flag)."""
+    hm_loss = wh_loss = off_loss = 0.0
+    hp_loss = hm_hp_loss = hp_offset_loss = 0.0
+    num_stacks = len(outputs)
+    for output in outputs:
+        hm_loss += neg_loss(sigmoid_clamped(output["hm"]),
+                            batch["hm"]) / num_stacks
+        hp_loss += reg_weighted_l1_loss(output["hps"], batch["hps_mask"],
+                                        batch["ind"],
+                                        batch["hps"]) / num_stacks
+        if opt.wh_weight > 0 and opt.reg_bbox:
+            wh_loss += reg_l1_loss(output["wh"], batch["reg_mask"],
+                                   batch["ind"], batch["wh"]) / num_stacks
+        if opt.reg_offset and opt.off_weight > 0:
+            off_loss += reg_l1_loss(output["reg"], batch["reg_mask"],
+                                    batch["ind"], batch["reg"]) / num_stacks
+        if opt.reg_hp_offset and opt.off_weight > 0:
+            hp_offset_loss += reg_l1_loss(
+                output["hp_offset"], batch["hp_mask"], batch["hp_ind"],
+                batch["hp_offset"]) / num_stacks
+        if opt.hm_hp and opt.hm_hp_weight > 0:
+            hm_hp_loss += neg_loss(sigmoid_clamped(output["hm_hp"]),
+                                   batch["hm_hp"]) / num_stacks
+    loss = (opt.hm_weight * hm_loss + opt.wh_weight * wh_loss
+            + opt.off_weight * off_loss + opt.hp_weight * hp_loss
+            + opt.hm_hp_weight * hm_hp_loss
+            + opt.off_weight * hp_offset_loss)
+    return loss, {"loss": loss, "hm_loss": hm_loss, "hp_loss": hp_loss,
+                  "hm_hp_loss": hm_hp_loss, "hp_offset_loss": hp_offset_loss,
+                  "wh_loss": wh_loss, "off_loss": off_loss}
+
+
+LOSS_FACTORY = {"ctdet": ctdet_loss, "multi_pose": multi_pose_loss}

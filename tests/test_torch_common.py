@@ -198,7 +198,7 @@ def assert_train_step_matches_jax(trainer, jax_trainer, batch, lr,
     """One Adam step of the port's `trainer` (initialised, on the CPU) and
     of the JAX package's `jax_trainer` from the port's weights, on the
     numpy `batch` (with `cache`, the (N, H, W, 3) uint8 image stack its
-    img_idx rows index): the loss parts within 2e-3, each gradient (read
+    img_idx rows index): every loss part within 2e-3, each gradient (read
     from the JAX side's first Adam moment, mu = 0.1 g) within 5e-3 of its
     max, the updated parameters within 2 lr, the BN running statistics
     within 1e-3. The weights go across through the JAX package's own
@@ -217,7 +217,8 @@ def assert_train_step_matches_jax(trainer, jax_trainer, batch, lr,
     if layout_of_state_dict(sd).deform:
         variables = to_jax_variables(trainer.model.state_dict())
     else:
-        variables = convert_shufflenetv2(sd, heads=tuple(sorted(HEADS)))
+        variables = convert_shufflenetv2(
+            sd, heads=tuple(sorted(trainer.opt.heads)))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items() if k != "meta"}
     tbatch = batch_to_device(batch, "cpu")
@@ -228,7 +229,8 @@ def assert_train_step_matches_jax(trainer, jax_trainer, batch, lr,
         jvars, jax_trainer.tx.init(jvars["params"]), jbatch)
 
     stats = trainer.train_step(tbatch)
-    for k in ("loss", "hm_loss", "wh_loss", "off_loss"):
+    assert set(stats) == set(jstats)
+    for k in jstats:
         np.testing.assert_allclose(float(stats[k]), float(jstats[k]),
                                    rtol=2e-3, err_msg=k)
 

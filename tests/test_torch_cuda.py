@@ -469,3 +469,66 @@ def test_deform_backbone_step_on_card(cuda_device):
             (16, 16)
         for name, p in model.named_parameters():
             assert torch.isfinite(p.grad).all(), name
+
+
+# -- the COCO family at 512^2 ------------------------------------------------
+
+# the deconv stage's three stride-1 deform maps at 512^2 input, 1x
+COCO_SHAPES = [(16, 16, 1024), (32, 32, 256), (64, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COCO_SHAPES)
+@pytest.mark.parametrize("n", [2, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_forward_512_maps_on_card(shape, n, dtype, cuda_device):
+    """The forward kernel at the 512^2 maps, at the served (flip-test) and
+    trained batches; s fractional, integer and exactly -7 and 8."""
+    x, s, w = deform_case(shape, seed=40, n=n)
+    _fwd_check(torch.from_numpy(x).to(cuda_device, dtype),
+               torch.from_numpy(_mixed_s(s, 41)).to(cuda_device),
+               torch.from_numpy(w).to(cuda_device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COCO_SHAPES)
+def test_kernel_backward_512_maps_on_card(shape, cuda_device):
+    """The backward kernel (one launch) at the 512^2 maps, batch 32, f32:
+    dx, ds and dw within 1e-4 of each output's max of the plain backward,
+    ds exactly 0 where s sits on a clamp bound."""
+    x, s, w = deform_case(shape, seed=42, n=32)
+    s = _mixed_s(s, 43)
+    g = np.random.RandomState(44).randn(*x.shape).astype(np.float32)
+    xt, st, wt, gt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (x, s, w, g))
+    before = DC.BWD_LAUNCHES
+    got = DC.codesign_deform_conv_bwd(xt, st, wt, gt)
+    torch.cuda.synchronize()
+    assert DC.BWD_LAUNCHES == before + 1
+    refs = DC.codesign_deform_conv_bwd_plain(xt, st, wt, gt)
+    for name, a, b in zip(("dx", "ds", "dw"), got, refs):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale, name
+    bounds = (st == -7.0) | (st == 8.0)
+    assert float(got[1][bounds].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_multi_pose_decode_on_card_matches_cpu(cuda_device):
+    """multi_pose_decode of seeded heads at the 512^2 output map (128^2,
+    batch 2, K 100, hm_hp, hp_offset and reg): the card's detections equal
+    the CPU's within 1e-5 (no ties among the selected peaks)."""
+    from codenet_torch.models.decode import multi_pose_decode
+    r = np.random.RandomState(45)
+    shape = (2, 128, 128)
+    heads = {"heat": r.rand(*shape, 1), "wh": r.uniform(2, 40, shape + (2,)),
+             "kps": r.randn(*shape, 34) * 8, "reg": r.rand(*shape, 2),
+             "hm_hp": r.rand(*shape, 17) ** 3,
+             "hp_offset": r.rand(*shape, 2)}
+    heads = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in heads.items()}
+    ref = multi_pose_decode(**heads, k=100)
+    got = multi_pose_decode(**{k: v.to(cuda_device)
+                               for k, v in heads.items()}, k=100)
+    assert got.device.type == "cuda" and got.shape == (2, 100, 40)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5
