@@ -3,12 +3,13 @@
     python3 chip_smoke.py [--out FILE]
 
 Builds the co-designed deform conv kernels (codenet_torch/csrc/
-deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel) and holds each
-against its plain PyTorch version at the shapes the model gives it (the
-forward at batches 2, 32, 64 and 128, and at the non-square maps of
---keep_res requests; the deform backbone's 32x32x58, 16x16x116 and
-8x8x232; the 512^2 maps 16x16x1024, 32x32x256 and 64x64x128) and at
-ragged ones, timing both. Then it drives the port's paths at full width
+deform_fwd.cu and deform_bwd.cu, one nvcc each, in parallel, beside the
+host KITTI scorer csrc/kitti_eval.cpp) and holds each kernel against its
+plain PyTorch version at the shapes the model gives it (the forward at
+batches 2, 32, 64 and 128, and at the non-square maps of --keep_res
+requests; the deform backbone's 32x32x58, 16x16x116 and 8x8x232; the
+512^2 maps 16x16x1024, 32x32x256 and 64x64x128; KITTI's 12x40x1024,
+24x80x256 and 48x160x128) and at ragged ones, timing both. Then it drives the port's paths at full width
 (ctdet ShuffleNetV2-DCN 1x, 256^2, unless said otherwise):
 
 - serving: flip-test per-image requests and a batch-32 request through
@@ -50,7 +51,20 @@ ragged ones, timing both. Then it drives the port's paths at full width
   vs CPU, flip-test requests and a 5-scale --nms request, a train step
   card vs CPU and timed steps at batch 32, then `cli.main` ->
   `cli.quant_main` -> `cli.test --resume-quantize`, scored by the
-  keypoint COCO evaluator.
+  keypoint COCO evaluator;
+- ddd (KITTI 3D) at 384x1280 on synthetic KITTI frames (2D boxes
+  projected from seeded 3D boxes through each frame's P2): both kernels
+  at KITTI's maps (12x40x1024, 24x80x256, 48x160x128; forward at batches
+  1 and 16, backward at 16), heads and ddd_decode card vs CPU, requests
+  with their own calib, a train step card vs CPU and timed steps at
+  batch 16, then `cli.main` -> `cli.quant_main` -> `cli.test` (prefetched
+  and serial), scored by the port's KITTI scorer (csrc/kitti_eval.cpp,
+  built with the host C++ compiler);
+- exdet (ExtremeNet) at 512^2 on the COCO set with extreme points: heads
+  and exct_decode (K 100, its time and peak memory) card vs CPU,
+  flip-test requests, a train step card vs CPU and timed steps at batch
+  32, then `cli.main` -> `cli.quant_main` -> `cli.test`, scored by the
+  port's COCO evaluator.
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -99,6 +113,24 @@ POSE_HEADS = {"hm": 1, "wh": 2, "hps": 34, "reg": 2, "hm_hp": 17,
               "hp_offset": 2}
 # multi_pose_decode on the same heads, card vs CPU (output-map pixels)
 DECODE_TOL = 1e-4
+# ddd on KITTI at CenterNet's 384x1280 (--kitti_split 3dop): KITTI's
+# camera frames (h, w), the deconv stage's three maps, and the ddd_3dop
+# recipe's train batch
+KITTI_HW = (384, 1280)
+KITTI_FRAME = (375, 1242)
+KITTI_SHAPES = [(12, 40, 1024), (24, 80, 256), (48, 160, 128)]
+KITTI_TRAIN_BATCH = 16
+DDD_HEADS = {"hm": 3, "dep": 1, "rot": 8, "dim": 3, "wh": 2, "reg": 2}
+# exdet (ExtremeNet) at 512^2: four extreme-point heatmaps, the centre
+# one (80 classes each) and the four points' offsets
+EXDET_HEADS = dict({"hm_" + p: 80 for p in "tlbrc"},
+                   **{"reg_" + p: 2 for p in "tlbr"})
+# ddd's and exdet's heads card vs CPU, each within this of its max; and
+# their parity steps' batch (the CPU step at 384x1280 and 512^2)
+TASK_HEAD_TOL = 1e-5
+TASK_STEP_BATCH = 2
+# exct_decode's kept scores, card vs CPU on the same heads
+LATTICE_SCORE_TOL = 1e-6
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
 # both kernels also at KITTI's largest deconv map (the forward's bands clip
 # at both edges; the backward's slices are 4 channels wide)
@@ -252,8 +284,24 @@ def phase_env():
 
 
 def phase_build():
+    """Both kernels (nvcc) and the KITTI scorer (the host C++ compiler),
+    all built together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from codenet_torch.eval import kitti_eval
     from codenet_torch.ops import deform_cuda as DC
-    for name, info in DC.build().items():
+
+    def build_scorer():
+        t0 = time.perf_counter()
+        cached = kitti_eval.library_path().exists()
+        return kitti_eval.build(), time.perf_counter() - t0, cached
+    with ThreadPoolExecutor(1) as pool:
+        scorer = pool.submit(build_scorer)
+        kernels = DC.build()
+        path, seconds, cached = scorer.result()
+    emit({"phase": "build", "kernel": "kitti_eval (host C++)",
+          "so": str(path.relative_to(ROOT)), "cxx_s": round(seconds, 3),
+          "cached": cached})
+    for name, info in kernels.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "kernel": name,
@@ -312,7 +360,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "model_shape": shape in MODEL_SHAPES,
            "backbone_shape": shape in BACKBONE_SHAPES,
-           "coco_shape": shape in COCO_SHAPES}
+           "coco_shape": shape in COCO_SHAPES,
+           "kitti_shape": shape in KITTI_SHAPES}
     emit(row)
     if launched != 1 or not err <= TOL[dtype]:
         raise SystemExit("{} check failed: {}".format(phase, row))
@@ -322,14 +371,16 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
 def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
     batch, dtype; each row with its launch plan (deform_cuda.fwd_plan).
-    The deform backbone's and the 512^2 maps at the served and trained
-    batches."""
+    The deform backbone's, the 512^2 and KITTI's maps at the served and
+    trained batches."""
     gen = torch.Generator().manual_seed(SEED)
     cases = [(shape, n) for shape in BWD_SHAPES
              for n in (BATCHES if shape in MODEL_SHAPES
                        else RAGGED_BATCHES)]
     cases += [(shape, n) for shape in BACKBONE_SHAPES + COCO_SHAPES
               for n in (2, TRAIN_BATCH)]
+    cases += [(shape, n) for shape in KITTI_SHAPES
+              for n in (1, KITTI_TRAIN_BATCH)]
     return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
             for shape, n in cases
             for dtype in (torch.float32, torch.bfloat16)]
@@ -382,7 +433,8 @@ def _bwd_case(shape, n, dtype, gen):
 
 def phase_kernel_bwd(bw, flops):
     """Backward kernel vs the plain backward at every shape, batch, dtype
-    (the deform backbone's and the 512^2 maps at the trained batch): error
+    (the deform backbone's, the 512^2 and KITTI's maps at the trained
+    batch): error
     of dx, ds and dw relative to each output's max; each row with its
     launch plan (deform_cuda.bwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
@@ -391,6 +443,7 @@ def phase_kernel_bwd(bw, flops):
     cases = [(shape, n) for shape in BWD_SHAPES for n in BWD_BATCHES]
     cases += [(shape, TRAIN_BATCH) for shape in BACKBONE_SHAPES
               + COCO_SHAPES]
+    cases += [(shape, KITTI_TRAIN_BATCH) for shape in KITTI_SHAPES]
     for shape, n in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, s, wt, g = _bwd_case(shape, n, dtype, gen)
@@ -432,7 +485,8 @@ def phase_kernel_bwd(bw, flops):
                    else "operations",
                    "model_shape": shape in MODEL_SHAPES,
                    "backbone_shape": shape in BACKBONE_SHAPES,
-                   "coco_shape": shape in COCO_SHAPES}
+                   "coco_shape": shape in COCO_SHAPES,
+                   "kitti_shape": shape in KITTI_SHAPES}
             emit(row)
             rows.append(row)
             worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
@@ -443,12 +497,17 @@ def phase_kernel_bwd(bw, flops):
     return rows
 
 
+def _hw(res):
+    """(h, w) of an input size given as one side or as (h, w)."""
+    return (res, res) if isinstance(res, int) else tuple(res)
+
+
 @torch.no_grad()
 def build_served_model(device="cuda", deform_backbone=False,
                        heads=None, res=RES):
     """Full-width PoseShuffleNetV2 1x on `device` (with deform_backbone,
     that variant; the VOC ctdet heads unless `heads`; calibrated at
-    `res`^2), random but not degenerate: every deform block's
+    `res`^2, or at (h, w) = `res`), random but not degenerate: every deform block's
     conv_scale redrawn (s fractional, partly off the map), BN running
     stats set from a random batch, each channel's variance at least twice
     its layer's mean. Without that floor near-dead channels are
@@ -476,7 +535,7 @@ def build_served_model(device="cuda", deform_backbone=False,
         m.reset_running_stats()
         m.momentum = None
     model.train()
-    model(torch.randn(8, res, res, 3, generator=gen).to(device))
+    model(torch.randn(8, *_hw(res), 3, generator=gen).to(device))
     for m in bns:
         m.momentum = 0.1
         m.running_var.clamp_(min=2.0 * float(m.running_var.mean()))
@@ -489,14 +548,14 @@ def build_served_model(device="cuda", deform_backbone=False,
 
 @torch.no_grad()
 def heads_card_vs_cpu(model, tol, launches, res=RES):
-    """A `res`^2 batch-2 forward on the card (kernels) vs on the CPU (plain)
-    from the same weights: per head the shape, max |difference| and its
+    """A `res`^2 (or (h, w) = `res`) batch-2 forward on the card (kernels)
+    vs on the CPU (plain) from the same weights: per head the shape, max |difference| and its
     ratio to the head's max |value|, finiteness; ok when every head is
     finite and within `tol` and the card's forward launched the forward
     kernel `launches` times."""
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 1)
-    images = torch.randn(2, res, res, 3, generator=gen)
+    images = torch.randn(2, *_hw(res), 3, generator=gen)
     cpu_model = copy.deepcopy(model).cpu()
     before = DC.LAUNCHES
     out = model(images.cuda())
@@ -703,20 +762,37 @@ def coco_frames(n):
                      "categories": [{"id": 1, "name": "person"}]})
 
 
+def with_extreme_points(boxes):
+    """COCO instances with each box's four extreme points (top, left,
+    bottom, right: one on each edge, at a seeded place along it), as
+    instances_extreme_*.json carries them."""
+    rng = np.random.RandomState(SEED + 11)
+    anns = []
+    for ann in boxes["annotations"]:
+        x, y, bw, bh = ann["bbox"]
+        u = rng.rand(4)
+        anns.append(dict(ann, extreme_points=[
+            x + u[0] * bw, y, x, y + u[1] * bh,
+            x + u[2] * bw, y + bh, x + bw, y + u[3] * bh]))
+    return dict(boxes, annotations=anns)
+
+
 class CocoSmokeData(SmokeData):
-    """A synthetic COCO set for the coco_ctdet and multi_pose phases, at
-    COCO_RES: `n_train` + `n_val` frames (coco_frames) held in memory,
-    their instances_*.json (task ctdet) or person_keypoints_*.json (task
-    multi_pose) written under exp/ (the layout data/datasets.py::COCO and
-    COCOHP read)."""
+    """A synthetic COCO set for the coco_ctdet, multi_pose and exdet
+    phases, at COCO_RES: `n_train` + `n_val` frames (coco_frames) held in
+    memory, their instances_*.json (task ctdet), person_keypoints_*.json
+    (task multi_pose) or instances_extreme_*.json (task exdet) written
+    under exp/ (the layout data/datasets.py::COCO and COCOHP read)."""
     res = COCO_RES
 
     def __init__(self, task, n_train=64, n_val=8):
         self.task = task
-        self.name = "coco" if task == "ctdet" else "coco_hp"
+        self.name = "coco_hp" if task == "multi_pose" else "coco"
         frames, (boxes, keypoints) = coco_frames(n_train + n_val)
-        gt, prefix = (boxes, "instances") if task == "ctdet" \
-            else (keypoints, "person_keypoints")
+        gt, prefix = {
+            "ctdet": (boxes, "instances"),
+            "multi_pose": (keypoints, "person_keypoints"),
+            "exdet": (with_extreme_points(boxes), "instances_extreme")}[task]
         self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
         ann_dir = self.data_dir / "coco" / "annotations"
         ann_dir.mkdir(parents=True, exist_ok=True)
@@ -734,6 +810,103 @@ class CocoSmokeData(SmokeData):
                 if img["id"] in keep:
                     FRAMES[img_dir, img["id"]] = f
         serve_frames_from_memory()
+
+
+def kitti_frames(n):
+    """KITTI-sized uint8 BGR frames (1242x375) of noise, each with 1-4
+    objects whose 2D boxes are the projections of seeded 3D boxes: the
+    class's mean dimensions, 8-40 m ahead on a ground plane 1.6 m below
+    the camera, any yaw, projected through the frame's own P2 (KITTI's,
+    its focal length and principal point jittered). Returns the frames,
+    COCO-format ground truth with each image's calib and each object's
+    alpha, depth and dim (what the ddd sampler reads), and each image's
+    KITTI label txt (what the scorer reads)."""
+    rng = np.random.RandomState(SEED + 13)
+    names = ["Pedestrian", "Car", "Cyclist"]
+    dims = {"Pedestrian": (1.76, 0.66, 0.84), "Car": (1.53, 1.63, 3.88),
+            "Cyclist": (1.74, 0.60, 1.76)}
+    h, w = KITTI_FRAME
+    frames, images, anns, labels = [], [], [], []
+    for i in range(n):
+        f = 707.0493 * rng.uniform(0.97, 1.03)
+        calib = np.array([[f, 0, 604.0814 + rng.uniform(-8, 8), 45.75831],
+                          [0, f, 180.5066 + rng.uniform(-4, 4), -0.3454157],
+                          [0, 0, 1.0, 0.004981016]])
+        img = (rng.rand(h, w, 3) * 60).astype(np.uint8)
+        lines = []
+        for _ in range(rng.randint(1, 5)):
+            cls = int(rng.randint(0, 3))
+            dh, dw, dl = dims[names[cls]]
+            z = rng.uniform(8.0, 40.0)
+            x, y = rng.uniform(-0.4, 0.4) * z, 1.6
+            ry = rng.uniform(-np.pi, np.pi)
+            c, sn = np.cos(ry), np.sin(ry)
+            corners = np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]]) @ \
+                np.array([[dl, dl, -dl, -dl, dl, dl, -dl, -dl],
+                          [0, 0, 0, 0, -2 * dh, -2 * dh, -2 * dh, -2 * dh],
+                          [dw, -dw, -dw, dw, dw, -dw, -dw, dw]]) / 2
+            proj = calib @ np.vstack([corners + [[x], [y], [z]],
+                                      np.ones((1, 8))])
+            pix = proj[:2] / proj[2:]
+            x1, y1 = max(pix[0].min(), 0.0), max(pix[1].min(), 0.0)
+            x2, y2 = min(pix[0].max(), w - 1.0), min(pix[1].max(), h - 1.0)
+            if x2 - x1 < 8 or y2 - y1 < 8:
+                continue
+            alpha = (ry - np.arctan2(x, z) + np.pi) % (2 * np.pi) - np.pi
+            img[int(y1):int(y2), int(x1):int(x2)] = (60 + 60 * cls, 200,
+                                                     37 * cls)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": cls + 1,
+                         "bbox": [x1, y1, x2 - x1, y2 - y1],
+                         "area": (x2 - x1) * (y2 - y1), "iscrowd": 0,
+                         "alpha": alpha, "depth": z, "dim": [dh, dw, dl],
+                         "rotation_y": ry, "location": [x, y, z]})
+            lines.append(" ".join(
+                [names[cls], "0.00", "0"] + ["{:.2f}".format(v) for v in (
+                    alpha, x1, y1, x2, y2, dh, dw, dl, x, y, z, ry)]))
+        frames.append(img)
+        images.append({"id": i + 1, "file_name": "{:06d}.png".format(i + 1),
+                       "width": w, "height": h, "calib": calib.tolist()})
+        labels.append("\n".join(lines) + "\n")
+    gt = {"images": images, "annotations": anns,
+          "categories": [{"id": j + 1, "name": nm}
+                         for j, nm in enumerate(names)]}
+    return frames, gt, labels
+
+
+class KittiSmokeData(SmokeData):
+    """A synthetic KITTI set for the ddd phase, at KITTI_HW (the kitti
+    dataset's default input): `n_train` + `n_val` frames (kitti_frames)
+    held in memory, kitti_3dop_{train,val}.json and the val frames' label
+    txts written under exp/ (the layout data/datasets.py::KITTI reads)."""
+    task, name = "ddd", "kitti"
+
+    def __init__(self, n_train=32, n_val=8):
+        frames, gt, labels = kitti_frames(n_train + n_val)
+        self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
+        base = self.data_dir / "kitti"
+        label_dir = base / "training" / "label_2"
+        for d in (base / "annotations", label_dir):
+            d.mkdir(parents=True, exist_ok=True)
+        for split, ids in (("train", range(1, n_train + 1)),
+                           ("val", range(n_train + 1,
+                                         n_train + n_val + 1))):
+            keep = set(ids)
+            (base / "annotations" / "kitti_3dop_{}.json".format(split)) \
+                .write_text(json.dumps(dict(
+                    gt, images=[i for i in gt["images"] if i["id"] in keep],
+                    annotations=[a for a in gt["annotations"]
+                                 if a["image_id"] in keep])))
+        img_dir = str(base / "images" / "trainval")
+        for img, frame, text in zip(gt["images"], frames, labels):
+            FRAMES[img_dir, img["id"]] = frame
+            (label_dir / "{:06d}.txt".format(img["id"])).write_text(text)
+        serve_frames_from_memory()
+
+    def args(self, batch, *extra):
+        return [self.task, "--dataset", self.name, "--arch", "shufflenetv2",
+                "--batch_size", str(batch), "--num_workers", "8",
+                "--data_dir", str(self.data_dir), *extra]
 
 
 def grads_vs(model, ref_model):
@@ -805,8 +978,8 @@ def make_trainer(opt, device, qspec=None, deform_backbone=False):
 
 
 def step_parity(data, state_dict, qspec=None, deform_backbone=False,
-                bf16=False):
-    """One train step at batch 4 on the card and on the CPU from the same
+                bf16=False, batch=4):
+    """One train step at `batch` on the card and on the CPU from the same
     weights and batch: the loss, the gradients over all parameters, the
     median tensor and each deform-block tensor (grads_vs), each held at
     STEP_TOL (with bf16 conv operands: the loss at BF16_LOSS_TOL and all
@@ -814,8 +987,8 @@ def step_parity(data, state_dict, qspec=None, deform_backbone=False,
     from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.trainer import batch_to_device
     from codenet_torch.ops import deform_cuda as DC
-    opt = data.opt(4, *(["--dtype", "bfloat16"] if bf16 else []))
-    batch = next(iter(DataLoader(data.dataset(opt), 4, shuffle=True,
+    opt = data.opt(batch, *(["--dtype", "bfloat16"] if bf16 else []))
+    batch = next(iter(DataLoader(data.dataset(opt), batch, shuffle=True,
                                  num_workers=4, seed=1)))
     card, cpu = (make_trainer(opt, dev, qspec, deform_backbone)
                  for dev in ("cuda", "cpu"))
@@ -860,7 +1033,7 @@ def timed_steps_in_turns(paths):
     state. Per path: each step's ms, deform launches and loss. Image
     cache batches (img_idx) read the device-resident stack `cache`, as
     Trainer.run_epoch hands it them."""
-    from codenet_torch.engine.trainer import batch_to_device
+    from codenet_torch.engine.trainer import batch_size_of, batch_to_device
     from codenet_torch.ops import deform_cuda as DC
     runs = {name: {"ms": [], "losses": [], "per_step": []} for name in paths}
     for i in range(min(len(b) for _, b, _ in paths.values())):
@@ -884,10 +1057,11 @@ def timed_steps_in_turns(paths):
     out = {}
     for name, run in runs.items():
         steady = float(np.median(run["ms"][1:]))
+        batch = batch_size_of(paths[name][1][0])
         out[name] = {
-            "steps": len(run["ms"]), "batch": TRAIN_BATCH,
+            "steps": len(run["ms"]), "batch": batch,
             "ms_per_step": run["ms"], "ms_per_step_steady_median": steady,
-            "img_per_s": TRAIN_BATCH / steady * 1e3,
+            "img_per_s": batch / steady * 1e3,
             "losses": run["losses"],
             "launches_fwd": sum(p[0] for p in run["per_step"]),
             "launches_bwd": sum(p[1] for p in run["per_step"]),
@@ -1909,9 +2083,7 @@ def phase_multi_pose(data):
     from codenet_torch.cli import main as cli_main
     from codenet_torch.cli import quant_main
     from codenet_torch.cli import test as cli_test
-    from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.detector import MultiPoseDetector
-    from codenet_torch.engine.trainer import Trainer
     from codenet_torch.models.decode import multi_pose_decode
     from codenet_torch.ops import deform_cuda as DC
     fail = []
@@ -1963,26 +2135,8 @@ def phase_multi_pose(data):
             or rows.shape != (scales * opt.K, 39):
         fail.append("served")
 
-    topt = data.opt(TRAIN_BATCH)
-    parity, ok = step_parity(data, conditioned_init(topt))
-    out["train_parity"] = {"batch": 4, **parity, "tol": STEP_TOL}
-    if not ok:
-        fail.append("train parity")
-    loader = DataLoader(data.dataset(topt), TRAIN_BATCH, shuffle=True,
-                        num_workers=topt.num_workers, seed=topt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < 6:
-        batches.extend(loader)
-    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
-        / len(batches)
-    trainer = Trainer(topt, device="cuda")
-    trainer.init()
-    run = timed_steps(trainer, batches[:6])
-    out["train"] = run
-    if not np.all(np.isfinite(run["losses"])) or any(
-            st != [3, 3] for st in run["launches_per_step"]):
-        fail.append("train")
+    run = _train_and_time(data, data.opt(TRAIN_BATCH), 6, fail, out,
+                          parity_batch=4)
     launches = [served + run["launches_fwd"], run["launches_bwd"]]
 
     common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
@@ -1990,40 +2144,322 @@ def phase_multi_pose(data):
 
     def ckpt(exp_id):
         return str(ROOT / "exp" / "multi_pose" / exp_id / "model_last.pth")
-    runs = [("main", cli_main.main, TRAIN_BATCH,
-             common + ["--exp_id", "chip_smoke_pose"], 6, 6),
-            ("quant_main", quant_main.main, TRAIN_BATCH,
-             common + ["--exp_id", "chip_smoke_pose_qat", "--load_model",
-                       ckpt("chip_smoke_pose")], 6, 6),
-            ("test_fake_quant", cli_test.main, 1,
-             ["--flip_test", "--resume-quantize", "--load_model",
-              ckpt("chip_smoke_pose_qat"), "--exp_id",
-              "chip_smoke_pose_fq"], 3 * len(frames), 0)]
-    out["cli"] = {}
+    cli = _cli_runs(data, [
+        ("main", cli_main.main, TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_pose"], 6, 6),
+        ("quant_main", quant_main.main, TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_pose_qat", "--load_model",
+                   ckpt("chip_smoke_pose")], 6, 6),
+        ("test_fake_quant", cli_test.main, 1,
+         ["--flip_test", "--resume-quantize", "--load_model",
+          ckpt("chip_smoke_pose_qat"), "--exp_id", "chip_smoke_pose_fq"],
+         3 * len(frames), 0)], _stats_lines, 10, out, fail)
+    launches = [a + b for a, b in zip(launches, cli)]
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("multi_pose check failed: {}".format(fail))
+    return launches
+
+
+def kitti_kernel_table(rows, bwd_rows):
+    """Per KITTI map: the forward at batch 1 and 16 and the backward at
+    16 (f32 and bf16) from the kernel phases, each with its time, bound,
+    time over bound and plan."""
+    table = {}
+    for shape in KITTI_SHAPES:
+        entry = {}
+        for r in rows + bwd_rows:
+            if tuple(r["shape"]) != shape:
+                continue
+            kind = "bwd" if r["phase"] == "kernel_bwd" else "fwd"
+            plan = {k: r[k] for k in ("rows", "cb", "blocks") if k in r}
+            entry["{}_{}_{}".format(kind, r["n"], r["dtype"])] = {
+                "us": r["ms"] * 1e3, "bound_us": r["bound_us"],
+                "x_bound": r["ms"] * 1e3 / r["bound_us"], **plan}
+        table["x".join(map(str, shape))] = entry
+    return table
+
+
+def _cli_runs(data, runs, stats_of, want_stats, out, fail):
+    """Each (name, entry point, batch, args, forward launches, backward
+    launches) run with its output captured into out["cli"][name]:
+    seconds, losses, the stats lines `stats_of` finds and launches. A run
+    fails its check unless it launched as said, printed finite losses (2
+    when it trains, none when it evaluates) and no final eval, and an
+    eval printed `want_stats` stats lines. Returns the launches summed
+    (forward, backward)."""
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.ops import deform_cuda as DC
+    out["cli"], launches = {}, [0, 0]
     for name, fn, batch, args, want_fwd, want_bwd in runs:
         DC.LAUNCHES = DC.BWD_LAUNCHES = 0
         text, seconds = _cli_log(fn, data.args(batch, *args))
         losses = [float(ln.split(" loss ")[1].split()[0])
                   for ln in _lines_with(text, "train epoch")]
-        stats = _stats_lines(text)
+        stats = stats_of(text)
         out["cli"][name] = {"seconds": seconds, "losses": losses,
                             "stats": stats, "launches_fwd": DC.LAUNCHES,
                             "launches_bwd": DC.BWD_LAUNCHES}
         launches[0] += DC.LAUNCHES
         launches[1] += DC.BWD_LAUNCHES
         trains = fn is not cli_test.main
-        # training runs no final eval for multi_pose (as in the JAX
-        # package); the eval prints the 10 keypoint stats
+        # training runs no final eval but for ctdet (as in the JAX
+        # package); an eval prints its evaluator's stats
         if (len(losses) != (2 if trains else 0)
                 or not np.all(np.isfinite(losses))
-                or len(stats) != (0 if trains else 10)
+                or len(stats) != (0 if trains else want_stats)
                 or "Running final eval" in text
                 or (DC.LAUNCHES, DC.BWD_LAUNCHES) != (want_fwd, want_bwd)):
             fail.append("cli " + name)
+    return launches
+
+
+def _train_and_time(data, topt, steps, fail, out,
+                    parity_batch=TASK_STEP_BATCH):
+    """One step card vs CPU at `parity_batch` from conditioned_init
+    (STEP_TOL), then `steps` timed steps at topt's batch on sampler
+    batches, the loader timed apart. Returns the timed run."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer
+    parity, ok = step_parity(data, conditioned_init(topt),
+                             batch=parity_batch)
+    out["train_parity"] = {"batch": parity_batch, **parity,
+                           "tol": STEP_TOL}
+    if not ok:
+        fail.append("train parity")
+    loader = DataLoader(data.dataset(topt), topt.batch_size, shuffle=True,
+                        num_workers=topt.num_workers, seed=topt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < steps:
+        batches.extend(loader)
+    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
+        / len(batches)
+    out["loader_workers"] = topt.num_workers
+    trainer = Trainer(topt, device="cuda")
+    trainer.init()
+    run = timed_steps(trainer, batches[:steps])
+    del batches
+    out["train"] = run
+    if not np.all(np.isfinite(run["losses"])) or any(
+            st != [3, 3] for st in run["launches_per_step"]):
+        fail.append("train")
+    return run
+
+
+def phase_ddd(data, rows, bwd_rows):
+    """ddd (KITTI 3D) at KITTI_HW, 3 classes, six heads: the kernel rows
+    at KITTI's maps gathered (time, bound, plan); a batch-2 forward card
+    vs CPU (TASK_HEAD_TOL, 3 launches) and ddd_decode card vs CPU on one
+    request's heads (the rows of score > 0, DECODE_TOL); 8 requests, each
+    with its own calib, with their stage timers; one FP32 step card vs
+    CPU at TASK_STEP_BATCH and 6 timed steps at KITTI_TRAIN_BATCH; then
+    `cli.main ddd` -> `cli.quant_main ddd` -> `cli.test ddd
+    --resume-quantize`, prefetched and --not_prefetch_test, each printing
+    the KITTI AP table (the two equal). Returns (forward, backward)
+    launches of the served, training and CLI paths."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import quant_main
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine.detector import DddDetector, eval_input
+    from codenet_torch.models.decode import ddd_decode
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    out = {"phase": "ddd", "input_hw": list(KITTI_HW),
+           "kernels_at_kitti_maps": kitti_kernel_table(rows, bwd_rows)}
+    model = build_served_model(heads=DDD_HEADS, res=KITTI_HW)
+    fwd, ok = heads_card_vs_cpu(model, TASK_HEAD_TOL, 3, res=KITTI_HW)
+    out["heads_card_vs_cpu"] = fwd
+    if not ok:
+        fail.append("heads")
+    sd = model.state_dict()
+    opt = data.opt(1)
+    det = DddDetector(opt, state_dict=sd, device="cuda")
+    val = data.dataset(opt, "val")
+    frames = [val.load_image(i) for i in range(len(val))]
+    calibs = [np.array(info["calib"], np.float32) for info in
+              val.coco.loadImgs(ids=list(val.images))]
+
+    images, _ = det.pre_process(frames[0], 1, {"calib": calibs[0]})
+    with torch.inference_mode():
+        o = det.model(eval_input(det._to_device(images), det.mean,
+                                 det.std))
+        heads = [o["hm"].sigmoid(), o["rot"],
+                 1.0 / (o["dep"].sigmoid() + 1e-6) - 1.0, o["dim"],
+                 o["wh"], o["reg"]]
+        card = ddd_decode(*heads[:4], wh=heads[4], reg=heads[5],
+                          k=opt.K).cpu()
+        cpu = ddd_decode(*(h.cpu() for h in heads[:4]), wh=heads[4].cpu(),
+                         reg=heads[5].cpu(), k=opt.K)
+    live = cpu[0, :, 2] > 0
+    err = float((card[0][live] - cpu[0][live]).abs().max())
+    out["decode_card_vs_cpu"] = {
+        "max_abs_err": err, "tol": DECODE_TOL, "rows": int(live.sum()),
+        "rows_card": int((card[0, :, 2] > 0).sum()),
+        "finite": bool(torch.isfinite(card).all())}
+    if not err <= DECODE_TOL or int((card[0, :, 2] > 0).sum()) \
+            != int(live.sum()) or not out["decode_card_vs_cpu"]["finite"]:
+        fail.append("decode")
+
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # counts from here on: main paths
+    requests = []
+    for frame, calib in zip(frames, calibs):
+        ret = det.run(frame, {"calib": calib})
+        requests.append(dict(_ms(ret), dets=int(sum(
+            len(v) for v in ret["results"].values()))))
+    served = DC.LAUNCHES
+    out.update(requests_ms=requests, served_launches=served)
+    if served != 3 * len(frames) \
+            or not np.array_equal(det.this_calib, calibs[-1]):
+        fail.append("served")
+
+    run = _train_and_time(data, data.opt(KITTI_TRAIN_BATCH), 6, fail, out)
+    launches = [served + run["launches_fwd"], run["launches_bwd"]]
+
+    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
+              "-1", "--print_iter", "1"]
+
+    def ckpt(exp_id):
+        return str(ROOT / "exp" / "ddd" / exp_id / "model_last.pth")
+    evals = ["--resume-quantize", "--load_model", ckpt("chip_smoke_ddd_qat")]
+    cli = _cli_runs(data, [
+        ("main", cli_main.main, KITTI_TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_ddd"], 6, 6),
+        ("quant_main", quant_main.main, KITTI_TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_ddd_qat", "--load_model",
+                   ckpt("chip_smoke_ddd")], 6, 6),
+        ("test_fake_quant", cli_test.main, 1,
+         evals + ["--exp_id", "chip_smoke_ddd_fq"], 3 * len(frames), 0),
+        ("test_fake_quant_serial", cli_test.main, 1,
+         evals + ["--not_prefetch_test", "--exp_id",
+                  "chip_smoke_ddd_fq_serial"], 3 * len(frames), 0)],
+        lambda text: _lines_with(text, ": AP2D "), 9, out, fail)
+    launches = [a + b for a, b in zip(launches, cli)]
+    # the KITTI AP table, prefetched and serial, the same
+    if out["cli"]["test_fake_quant"]["stats"] \
+            != out["cli"]["test_fake_quant_serial"]["stats"]:
+        fail.append("cli prefetched vs serial")
     out["failed"] = fail
     emit(out)
     if fail:
-        raise SystemExit("multi_pose check failed: {}".format(fail))
+        raise SystemExit("ddd check failed: {}".format(fail))
+    return launches
+
+
+def phase_exdet(data):
+    """exdet (ExtremeNet) at COCO_RES^2, nine heads: a batch-2 forward card
+    vs CPU (TASK_HEAD_TOL, 3 launches); exct_decode of one flip-test
+    request's heads at the default K (100: 10^8 lattice cells an image)
+    on the card, timed, with its peak device memory, and on the CPU: the
+    kept scores within LATTICE_SCORE_TOL, the rows above the last kept
+    score equal in count and within DECODE_TOL; 8 flip-test requests with their stage
+    timers; one FP32 step card vs CPU at TASK_STEP_BATCH and 4 timed steps
+    at batch 32; then `cli.main exdet` -> `cli.quant_main exdet` ->
+    `cli.test exdet --flip_test --resume-quantize`, scored by the port's
+    COCO evaluator (12 bbox stats). Returns (forward, backward) launches
+    of the served, training and CLI paths."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import quant_main
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.engine.detector import ExdetDetector, eval_input
+    from codenet_torch.models.decode import exct_decode
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    model = build_served_model(heads=EXDET_HEADS, res=COCO_RES)
+    fwd, ok = heads_card_vs_cpu(model, TASK_HEAD_TOL, 3, res=COCO_RES)
+    out = {"phase": "exdet", "res": COCO_RES, "heads_card_vs_cpu": fwd}
+    if not ok:
+        fail.append("heads")
+    sd = model.state_dict()
+    opt = data.opt(1, "--flip_test")
+    det = ExdetDetector(opt, state_dict=sd, device="cuda")
+    val = data.dataset(opt, "val")
+    frames = [val.load_image(i) for i in range(len(val))]
+
+    images, _ = det.pre_process(frames[0], 1)
+    kw = dict(k=opt.K, scores_thresh=opt.scores_thresh,
+              center_thresh=opt.center_thresh, aggr_weight=opt.aggr_weight,
+              agnostic=opt.agnostic_ex)
+    with torch.inference_mode():
+        o = det.model(eval_input(det._to_device(images), det.mean,
+                                 det.std))
+        heads = [o["hm_" + p].sigmoid() for p in "tlbrc"] \
+            + [o["reg_" + p] for p in "tlbr"]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card = exct_decode(*heads, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        card = card.cpu()
+        t0 = time.perf_counter()
+        cpu = exct_decode(*(h.cpu() for h in heads), **kw)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    # the kept scores in order; the rows above the last kept score as a
+    # set (lattice cells that tie at the cut may be kept either way)
+    score_err = float((card[..., 4] - cpu[..., 4]).abs().max())
+    row_err, rows, rows_card, positive = 0.0, 0, 0, 0
+    for i in range(card.shape[0]):
+        cut = float(cpu[i, -1, 4])
+        a = card[i][card[i, :, 4] > cut].numpy()
+        b = cpu[i][cpu[i, :, 4] > cut].numpy()
+        rows, rows_card = rows + len(b), rows_card + len(a)
+        positive += int((cpu[i, :, 4] > 0).sum())
+        if len(a) == len(b) and len(b):
+            a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+            row_err = max(row_err, float(np.abs(a - b).max()))
+    out["decode_card_vs_cpu"] = {
+        "k": opt.K, "lattice_cells_per_image": opt.K ** 4,
+        "shape": list(card.shape), "score_max_abs_err": score_err,
+        "score_tol": LATTICE_SCORE_TOL, "rows_above_cut": rows,
+        "rows_above_cut_card": rows_card, "rows_score_gt_0": positive,
+        "row_max_abs_err": row_err,
+        "row_tol": DECODE_TOL, "card_ms": card_ms, "cpu_ms": cpu_ms,
+        "card_peak_bytes_over_heads": peak,
+        "card_max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "finite": bool(torch.isfinite(card).all())}
+    if not score_err <= LATTICE_SCORE_TOL or rows != rows_card or not rows \
+            or not row_err <= DECODE_TOL \
+            or not out["decode_card_vs_cpu"]["finite"]:
+        fail.append("decode")
+
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # counts from here on: main paths
+    requests = []
+    for frame in frames:
+        ret = det.run(frame)
+        requests.append(dict(_ms(ret), dets=int(sum(
+            len(v) for v in ret["results"].values()))))
+    served = DC.LAUNCHES
+    out.update(requests_ms=requests, served_launches=served)
+    if served != 3 * len(frames):
+        fail.append("served")
+
+    run = _train_and_time(data, data.opt(TRAIN_BATCH), 4, fail, out)
+    launches = [served + run["launches_fwd"], run["launches_bwd"]]
+
+    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
+              "-1", "--print_iter", "1"]
+
+    def ckpt(exp_id):
+        return str(ROOT / "exp" / "exdet" / exp_id / "model_last.pth")
+    cli = _cli_runs(data, [
+        ("main", cli_main.main, TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_exdet"], 6, 6),
+        ("quant_main", quant_main.main, TRAIN_BATCH,
+         common + ["--exp_id", "chip_smoke_exdet_qat", "--load_model",
+                   ckpt("chip_smoke_exdet")], 6, 6),
+        ("test_fake_quant", cli_test.main, 1,
+         ["--flip_test", "--resume-quantize", "--load_model",
+          ckpt("chip_smoke_exdet_qat"), "--exp_id", "chip_smoke_exdet_fq"],
+         3 * len(frames), 0)], _stats_lines, 12, out, fail)
+    launches = [a + b for a, b in zip(launches, cli)]
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("exdet check failed: {}".format(fail))
     return launches
 
 
@@ -2095,6 +2531,8 @@ def main(argv=None):
     backbone = phase_deform_backbone(data)
     coco_launches = phase_coco_ctdet(CocoSmokeData("ctdet"))
     pose = phase_multi_pose(CocoSmokeData("multi_pose"))
+    ddd = phase_ddd(KittiSmokeData(), rows, bwd_rows)
+    exdet = phase_exdet(CocoSmokeData("exdet"))
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -2114,7 +2552,8 @@ def main(argv=None):
         + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
-        + backbone[0] + cli_bf16[0] + coco_launches + pose[0],
+        + backbone[0] + cli_bf16[0] + coco_launches + pose[0] + ddd[0]
+        + exdet[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -2133,14 +2572,18 @@ def main(argv=None):
     # and of one served forward at 512^2 (the COCO family; batch 2, f32)
     fwd_entry.update(path_ms(rows, "served_forward_512", 2, "float32",
                              shapes=COCO_SHAPES))
+    # and of one served ddd forward at 384x1280 (batch 1: no flip test)
+    fwd_entry.update(path_ms(rows, "served_forward_kitti", 1, "float32",
+                             shapes=KITTI_SHAPES))
     # backward: one train step's three calls (batch 32, f32); launches
-    # over the FP32, QAT, image-cache, bf16 and deform-backbone training
-    # paths and the bf16 CLIs
+    # over the FP32, QAT, image-cache, bf16, deform-backbone, multi_pose,
+    # ddd and exdet training paths and the CLIs that train
     bwd_entry = kernel_line_entry(
         "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
-        + bf16_train[1] + backbone[1] + cli_bf16[1] + pose[1], bwd_rows,
+        + bf16_train[1] + backbone[1] + cli_bf16[1] + pose[1] + ddd[1]
+        + exdet[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone
@@ -2152,11 +2595,14 @@ def main(argv=None):
     # and of one train step at 512^2 (multi_pose; batch 32, f32)
     bwd_entry.update(path_ms(bwd_rows, "train_step_512", TRAIN_BATCH,
                              "float32", shapes=COCO_SHAPES))
+    # and of one ddd train step at 384x1280 (batch 16, f32)
+    bwd_entry.update(path_ms(bwd_rows, "train_step_kitti", KITTI_TRAIN_BATCH,
+                             "float32", shapes=KITTI_SHAPES))
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,
-        # image-cache training, batched eval, multi-scale, bf16 and
-        # deform-backbone paths and the bf16 CLIs
+        # image-cache training, batched eval, multi-scale, bf16,
+        # deform-backbone, COCO, multi_pose, ddd and exdet paths and CLIs
         fwd_entry, bwd_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,10 @@ eval of the last checkpoint (reference quant_main.py:104-107).
         --arch shufflenetv2 --input_res 256 --batch_size 32 [--gpus -1]
     python -m codenet_torch.cli.main multi_pose --dataset coco_hp \\
         --arch shufflenetv2 --batch_size 32 [--gpus -1]
+    python -m codenet_torch.cli.main ddd --dataset kitti \\
+        --arch shufflenetv2 --batch_size 16 [--gpus -1]
+    python -m codenet_torch.cli.main exdet --dataset coco \\
+        --arch shufflenetv2 --batch_size 32 [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
 ``--device_cache`` (ctdet) holds the train split's raw frames on the

@@ -8,6 +8,10 @@ per-stage timers, and calls the dataset's in-process evaluator.
         --arch shufflenetv2 --input_res 256 --flip_test [--gpus -1]
     python -m codenet_torch.cli.test multi_pose --dataset coco_hp \\
         --arch shufflenetv2 --flip_test [--gpus -1]
+    python -m codenet_torch.cli.test ddd --dataset kitti \\
+        --arch shufflenetv2 [--gpus -1]
+    python -m codenet_torch.cli.test exdet --dataset coco \\
+        --arch shufflenetv2 --flip_test [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
 ``--test_scales`` with several scales or ``--nms`` merges with soft-NMS;
@@ -52,15 +56,27 @@ def _log(ind, num_iters, avg_time_stats):
                         for t_ in avg_time_stats))
 
 
+def _request_meta(dataset, opt, ind):
+    """The request's meta: ddd's per-image calibration, when the image
+    carries one (reference test.py:38-40 and :118-121), else None."""
+    if opt.task != "ddd":
+        return None
+    info = dataset.coco.loadImgs(ids=[dataset.images[ind]])[0]
+    if "calib" not in info:
+        return None
+    return {"calib": np.array(info["calib"], dtype=np.float32)}
+
+
 def _prefetch(dataset, detector, opt, q):
     try:
         for ind in range(len(dataset)):
             img_id = dataset.images[ind]
             image = dataset.load_image(ind)
+            in_meta = _request_meta(dataset, opt, ind)
             images, meta = {}, {}
             for scale in opt.test_scales:
-                images[scale], meta[scale] = detector.pre_process(image,
-                                                                  scale)
+                images[scale], meta[scale] = detector.pre_process(
+                    image, scale, in_meta)
             q.put((img_id, {"images": images, "image": image, "meta": meta}))
     except Exception as e:  # handed to the consumer, which re-raises
         q.put(e)
@@ -107,7 +123,8 @@ def test(opt):
     avg_time_stats = {t_: AverageMeter() for t_ in _TIMERS}
     for ind in range(len(dataset)):
         img_id = dataset.images[ind]
-        ret = detector.run(dataset.load_image(ind))
+        ret = detector.run(dataset.load_image(ind),
+                           _request_meta(dataset, opt, ind))
         results[img_id] = ret["results"]
         for t_ in avg_time_stats:
             avg_time_stats[t_].update(ret[t_])

@@ -1,11 +1,12 @@
 """Dataset classes: metadata, annotation indexing, image reading, results
 I/O, eval entry.
 
-Reference lib/datasets/dataset/{pascal,coco,coco_hp}.py on top of the
-self-contained CocoIndex and the in-process VOC and COCO evaluators,
-composed with the task's training sampler (data/samplers.py) as the
-reference's dataset factory does: ctdet on pascal or coco, multi_pose on
-coco_hp. KITTI (ddd) and exdet are queued in ROADMAP.md and raise.
+Reference lib/datasets/dataset/{pascal,coco,kitti,coco_hp}.py on top of
+the self-contained CocoIndex and the in-process VOC, COCO and KITTI
+evaluators (eval/), composed with the task's training sampler
+(data/samplers.py) as the reference's dataset factory does: ctdet on
+pascal or coco, ddd on kitti, multi_pose on coco_hp, exdet on coco (its
+instances_extreme_*.json). Any other pairing raises.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 
 from ..engine.detector import imread
 from .coco_io import CocoIndex
-from .samplers import CTDetSampler, MultiPoseSampler
+from .samplers import (CTDetSampler, DddSampler, ExdetSampler,
+                       MultiPoseSampler)
 
 
 class BaseDataset:
@@ -187,6 +189,56 @@ class COCO(BaseDataset):
         return ev.summarize()
 
 
+class KITTI(BaseDataset):
+    """KITTI 3D object detection (reference dataset/kitti.py): COCO-format
+    annotations with per-image `calib` and per-object alpha, depth and
+    dim, and the KITTI label txts under training/label_2 for the scorer."""
+    num_classes = 3
+    default_resolution = [384, 1280]
+    mean = np.array([0.485, 0.456, 0.406], np.float32).reshape(1, 1, 3)
+    std = np.array([0.229, 0.224, 0.225], np.float32).reshape(1, 1, 3)
+    max_objs = 50
+    class_name = ["__background__", "Pedestrian", "Car", "Cyclist"]
+    # Van and Truck ignore-map onto Car (-3), Person_sitting onto
+    # Pedestrian (-2), DontCare onto every class (-1); -99 is skipped
+    cat_ids = {1: 0, 2: 1, 3: 2, 4: -3, 5: -3, 6: -2, 7: -99, 8: -99, 9: -1}
+
+    def __init__(self, opt, split):
+        self.data_dir = os.path.join(opt.data_dir, "kitti")
+        self.img_dir = os.path.join(self.data_dir, "images", "trainval")
+        self.annot_path = os.path.join(
+            self.data_dir, "annotations",
+            "kitti_{}_{}.json".format(opt.kitti_split, split))
+        self.alpha_in_degree = False
+        super().__init__(opt, split)
+
+    def save_results(self, results, save_dir):
+        """One KITTI label txt per image, `{:06d}.txt`, under
+        save_dir/results: `<class> 0.0 0` then the row's values at two
+        decimals (alpha, box, dim, location, rotation_y, score)."""
+        results_dir = os.path.join(save_dir, "results")
+        os.makedirs(results_dir, exist_ok=True)
+        for img_id in results:
+            out_path = os.path.join(results_dir, "{:06d}.txt".format(img_id))
+            with open(out_path, "w") as f:
+                for cls_ind in results[img_id]:
+                    for j in range(len(results[img_id][cls_ind])):
+                        class_name = self.class_name[cls_ind]
+                        f.write("{} 0.0 0".format(class_name))
+                        for i in range(len(results[img_id][cls_ind][j])):
+                            f.write(" {:.2f}".format(
+                                results[img_id][cls_ind][j][i]))
+                        f.write("\n")
+
+    def run_eval(self, results, save_dir):
+        """The KITTI AP table (class x difficulty; AP2D, AOS, BEV, 3D),
+        printed and returned, from the port's host C++ scorer."""
+        self.save_results(results, save_dir)
+        from ..eval.kitti_eval import kitti_eval
+        return kitti_eval(os.path.join(save_dir, "results"),
+                          os.path.join(self.data_dir, "training", "label_2"))
+
+
 class COCOHP(COCO):
     """COCO person keypoints (reference dataset/coco_hp.py): COCO's
     frames, normalisation and evaluator, scored by keypoint OKS."""
@@ -233,13 +285,16 @@ class COCOHP(COCO):
 DATASET_FACTORY = {
     "coco": COCO,
     "pascal": PascalVOC,
+    "kitti": KITTI,
     "coco_hp": COCOHP,
 }
 
 # the datasets each task's sampler serves (reference dataset_factory.py)
 SAMPLE_FACTORY = {
     "ctdet": (CTDetSampler, ("pascal", "coco")),
+    "ddd": (DddSampler, ("kitti",)),
     "multi_pose": (MultiPoseSampler, ("coco_hp",)),
+    "exdet": (ExdetSampler, ("coco",)),
 }
 
 
@@ -249,9 +304,9 @@ def get_dataset(dataset, task):
     sampler, datasets = SAMPLE_FACTORY.get(task, (None, ()))
     if dataset not in datasets:
         raise NotImplementedError(
-            "codenet_torch has ctdet on pascal and coco and multi_pose on "
-            "coco_hp so far; {} / {} (kitti, ddd and exdet among them) is "
-            "queued in ROADMAP.md".format(task, dataset))
+            "codenet_torch serves ctdet on pascal and coco, ddd on kitti, "
+            "multi_pose on coco_hp and exdet on coco; not {} on {}"
+            .format(task, dataset))
 
     class Dataset(DATASET_FACTORY[dataset], sampler):
         pass

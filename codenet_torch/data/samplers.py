@@ -1,6 +1,6 @@
-"""Training targets of ctdet and multi_pose (the JAX package's
-data/samplers.py:28-257 and 412-584; reference lib/datasets/sample/
-ctdet.py:30-146 and multi_pose.py:30-184), host numpy.
+"""Training targets of the four CenterNet tasks (the JAX package's
+data/samplers.py; reference lib/datasets/sample/{ctdet,ddd,multi_pose,
+exdet}.py), host numpy.
 
 `get_sample(index, rng)` returns fixed-shape numpy arrays ready to batch.
 The ctdet sampler's input comes in one of three forms:
@@ -16,8 +16,10 @@ The ctdet sampler's input comes in one of three forms:
 - host mode (--host_normalize, the reference's path): the f32 image,
   colour-augmented and normalised here, and the dense heatmap.
 
-The multi_pose sampler takes the device or the host mode; its targets are
-dense on the host in either, as the JAX sampler emits them.
+The ddd, multi_pose and exdet samplers take the device or the host mode;
+their targets are dense on the host in either, as the JAX samplers emit
+them. The ddd sampler has no colour aug (identity aug state), as in the
+reference.
 
 Draws come from `rng` in the JAX sampler's order, so the same per-batch
 RandomState gives the same sample in every mode. The warp is the port's
@@ -32,6 +34,7 @@ and the sharded image cache (--device_cache_shard); they raise.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -93,6 +96,14 @@ def get_border(border, size):
     while size - border // i <= border // i:
         i *= 2
     return border // i
+
+
+def splat(heat, ch, ct, radius):
+    """Max-splat a gaussian at `ct` into channel `ch` of the (H, W, C)
+    heatmap `heat`, in place."""
+    sl = np.ascontiguousarray(heat[:, :, ch])
+    draw_umich_gaussian(sl, ct, radius)
+    heat[:, :, ch] = sl
 
 
 class CTDetSampler:
@@ -204,9 +215,7 @@ class CTDetSampler:
                     hm_radius[k] = radius
                     hm_cls[k] = cls_id
                 else:
-                    hm_slice = np.ascontiguousarray(hm[:, :, cls_id])
-                    draw_umich_gaussian(hm_slice, ct_int, radius)
-                    hm[:, :, cls_id] = hm_slice
+                    splat(hm, cls_id, ct_int, radius)
                 wh[k] = 1.0 * w, 1.0 * h
                 ind[k] = ct_int[1] * output_w + ct_int[0]
                 reg[k] = ct - ct_int
@@ -299,11 +308,6 @@ class MultiPoseSampler:
         hp_ind = np.zeros((self.max_objs * num_joints,), np.int64)
         hp_mask = np.zeros((self.max_objs * num_joints,), np.int64)
 
-        def splat(heat, ch, ct, radius):
-            sl = np.ascontiguousarray(heat[:, :, ch])
-            draw_umich_gaussian(sl, ct, radius)
-            heat[:, :, ch] = sl
-
         gt_det = []
         for k in range(num_objs):
             ann = anns[k]
@@ -370,4 +374,241 @@ class MultiPoseSampler:
                 else np.zeros((1, 40), dtype=np.float32)
             ret["meta"] = {"c": c, "s": s, "gt_det": gt_det,
                            "img_id": img_id}
+        return ret
+
+
+class DddSampler:
+    """KITTI 3D targets (reference sample/ddd.py:28-172): the centre
+    heatmap (ignore regions splatted at 0.9999), depth, dimensions, the
+    2-bin orientation (bins and residuals), box size and offset. An
+    augmented sample (--aug_ddd: scale and shift) keeps reg_mask at 0,
+    as the reference does; rot_mask stays 1."""
+
+    # default calibration (KITTI's P2) for an image that carries none
+    calib = np.array([[707.0493, 0, 604.0814, 45.75831],
+                      [0, 707.0493, 180.5066, -0.3454157],
+                      [0, 0, 1.0, 0.004981016]], dtype=np.float32)
+    alpha_in_degree = False
+
+    def _convert_alpha(self, alpha):
+        return math.radians(alpha + 45) if self.alpha_in_degree else alpha
+
+    def _alpha_to_8(self, alpha):
+        """2-bin orientation encoding (reference sample/ddd.py:160-171)."""
+        ret = [0, 0, 0, 1, 0, 0, 0, 1]
+        if alpha < np.pi / 6.0 or alpha > 5 * np.pi / 6.0:
+            r = alpha - (-0.5 * np.pi)
+            ret[1] = 1
+            ret[2], ret[3] = np.sin(r), np.cos(r)
+        if alpha > -np.pi / 6.0 or alpha < -5 * np.pi / 6.0:
+            r = alpha - (0.5 * np.pi)
+            ret[5] = 1
+            ret[6], ret[7] = np.sin(r), np.cos(r)
+        return ret
+
+    def get_sample(self, index, rng=None):
+        check_sampler_opt(self.opt)
+        rng = rng if rng is not None else self._data_rng
+        img_id = self.images[index]
+        img_info = self.coco.loadImgs(ids=[img_id])[0]
+        img_path = os.path.join(self.img_dir, img_info["file_name"])
+        img = self.load_image(index)
+        calib = np.array(img_info["calib"], dtype=np.float32) \
+            if "calib" in img_info else self.calib
+
+        height, width = img.shape[0], img.shape[1]
+        c = np.array([width / 2.0, height / 2.0])
+        if self.opt.keep_res:
+            s = np.array([self.opt.input_w, self.opt.input_h],
+                         dtype=np.int32)
+        else:
+            s = np.array([width, height], dtype=np.int32)
+
+        aug = False
+        if self.split == "train" and rng.random() < self.opt.aug_ddd:
+            aug = True
+            sf, cf = self.opt.scale, self.opt.shift
+            s = s * np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
+            c[0] += width * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+            c[1] += height * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+
+        input_w, input_h = self.opt.input_w, self.opt.input_h
+        trans_input = get_affine_transform(c, s, 0, [input_w, input_h])
+        inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_h,
+                                input_w)
+        ret = finish_input(self, inp_u8, False, rng)
+
+        num_classes = self.opt.num_classes
+        out_w, out_h = self.opt.output_w, self.opt.output_h
+        trans_output = get_affine_transform(c, s, 0, [out_w, out_h])
+
+        hm = np.zeros((out_h, out_w, num_classes), dtype=np.float32)
+        wh = np.zeros((self.max_objs, 2), dtype=np.float32)
+        reg = np.zeros((self.max_objs, 2), dtype=np.float32)
+        dep = np.zeros((self.max_objs, 1), dtype=np.float32)
+        rotbin = np.zeros((self.max_objs, 2), dtype=np.int64)
+        rotres = np.zeros((self.max_objs, 2), dtype=np.float32)
+        dim = np.zeros((self.max_objs, 3), dtype=np.float32)
+        ind = np.zeros((self.max_objs,), dtype=np.int64)
+        reg_mask = np.zeros((self.max_objs,), dtype=np.uint8)
+        rot_mask = np.zeros((self.max_objs,), dtype=np.uint8)
+
+        anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
+        num_objs = min(len(anns), self.max_objs)
+        gt_det = []
+        for k in range(num_objs):
+            ann = anns[k]
+            bbox = coco_box_to_bbox(ann["bbox"])
+            cls_id = int(self.cat_ids[ann["category_id"]])
+            if cls_id <= -99:
+                continue
+            bbox[:2] = affine_transform(bbox[:2], trans_output)
+            bbox[2:] = affine_transform(bbox[2:], trans_output)
+            bbox[[0, 2]] = np.clip(bbox[[0, 2]], 0, out_w - 1)
+            bbox[[1, 3]] = np.clip(bbox[[1, 3]], 0, out_h - 1)
+            h, w = bbox[3] - bbox[1], bbox[2] - bbox[0]
+            if not (h > 0 and w > 0):
+                continue
+            radius = max(0, int(gaussian_radius((h, w))))
+            ct = np.array([(bbox[0] + bbox[2]) / 2,
+                           (bbox[1] + bbox[3]) / 2], dtype=np.float32)
+            ct_int = ct.astype(np.int32)
+            if cls_id < 0:
+                # an ignore region: near 1, so the focal loss mutes it
+                # (reference sample/ddd.py:108-118)
+                ignore_id = list(range(num_classes)) if cls_id == -1 \
+                    else [-cls_id - 2]
+                if self.opt.rect_mask:
+                    hm[int(bbox[1]):int(bbox[3]) + 1,
+                       int(bbox[0]):int(bbox[2]) + 1, ignore_id] = 0.9999
+                else:
+                    for cc in ignore_id:
+                        splat(hm, cc, ct, radius)
+                    hm[ct_int[1], ct_int[0], ignore_id] = 0.9999
+                continue
+            splat(hm, cls_id, ct, radius)
+
+            wh[k] = 1.0 * w, 1.0 * h
+            gt_det.append(
+                [ct[0], ct[1], 1]
+                + self._alpha_to_8(self._convert_alpha(ann["alpha"]))
+                + [ann["depth"]] + list(np.array(ann["dim"])) + [cls_id])
+            if self.opt.reg_bbox:
+                gt_det[-1] = gt_det[-1][:-1] + [w, h] + [gt_det[-1][-1]]
+            alpha = self._convert_alpha(ann["alpha"])
+            if alpha < np.pi / 6.0 or alpha > 5 * np.pi / 6.0:
+                rotbin[k, 0] = 1
+                rotres[k, 0] = alpha - (-0.5 * np.pi)
+            if alpha > -np.pi / 6.0 or alpha < -5 * np.pi / 6.0:
+                rotbin[k, 1] = 1
+                rotres[k, 1] = alpha - (0.5 * np.pi)
+            dep[k] = ann["depth"]
+            dim[k] = ann["dim"]
+            ind[k] = ct_int[1] * out_w + ct_int[0]
+            reg[k] = ct - ct_int
+            reg_mask[k] = 1 if not aug else 0
+            rot_mask[k] = 1
+
+        ret.update(hm=hm, dep=dep, dim=dim, ind=ind, rotbin=rotbin,
+                   rotres=rotres, reg_mask=reg_mask, rot_mask=rot_mask)
+        if self.opt.reg_bbox:
+            ret["wh"] = wh
+        if self.opt.reg_offset:
+            ret["reg"] = reg
+        if self.opt.debug > 0 or "train" not in self.split:
+            gt_det = np.array(gt_det, dtype=np.float32) if gt_det \
+                else np.zeros((1, 18), dtype=np.float32)
+            ret["meta"] = {"c": c, "s": s, "gt_det": gt_det, "calib": calib,
+                           "image_path": img_path, "img_id": img_id}
+        return ret
+
+
+class ExdetSampler:
+    """ExtremeNet targets (reference sample/exdet.py:31-140): the four
+    extreme-point heatmaps (one channel each with --agnostic_ex) and the
+    centre heatmap, dense, with each point's sub-pixel offset and flat
+    index. Annotations carry 'extreme_points' (instances_extreme_*.json)."""
+
+    def get_sample(self, index, rng=None):
+        check_sampler_opt(self.opt)
+        rng = rng if rng is not None else self._data_rng
+        img_id = self.images[index]
+        img = self.load_image(index)
+
+        height, width = img.shape[0], img.shape[1]
+        c = np.array([width / 2.0, height / 2.0])
+        s = max(height, width) * 1.0
+
+        flipped = False
+        if self.split == "train":
+            if not self.opt.not_rand_crop:
+                s = s * rng.choice(np.arange(0.6, 1.4, 0.1))
+                w_border = get_border(128, width)
+                h_border = get_border(128, height)
+                c[0] = rng.randint(low=w_border, high=width - w_border)
+                c[1] = rng.randint(low=h_border, high=height - h_border)
+            else:
+                sf, cf = self.opt.scale, self.opt.shift
+                s = s * np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf)
+                c[0] += width * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+                c[1] += height * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
+            if rng.random() < self.opt.flip:
+                flipped = True
+                img = img[:, ::-1, :]
+
+        input_res = self.opt.input_res
+        trans_input = get_affine_transform(c, s, 0, [input_res, input_res])
+        inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_res,
+                                input_res)
+        ret = finish_input(self, inp_u8, self.split == "train", rng)
+
+        output_res = self.opt.output_res
+        num_classes = self.opt.num_classes
+        trans_output = get_affine_transform(c, s, 0, [output_res, output_res])
+        num_hm = 1 if self.opt.agnostic_ex else num_classes
+        parts = ("t", "l", "b", "r")
+        hms = {p: np.zeros((output_res, output_res, num_hm), np.float32)
+               for p in parts}
+        hm_c = np.zeros((output_res, output_res, num_classes), np.float32)
+        regs = {p: np.zeros((self.max_objs, 2), np.float32) for p in parts}
+        inds = {p: np.zeros((self.max_objs,), np.int64) for p in parts}
+        reg_mask = np.zeros((self.max_objs,), np.uint8)
+
+        anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
+        num_objs = min(len(anns), self.max_objs)
+        for k in range(num_objs):
+            ann = anns[k]
+            pts = np.array(ann["extreme_points"],
+                           dtype=np.float32).reshape(4, 2)  # t, l, b, r
+            cls_id = int(self.cat_ids[ann["category_id"]])
+            hm_id = 0 if self.opt.agnostic_ex else cls_id
+            if flipped:
+                pts[:, 0] = width - pts[:, 0] - 1
+                pts[1], pts[3] = pts[3].copy(), pts[1].copy()
+            for j in range(4):
+                pts[j] = affine_transform(pts[j], trans_output)
+            pts = np.clip(pts, 0, output_res - 1)
+            h, w = pts[2, 1] - pts[0, 1], pts[3, 0] - pts[1, 0]
+            if h > 0 and w > 0:
+                radius = max(0, int(gaussian_radius(
+                    (math.ceil(h), math.ceil(w)))))
+                pt_int = pts.astype(np.int32)
+                for pi, p in enumerate(parts):
+                    splat(hms[p], hm_id, pt_int[pi], radius)
+                    regs[p][k] = pts[pi] - pt_int[pi]
+                    inds[p][k] = pt_int[pi, 1] * output_res + pt_int[pi, 0]
+                ct = [int((pts[3, 0] + pts[1, 0]) / 2),
+                      int((pts[0, 1] + pts[2, 1]) / 2)]
+                splat(hm_c, cls_id, ct, radius)
+                reg_mask[k] = 1
+
+        ret.update({"hm_" + p: hms[p] for p in parts}, hm_c=hm_c)
+        if self.opt.reg_offset:
+            ret["reg_mask"] = reg_mask
+            for p in parts:
+                ret["reg_" + p] = regs[p]
+                ret["ind_" + p] = inds[p]
+        if self.opt.debug > 0 or not self.split == "train":
+            ret["meta"] = {"c": c, "s": s, "img_id": img_id,
+                           "gt_det": np.zeros((1, 6), np.float32)}
         return ret

@@ -1,8 +1,7 @@
 """Inference engine (reference lib/detectors/base_detector.py, ctdet.py,
-multi_pose.py).
+ddd.py, multi_pose.py, exdet.py).
 
-The ctdet and multi_pose serving paths of the JAX package's
-engine/detector.py in PyTorch. ctdet: letterbox pre-process on the host
+The serving paths of the JAX package's engine/detector.py in PyTorch. ctdet: letterbox pre-process on the host
 (torch bilinear resize and warp stand in for cv2), then on the model's
 device forward -> sigmoid -> flip-test averaging -> max-pool NMS top-k
 decode -> affine back-projection, with only the (K, 6) detections copied
@@ -34,6 +33,18 @@ offsets negated) -> decode with the keypoint-heatmap association; the
 (K, 40) detections go back to image pixels on the host
 (utils/post_process.py) and several scales or --nms merge with
 soft_nms_39. Per image only, as in the JAX package.
+
+ddd (KITTI 3D): the frame warped to (input_h, input_w) at one scale,
+unflipped, then on the device forward -> sigmoid -> depth 1 / (sigmoid
++ 1e-6) - 1 -> decode; on the host the (K, 18) rows go back to image
+pixels and to 3D through the request's calib (meta["calib"], else
+DEFAULT_CALIB), kept above --peak_thresh. exdet (ExtremeNet): the ctdet
+pre-process, then on the device forward -> sigmoid -> the K^4 extreme
+point decode of each image of the flip-test pair; on the host the
+flipped copy's boxes are mirrored back, the corners back-projected, and
+per class the boxes merged with soft-NMS and cut to the top 100. Both per
+image, as in the JAX package. Their --int8_infer path is not held against
+the JAX package yet (queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,13 +55,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.affine import (get_affine_transform, resize_u8,
-                           warp_affine_batch, warp_affine_u8)
+from ..data.affine import (get_affine_transform, invert_affine, resize_u8,
+                           transform_preds, warp_affine_batch,
+                           warp_affine_u8)
 from ..models import create_model
 from ..models import decode as D
 from ..models.layers import qspec_from_opt
 from ..ops.nms import soft_nms, soft_nms_39
-from ..utils.post_process import multi_pose_post_process
+from ..utils.post_process import ddd_post_process, multi_pose_post_process
 from . import checkpoint, w4a8
 
 
@@ -483,15 +495,159 @@ class MultiPoseDetector(BaseDetector):
         return results
 
 
+class DddDetector(BaseDetector):
+    """KITTI 3D detector (reference lib/detectors/ddd.py)."""
+
+    DEFAULT_CALIB = np.array([[707.0493, 0, 604.0814, 45.75831],
+                              [0, 707.0493, 180.5066, -0.3454157],
+                              [0, 0, 1.0, 0.004981016]], dtype=np.float32)
+
+    def __init__(self, opt, state_dict=None, device=None):
+        super().__init__(opt, state_dict, device)
+        self.calib = self.DEFAULT_CALIB
+
+    def pre_process(self, image, scale, meta=None):
+        """reference detectors/ddd.py:30-56: no scaling and no flip; the
+        frame's box (or, with --keep_res, the input size) letterboxed to
+        (input_h, input_w). meta["calib"], when given, is the request's
+        calibration."""
+        height, width = image.shape[0:2]
+        inp_height, inp_width = self.opt.input_h, self.opt.input_w
+        c = np.array([width / 2, height / 2], dtype=np.float32)
+        if self.opt.keep_res:
+            s = np.array([inp_width, inp_height], dtype=np.int32)
+        else:
+            s = np.array([width, height], dtype=np.int32)
+        trans_input = get_affine_transform(c, s, 0, [inp_width, inp_height])
+        inp_image = warp_affine_u8(image, invert_affine(trans_input),
+                                   inp_height, inp_width)
+        if self.opt.host_normalize:
+            inp_image = ((inp_image.astype(np.float32) / 255.0 - self.mean)
+                         / self.std).astype(np.float32)
+        calib = meta["calib"] if meta is not None and "calib" in meta \
+            else self.calib
+        meta = {"c": c, "s": s,
+                "out_height": inp_height // self.opt.down_ratio,
+                "out_width": inp_width // self.opt.down_ratio,
+                "calib": calib, "trans_inv": np.zeros((2, 3), np.float32)}
+        return inp_image[None], meta
+
+    @torch.inference_mode()
+    def process(self, images, trans_inv, scale, return_time=False):
+        """images (1, H, W, 3). Returns (1, K, 18) output-map detections
+        on the device (and, with return_time, the host time at which the
+        forward finished)."""
+        opt = self.opt
+        output = self.model(eval_input(self._to_device(images), self.mean,
+                                       self.std))
+        hm = output["hm"].sigmoid()
+        dep = 1.0 / (output["dep"].sigmoid() + 1e-6) - 1.0
+        self._sync()
+        forward_time = time.time()
+        dets = D.ddd_decode(hm, output["rot"], dep, output["dim"],
+                            wh=output["wh"] if opt.reg_bbox else None,
+                            reg=output["reg"] if opt.reg_offset else None,
+                            k=opt.K)
+        return (dets, forward_time) if return_time else dets
+
+    def post_process(self, dets, meta, scale=1):
+        """Per class (n, 14) [alpha box dim location rotation_y score],
+        in image pixels and camera coordinates of the request's calib."""
+        detections = ddd_post_process(
+            np.array(dets), [meta["c"]], [meta["s"]], [meta["calib"]],
+            self.opt)
+        self.this_calib = meta["calib"]
+        return detections[0]
+
+    def merge_outputs(self, detections):
+        """The one scale's detections above --peak_thresh."""
+        results = detections[0]
+        for j in range(1, self.num_classes + 1):
+            if len(results[j]) > 0:
+                keep_inds = results[j][:, -1] > self.opt.peak_thresh
+                results[j] = results[j][keep_inds]
+        return results
+
+
+class ExdetDetector(BaseDetector):
+    """ExtremeNet detector (reference lib/detectors/exdet.py)."""
+
+    @torch.inference_mode()
+    def process(self, images, trans_inv, scale, return_time=False):
+        """images (1, or 2 with flip_test, H, W, 3); each image decoded on
+        its own. Returns (1 or 2, num_dets, 14) output-map detections on
+        the device (and, with return_time, the host time at which the
+        forward finished)."""
+        opt = self.opt
+        output = self.model(eval_input(self._to_device(images), self.mean,
+                                       self.std))
+        heats = [output["hm_" + p].sigmoid() for p in "tlbrc"]
+        regrs = [output["reg_" + p] if opt.reg_offset else None
+                 for p in "tlbr"]
+        self._sync()
+        forward_time = time.time()
+        dets = D.exct_decode(*heats, *regrs, k=opt.K,
+                             scores_thresh=opt.scores_thresh,
+                             center_thresh=opt.center_thresh,
+                             aggr_weight=opt.aggr_weight,
+                             agnostic=opt.agnostic_ex)
+        return (dets, forward_time) if return_time else dets
+
+    def post_process(self, dets, meta, scale=1):
+        """reference detectors/exdet.py:86-98: the flipped copy's boxes
+        mirrored back, the box corners back-projected to image pixels."""
+        out_width, out_height = meta["out_width"], meta["out_height"]
+        dets = np.array(dets)
+        if dets.shape[0] == 2:  # flip-test pair
+            dets = dets.reshape(2, -1, 14)
+            dets[1, :, [0, 2]] = out_width - dets[1, :, [2, 0]]
+        dets = dets.reshape(1, -1, 14)
+        dets[0, :, 0:2] = transform_preds(dets[0, :, 0:2], meta["c"],
+                                          meta["s"], (out_width, out_height))
+        dets[0, :, 2:4] = transform_preds(dets[0, :, 2:4], meta["c"],
+                                          meta["s"], (out_width, out_height))
+        dets[:, :, 0:4] /= scale
+        return dets[0]
+
+    def merge_outputs(self, detections):
+        """reference detectors/exdet.py:100-124: the rows of score > 0, per
+        class soft-NMS (gaussian, Nt 0.5; its keep list ignored), then the
+        global top 100."""
+        detections = np.concatenate(list(detections), axis=0).astype(
+            np.float32)
+        classes = detections[..., -1]
+        keep_inds = detections[:, 4] > 0
+        detections = detections[keep_inds]
+        classes = classes[keep_inds]
+
+        results = {}
+        for j in range(self.num_classes):
+            keep_inds = classes == j
+            results[j + 1] = detections[keep_inds][:, 0:7].astype(np.float32)
+            soft_nms(results[j + 1], Nt=0.5, method=2)
+            results[j + 1] = results[j + 1][:, 0:5]
+        scores = np.hstack([results[j][:, -1]
+                            for j in range(1, self.num_classes + 1)])
+        if len(scores) > self.max_per_image:
+            kth = len(scores) - self.max_per_image
+            thresh = np.partition(scores, kth)[kth]
+            for j in range(1, self.num_classes + 1):
+                keep_inds = results[j][:, -1] >= thresh
+                results[j] = results[j][keep_inds]
+        return results
+
+
 DETECTOR_FACTORY = {
     "ctdet": CtdetDetector,
+    "ddd": DddDetector,
     "multi_pose": MultiPoseDetector,
+    "exdet": ExdetDetector,
 }
 
 
 def detector_factory(task):
     """reference lib/detectors/detector_factory.py:11-16."""
     if task not in DETECTOR_FACTORY:
-        raise NotImplementedError(
-            "task {} is queued in ROADMAP.md".format(task))
+        raise NotImplementedError("no detector for task {}; the tasks are "
+                                  "{}".format(task, sorted(DETECTOR_FACTORY)))
     return DETECTOR_FACTORY[task]

@@ -1,11 +1,12 @@
 """Training engine (the JAX package's engine/trainer.py; reference
-lib/trains/base_trainer.py, trains/ctdet.py and trains/multi_pose.py).
+lib/trains/base_trainer.py and the per-task trains/{ctdet,ddd,
+multi_pose,exdet}.py).
 
 One train step: model input on the device (colour aug + normalisation of
 the uint8 batch, or of the rows of the device image cache warped on the
 card, --device_cache) -> sparse ctdet targets rendered on the device (the
-dense multi_pose targets arrive as the sampler made them) -> forward ->
-loss -> backward -> Adam. FP32 training runs the model in train mode (BN
+dense targets of the other tasks arrive as their samplers made them) ->
+forward -> loss -> backward -> Adam. FP32 training runs the model in train mode (BN
 on batch statistics, running statistics updated); QAT (a `QuantSpec`)
 runs it against frozen folded BN with `update_stats=True`, so only the
 activation-range EMA moves (the JAX step's `train=False,
@@ -44,7 +45,8 @@ class LossOpts:
     FIELDS = ("mse_loss", "dense_wh", "cat_spec_wh", "norm_wh", "reg_loss",
               "reg_offset", "reg_bbox", "hm_weight", "wh_weight",
               "off_weight", "hp_weight", "hm_hp_weight", "hm_hp",
-              "reg_hp_offset", "dense_hp")
+              "reg_hp_offset", "dense_hp", "dep_weight", "dim_weight",
+              "rot_weight")
 
     def __init__(self, opt):
         for f in self.FIELDS:

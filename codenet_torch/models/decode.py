@@ -1,14 +1,15 @@
-"""ctdet and multi_pose head decoding on (N, H, W, C) tensors, on the
-heads' device.
+"""Head decoding of the four CenterNet tasks on (N, H, W, C) tensors, on
+the heads' device.
 
-Port of the ctdet and multi_pose parts of the JAX package's
-models/decode.py (reference lib/models/decode.py): 3x3 max-pool
-peak-keep, top-k (pooled, or the literal two-stage per-class then
-global), offset/size gathers, box assembly, and for ctdet the affine
-back-projection to original image pixels (lib/utils/post_process.py:
-86-103) — ctdet detections leave as (N, K, 6) [x1 y1 x2 y2 score cls],
-multi_pose ones as (N, K, 40) in output-map space [box score 17 joints
-cls] (utils/post_process.py maps them back on the host).
+Port of the JAX package's models/decode.py (reference lib/models/
+decode.py): 3x3 max-pool peak-keep, top-k (pooled, or the literal
+two-stage per-class then global), offset/size gathers and box assembly.
+ctdet detections leave back-projected to original image pixels
+(lib/utils/post_process.py:86-103) as (N, K, 6) [x1 y1 x2 y2 score cls];
+multi_pose ones as (N, K, 40) and ddd ones as (N, K, 18) in output-map
+space (utils/post_process.py maps them back on the host); exdet
+(ExtremeNet) ones as (N, num_dets, 14) from the K^4 lattice of extreme
+point combinations, scored by the centre heatmap.
 
 `torch.topk` and `lax.top_k` may order exactly equal scores differently;
 on tie-free maps both select and order the same detections.
@@ -270,3 +271,209 @@ def backproject_dets(dets, trans_inv, inv_scale=1.0):
     p1 = apply_affine_points(dets[..., 0:2], t) * inv_scale
     p2 = apply_affine_points(dets[..., 2:4], t) * inv_scale
     return torch.cat([p1, p2, dets[..., 4:]], dim=-1)
+
+
+def _directional_aggregate(heat, axis, reverse):
+    """ExtremeNet's running conditional sum along `axis` (reference
+    decode.py:19-74): ret[i] = heat[i] + ret[i-1] * (heat[i] >=
+    heat[i-1]), walking back to front with `reverse`; returns ret - heat,
+    in the JAX scan's order of f32 operations."""
+    h = heat.movedim(axis, 0)
+    order = range(h.shape[0] - 2, -1, -1) if reverse \
+        else range(1, h.shape[0])
+    start = h.shape[0] - 1 if reverse else 0
+    prev, acc = h[start], h[start]
+    extra = [None] * h.shape[0]
+    extra[start] = torch.zeros_like(h[start])
+    for i in order:
+        x = h[i]
+        acc = torch.where(x >= prev, acc, 0.0) + x
+        prev = x
+        extra[i] = acc - x
+    return torch.stack(extra).movedim(0, axis)
+
+
+def h_aggregate(heat, aggr_weight=0.1):
+    """Horizontal edge aggregation, NHWC (W = axis 2)."""
+    return (aggr_weight * _directional_aggregate(heat, 2, False)
+            + aggr_weight * _directional_aggregate(heat, 2, True) + heat)
+
+
+def v_aggregate(heat, aggr_weight=0.1):
+    """Vertical edge aggregation, NHWC (H = axis 1)."""
+    return (aggr_weight * _directional_aggregate(heat, 1, False)
+            + aggr_weight * _directional_aggregate(heat, 1, True) + heat)
+
+
+# cells of one image's K^4 lattice scored at a time (a slab of top points)
+_LATTICE_CHUNK = 1 << 24
+# ExtremeNet's geometric rejections (reference decode.py:351-354): the top
+# point lies below another point, the left one right of another, the
+# bottom one above another, the right one left of another (lattice axes
+# t, l, b, r = 0, 1, 2, 3)
+_GEOMETRY_TESTS = ((0, "y", torch.gt), (1, "x", torch.gt),
+                   (2, "y", torch.lt), (3, "x", torch.lt))
+
+
+def exct_decode(t_heat, l_heat, b_heat, r_heat, ct_heat,
+                t_regr=None, l_regr=None, b_regr=None, r_regr=None,
+                k=40, scores_thresh=0.1, center_thresh=0.1, aggr_weight=0.0,
+                num_dets=1000, agnostic=False):
+    """ExtremeNet decode (reference decode.py:281-433, and :129-279 with
+    `agnostic`): the top K of each extreme-point heatmap, every (t, l, b,
+    r) combination of them scored by the centre heatmap at the implied
+    box centre, rejected (score minus one per failed class, geometry and
+    threshold test), and the top `num_dets` kept.
+
+    Heats are post-sigmoid (N, H, W, C); regressions (N, H, W, 2).
+    Returns (N, num_dets, 14) [x1 y1 x2 y2 score tx ty lx ly bx by rx ry
+    cls] in output-map pixels.
+
+    The (N, K^4) score lattice is the one tensor of that size: it is
+    built from the four K-vectors by broadcasting, and the centre scores
+    and the rejection counts are added to it in place, a slab of top
+    points at a time; only the winners' coordinates are gathered. The
+    f32 operations are the JAX package's, in its order, so the scores are
+    bit-equal on the same inputs.
+    """
+    n, height, width, _ = t_heat.shape
+    if aggr_weight > 0:
+        t_heat = h_aggregate(t_heat, aggr_weight)
+        l_heat = v_aggregate(l_heat, aggr_weight)
+        b_heat = h_aggregate(b_heat, aggr_weight)
+        r_heat = v_aggregate(r_heat, aggr_weight)
+
+    # the min(heat, 1) clamp makes exact-tie plateaus, which break the
+    # pooled top-k's strict-peak premise: the literal two-stage top-k
+    picks = [topk(torch.clamp(heat_nms(h), max=1.0), k, "two_stage")
+             for h in (t_heat, l_heat, b_heat, r_heat)]
+    (t_sc, t_inds, t_cls, t_ys, t_xs), (l_sc, l_inds, l_cls, l_ys, l_xs), \
+        (b_sc, b_inds, b_cls, b_ys, b_xs), \
+        (r_sc, r_inds, r_cls, r_ys, r_xs) = picks
+
+    # box centres: x from (l, r), y from (t, b), truncated as int32
+    ct_x = ((l_xs[:, :, None] + r_xs[:, None, :] + 0.5) / 2).to(torch.int32)
+    ct_y = ((t_ys[:, :, None] + b_ys[:, None, :] + 0.5) / 2).to(torch.int32)
+    if agnostic:
+        ct_max, ct_arg = ct_heat.max(dim=-1)  # (N, H, W): first max
+        ct_maps = ct_max[:, None]             # one map for every top point
+    else:
+        ct_maps = ct_heat.permute(0, 3, 1, 2)  # (N, C, H, W)
+
+    # scores = (t + l + b + r + 2 ct) / 6 - rejected, over (t, l, b, r)
+    scores = t_sc[:, :, None] + l_sc[:, None, :]
+    scores = scores[..., None] + b_sc[:, None, None, :]
+    scores = scores[..., None] + r_sc[:, None, None, None, :]  # (N, K^4)
+
+    six = torch.full((), 6.0, dtype=scores.dtype, device=scores.device)
+    step = max(1, min(k, _LATTICE_CHUNK // k ** 3))
+    for i in range(n):
+        cx_lr = ct_x[i].reshape(-1).long()  # (K_l * K_r)
+        # per lattice axis (t, l, b, r): its class, score, y and x vectors
+        vecs = [dict(cls=c[i], sc=sc[i], y=y[i], x=x[i]) for c, sc, y, x in (
+            (t_cls, t_sc, t_ys, t_xs), (l_cls, l_sc, l_ys, l_xs),
+            (b_cls, b_sc, b_ys, b_xs), (r_cls, r_sc, r_ys, r_xs))]
+        for t0 in range(0, k, step):
+            t1 = min(k, t0 + step)
+            sl = scores[i, t0:t1]                 # (tk, K, K, K) view
+
+            def part(axis, key):
+                """Axis `axis`'s vector `key`, shaped to broadcast over
+                the slab (the top points cut to t0:t1)."""
+                vec = vecs[axis][key]
+                shape = [1] * 4
+                shape[axis] = -1
+                return (vec[t0:t1] if axis == 0 else vec).reshape(shape)
+
+            # centre scores: map rows at (t, b), then columns at (l, r)
+            maps = ct_maps[i, torch.zeros(t1 - t0, dtype=torch.long,
+                                          device=sl.device)] \
+                if agnostic else ct_maps[i, t_cls[i, t0:t1].long()]
+            rows = torch.gather(maps, 1, ct_y[i, t0:t1].long()[..., None]
+                                .expand(-1, -1, width))  # (tk, K_b, W)
+            ct = rows.index_select(2, cx_lr).reshape(
+                t1 - t0, k, k, k).permute(0, 2, 1, 3)   # (tk, l, b, r)
+            sl.add_(ct, alpha=2.0)
+            # a tensor divisor: CUDA divides by a scalar as a product with
+            # its reciprocal, one rounding off the CPU's (and XLA's) x / 6
+            sl.div_(six)
+
+            # one per failed test: the classes differ, a score is under
+            # its threshold, or a point lies outside the others' box
+            rej = torch.zeros(sl.shape, dtype=torch.uint8, device=sl.device)
+            bad = torch.zeros(sl.shape, dtype=torch.bool, device=sl.device)
+            if not agnostic:
+                for other in (1, 2, 3):
+                    bad |= part(0, "cls") != part(other, "cls")
+                rej += bad
+                bad.zero_()
+            for axis in range(4):
+                bad |= part(axis, "sc") < scores_thresh
+            bad |= ct < center_thresh
+            rej += bad
+            for axis, key, op in _GEOMETRY_TESTS:
+                bad.zero_()
+                for other in range(4):
+                    if other != axis:
+                        bad |= op(part(axis, key), part(other, key))
+                rej += bad
+            sl.sub_(rej)
+
+    scores_sel, inds = torch.topk(scores.reshape(n, -1), num_dets)
+    ti = torch.div(inds, k ** 3, rounding_mode="floor")
+    li = torch.div(inds, k ** 2, rounding_mode="floor") % k
+    bi = torch.div(inds, k, rounding_mode="floor") % k
+    ri = inds % k
+
+    def point(xs, ys, regr, ind_k, idx):
+        x, y = torch.gather(xs, 1, idx), torch.gather(ys, 1, idx)
+        if regr is None:
+            return x + 0.5, y + 0.5
+        off = _gather_feat_nhwc(regr.reshape(n, -1, 2),
+                                torch.gather(ind_k, 1, idx))
+        return x + off[..., 0], y + off[..., 1]
+
+    have_regr = all(r is not None for r in (t_regr, l_regr, b_regr, r_regr))
+    tx, ty = point(t_xs, t_ys, t_regr if have_regr else None, t_inds, ti)
+    lx, ly = point(l_xs, l_ys, l_regr if have_regr else None, l_inds, li)
+    bx, by = point(b_xs, b_ys, b_regr if have_regr else None, b_inds, bi)
+    rx, ry = point(r_xs, r_ys, r_regr if have_regr else None, r_inds, ri)
+    if agnostic:
+        cy = torch.gather(ct_y.reshape(n, -1), 1, ti * k + bi)
+        cx = torch.gather(ct_x.reshape(n, -1), 1, li * k + ri)
+        clses = torch.gather(ct_arg.reshape(n, -1), 1,
+                             (cy * width + cx).long()).float()
+    else:
+        clses = torch.gather(t_cls, 1, ti).float()
+    return torch.stack([lx, ty, rx, by, scores_sel, tx, ty, lx, ly, bx, by,
+                        rx, ry, clses], dim=2)
+
+
+def agnex_ct_decode(t_heat, l_heat, b_heat, r_heat, ct_heat, **kw):
+    """Category-agnostic ExtremeNet decode (reference decode.py:129-279)."""
+    return exct_decode(t_heat, l_heat, b_heat, r_heat, ct_heat,
+                       agnostic=True, **kw)
+
+
+def ddd_decode(heat, rot, depth, dim, wh=None, reg=None, k=40):
+    """KITTI 3D decode (reference decode.py:435-471); heat post-sigmoid,
+    depth already transformed. Returns (N, K, 18, or 16 without wh) [xs
+    ys score rot(8) depth dim(3) (wh) cls] in output-map pixels."""
+    n = heat.shape[0]
+    heat = heat_nms(heat)
+    scores, inds, clses, ys, xs = topk(heat, k)
+    if reg is not None:
+        regf = _gather_feat_nhwc(reg.reshape(n, -1, 2), inds)
+        xs = xs[..., None] + regf[..., 0:1]
+        ys = ys[..., None] + regf[..., 1:2]
+    else:
+        xs = xs[..., None] + 0.5
+        ys = ys[..., None] + 0.5
+    parts = [xs, ys, scores[..., None],
+             _gather_feat_nhwc(rot.reshape(n, -1, 8), inds),
+             _gather_feat_nhwc(depth.reshape(n, -1, 1), inds),
+             _gather_feat_nhwc(dim.reshape(n, -1, 3), inds)]
+    if wh is not None:
+        parts.append(_gather_feat_nhwc(wh.reshape(n, -1, 2), inds))
+    parts.append(clses[..., None].float())
+    return torch.cat(parts, dim=2)

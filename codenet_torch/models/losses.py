@@ -1,6 +1,6 @@
-"""ctdet and multi_pose losses, NHWC (the JAX package's models/losses.py:
-14-179 and 218-254; reference lib/models/losses.py, lib/trains/ctdet.py and
-lib/trains/multi_pose.py).
+"""The losses of the four CenterNet tasks, NHWC (the JAX package's
+models/losses.py; reference lib/models/losses.py and lib/trains/{ctdet,
+ddd,multi_pose,exdet}.py).
 
 Pure functions of (outputs, targets). The data-dependent branch of the
 focal loss (no positive in the batch) is a `torch.where`, as in the JAX
@@ -97,6 +97,43 @@ def dense_wh_l1_loss(output, dense_wh, dense_wh_mask):
     return torch.abs(output * m - dense_wh * m).sum() / (m.sum() + 1e-4)
 
 
+def _cross_entropy_masked(logits, target, mask):
+    """compute_bin_loss (reference losses.py:212-215): the logits are
+    masked (not the loss), and the cross-entropy is a mean over all
+    rows, masked ones included."""
+    logits = logits * mask.to(logits.dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, target.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def bin_rot_loss(output, mask, ind, rotbin, rotres):
+    """2-bin orientation loss (reference BinRotLoss + compute_rot_loss,
+    losses.py:197-250): per bin the masked-logit cross-entropy, and the
+    smooth-L1 of its sin/cos residual over the rows whose bin is active,
+    written as masked sums over a count floored at 1 (the JAX package's
+    form, the same value)."""
+    pred = gather_feat(output, ind)  # (N, M, 8)
+    o = pred.reshape(-1, 8)
+    tb = rotbin.reshape(-1, 2)
+    tr = rotres.reshape(-1, 2)
+    m = mask.reshape(-1, 1)
+
+    loss_bin1 = _cross_entropy_masked(o[:, 0:2], tb[:, 0], m)
+    loss_bin2 = _cross_entropy_masked(o[:, 4:6], tb[:, 1], m)
+
+    def res_term(sin_col, cos_col, bin_col, res_col):
+        sel = (bin_col != 0).to(o.dtype)
+        cnt = torch.clamp(sel.sum(), min=1.0)
+        ls = (smooth_l1(sin_col - torch.sin(res_col)) * sel).sum() / cnt
+        lc = (smooth_l1(cos_col - torch.cos(res_col)) * sel).sum() / cnt
+        return torch.where(sel.sum() > 0, ls + lc, 0.0)
+
+    loss_res = res_term(o[:, 2], o[:, 3], tb[:, 0], tr[:, 0]) \
+        + res_term(o[:, 6], o[:, 7], tb[:, 1], tr[:, 1])
+    return loss_bin1 + loss_bin2 + loss_res
+
+
 def ctdet_loss(outputs, batch, opt):
     """CtdetLoss (reference trains/ctdet.py:17-74). outputs: list of head
     dicts (one per stack), NHWC; batch: target dict. Returns (loss, stats
@@ -134,6 +171,42 @@ def ctdet_loss(outputs, batch, opt):
                   "off_loss": off_loss}
 
 
+def ddd_loss(outputs, batch, opt):
+    """DddLoss (reference trains/ddd.py:16-64). The depth head decodes as
+    1 / (sigmoid + 1e-6) - 1, as the detector decodes it; wh and reg are
+    masked by rot_mask, not reg_mask (the sampler zeroes reg_mask on
+    augmented samples, rot_mask never), as in the reference."""
+    hm_loss = dep_loss = rot_loss = dim_loss = 0.0
+    wh_loss = off_loss = 0.0
+    num_stacks = len(outputs)
+    for output in outputs:
+        dep = 1.0 / (torch.sigmoid(output["dep"]) + 1e-6) - 1.0
+        hm_loss += neg_loss(sigmoid_clamped(output["hm"]),
+                            batch["hm"]) / num_stacks
+        if opt.dep_weight > 0:
+            dep_loss += reg_l1_loss(dep, batch["reg_mask"], batch["ind"],
+                                    batch["dep"]) / num_stacks
+        if opt.dim_weight > 0:
+            dim_loss += reg_l1_loss(output["dim"], batch["reg_mask"],
+                                    batch["ind"], batch["dim"]) / num_stacks
+        if opt.rot_weight > 0:
+            rot_loss += bin_rot_loss(output["rot"], batch["rot_mask"],
+                                     batch["ind"], batch["rotbin"],
+                                     batch["rotres"]) / num_stacks
+        if opt.reg_bbox and opt.wh_weight > 0:
+            wh_loss += reg_l1_loss(output["wh"], batch["rot_mask"],
+                                   batch["ind"], batch["wh"]) / num_stacks
+        if opt.reg_offset and opt.off_weight > 0:
+            off_loss += reg_l1_loss(output["reg"], batch["rot_mask"],
+                                    batch["ind"], batch["reg"]) / num_stacks
+    loss = (opt.hm_weight * hm_loss + opt.dep_weight * dep_loss
+            + opt.dim_weight * dim_loss + opt.rot_weight * rot_loss
+            + opt.wh_weight * wh_loss + opt.off_weight * off_loss)
+    return loss, {"loss": loss, "hm_loss": hm_loss, "dep_loss": dep_loss,
+                  "dim_loss": dim_loss, "rot_loss": rot_loss,
+                  "wh_loss": wh_loss, "off_loss": off_loss}
+
+
 def multi_pose_loss(outputs, batch, opt):
     """MultiPoseLoss (reference trains/multi_pose.py:16-85). The dense
     joint targets of --dense_hp are not ported (the sampler refuses the
@@ -169,4 +242,28 @@ def multi_pose_loss(outputs, batch, opt):
                   "wh_loss": wh_loss, "off_loss": off_loss}
 
 
-LOSS_FACTORY = {"ctdet": ctdet_loss, "multi_pose": multi_pose_loss}
+def exdet_loss(outputs, batch, opt):
+    """ExdetLoss (reference trains/exdet.py:18-42): the focal loss of the
+    four extreme-point heatmaps and the centre one, and the masked L1 of
+    the four points' sub-pixel offsets."""
+    hm_loss = reg_loss_ = 0.0
+    num_stacks = len(outputs)
+    for output in outputs:
+        for p in ("t", "l", "b", "r", "c"):
+            tag = "hm_{}".format(p)
+            hm = sigmoid_clamped(output[tag])
+            if opt.mse_loss:
+                hm_loss += mse_loss(hm, batch[tag]) / num_stacks
+            else:
+                hm_loss += neg_loss(hm, batch[tag]) / num_stacks
+            if p != "c" and opt.reg_offset and opt.off_weight > 0:
+                reg_loss_ += reg_l1_loss(
+                    output["reg_{}".format(p)], batch["reg_mask"],
+                    batch["ind_{}".format(p)],
+                    batch["reg_{}".format(p)]) / num_stacks
+    loss = opt.hm_weight * hm_loss + opt.off_weight * reg_loss_
+    return loss, {"loss": loss, "off_loss": reg_loss_, "hm_loss": hm_loss}
+
+
+LOSS_FACTORY = {"ctdet": ctdet_loss, "ddd": ddd_loss,
+                "multi_pose": multi_pose_loss, "exdet": exdet_loss}

@@ -121,13 +121,14 @@ def test_dataset_metadata_matches_jax():
                                           ("coco", "exdet"),
                                           ("coco_hp", "ctdet")])
 def test_get_dataset(dataset, task):
-    """The three served (dataset, task) pairs compose; every other pair
-    (kitti, ddd and exdet among them) raises and points to ROADMAP.md."""
+    """The five served (dataset, task) pairs compose (kitti / ddd and coco
+    / exdet among them); any other pair raises and names itself."""
     if (dataset, task) in (("coco", "ctdet"), ("pascal", "ctdet"),
-                           ("coco_hp", "multi_pose")):
+                           ("coco_hp", "multi_pose"), ("kitti", "ddd"),
+                           ("coco", "exdet")):
         cls = TD.get_dataset(dataset, task)
         assert issubclass(cls, TD.DATASET_FACTORY[dataset])
         assert hasattr(cls, "get_sample")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="not ctdet on coco_hp"):
         TD.get_dataset(dataset, task)

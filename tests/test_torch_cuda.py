@@ -532,3 +532,147 @@ def test_multi_pose_decode_on_card_matches_cpu(cuda_device):
                                for k, v in heads.items()}, k=100)
     assert got.device.type == "cuda" and got.shape == (2, 100, 40)
     assert float((got.cpu() - ref).abs().max()) <= 1e-5
+
+
+# -- ddd on KITTI (384x1280) and exdet ------------------------------------------
+
+# the deconv stage's three stride-1 deform maps at KITTI's 384x1280, 1x
+KITTI_SHAPES = [(12, 40, 1024), (24, 80, 256), (48, 160, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KITTI_SHAPES)
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_forward_kitti_maps_on_card(shape, n, dtype, cuda_device):
+    """The forward kernel at KITTI's maps, at the served batch (1: ddd has
+    no flip test) and the trained one (16)."""
+    x, s, w = deform_case(shape, seed=50, n=n)
+    _fwd_check(torch.from_numpy(x).to(cuda_device, dtype),
+               torch.from_numpy(_mixed_s(s, 51)).to(cuda_device),
+               torch.from_numpy(w).to(cuda_device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KITTI_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_kitti_maps_on_card(shape, dtype, cuda_device):
+    """The backward kernel (one launch) at KITTI's maps, batch 16: dx, ds
+    and dw within 1e-4 (f32) or 3e-2 (bf16) of each output's max of the
+    plain backward, ds exactly 0 where s sits on a clamp bound."""
+    x, s, w = deform_case(shape, seed=52, n=16)
+    s = _mixed_s(s, 53)
+    g = np.random.RandomState(54).randn(*x.shape).astype(np.float32)
+    xt, wt, gt = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in (x, w, g))
+    st = torch.from_numpy(s).to(cuda_device)
+    before = DC.BWD_LAUNCHES
+    got = DC.codesign_deform_conv_bwd(xt, st, wt, gt)
+    torch.cuda.synchronize()
+    assert DC.BWD_LAUNCHES == before + 1
+    refs = DC.codesign_deform_conv_bwd_plain(xt, st, wt, gt)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for name, a, b in zip(("dx", "ds", "dw"), got, refs):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale, \
+            name
+    bounds = (st == -7.0) | (st == 8.0)
+    assert float(got[1][bounds].abs().max()) == 0.0
+
+
+def _distinct(r, shape):
+    """Values in [0, 1) that are all distinct in f32 (a shuffled ramp), so
+    that no two peaks tie and every top-k selects and orders alike."""
+    count = int(np.prod(shape))
+    return (r.permutation(count) / count).reshape(shape)
+
+
+@pytest.mark.cuda
+def test_ddd_decode_on_card_matches_cpu(cuda_device):
+    """ddd_decode of seeded heads at KITTI's output map (96x320, batch 1,
+    K 100, wh and reg): the card's rows equal the CPU's within 1e-5 (the
+    heatmap's values distinct: no ties among the peaks)."""
+    from codenet_torch.models.decode import ddd_decode
+    r = np.random.RandomState(55)
+    shape = (1, 96, 320)
+    heads = {"heat": _distinct(r, shape + (3,)), "rot": r.randn(*shape, 8),
+             "depth": r.uniform(1, 60, shape + (1,)),
+             "dim": r.uniform(0.5, 4, shape + (3,)),
+             "wh": r.uniform(2, 60, shape + (2,)), "reg": r.rand(*shape, 2)}
+    heads = {k: torch.from_numpy(v.astype(np.float32))
+             for k, v in heads.items()}
+    ref = ddd_decode(**heads, k=100)
+    got = ddd_decode(**{k: v.to(cuda_device) for k, v in heads.items()},
+                     k=100)
+    assert got.device.type == "cuda" and got.shape == (1, 100, 18)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_exct_decode_on_card_matches_cpu(agnostic, cuda_device):
+    """exct_decode of seeded heats at the 512^2 output map (128^2, 80
+    classes, a flip-test batch of 2, K 40, offsets; the extreme-point
+    heats' values distinct, so that both top-k's pick the same points):
+    the 1000 kept scores equal the CPU's within 1e-6, and the rows above
+    the last kept score equal as a set (lattice cells tied at the cut may
+    be kept either way), within 1e-5."""
+    from codenet_torch.models.decode import exct_decode
+    r = np.random.RandomState(56 + agnostic)
+    num_hm = 1 if agnostic else 80
+    heats = [torch.from_numpy(_distinct(r, (2, 128, 128, num_hm)).astype(
+        np.float32)) for _ in range(4)]
+    heats.append(torch.from_numpy(r.rand(2, 128, 128, 80).astype(
+        np.float32)))
+    regrs = [torch.from_numpy(r.rand(2, 128, 128, 2).astype(np.float32))
+             for _ in range(4)]
+    ref = exct_decode(*heats, *regrs, k=40, agnostic=agnostic)
+    got = exct_decode(*(h.to(cuda_device) for h in heats),
+                      *(g.to(cuda_device) for g in regrs), k=40,
+                      agnostic=agnostic).cpu()
+    assert got.shape == (2, 1000, 14)
+    assert float((got[..., 4] - ref[..., 4]).abs().max()) <= 1e-6
+    for i in range(2):
+        cut = float(ref[i, -1, 4])
+        a = got[i][got[i, :, 4] > cut].numpy()
+        b = ref[i][ref[i, :, 4] > cut].numpy()
+        assert len(a) == len(b) > 0
+        a, b = a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])]
+        assert np.abs(a - b).max() <= 1e-5
+    if agnostic:
+        assert bool((ref[..., 4] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["ddd", "exdet"])
+def test_task_forward_on_card_matches_cpu(task, cuda_device):
+    """A ddd (3 classes, six heads, 96x320) and an exdet (nine heads, 80
+    classes, 128^2) model forward, batch 2: 3 forward launches on the
+    card, every head within 1e-3 of its max of the CPU's forward."""
+    from codenet_torch.models import create_model
+    if task == "ddd":
+        heads, hw = {"hm": 3, "dep": 1, "rot": 8, "dim": 3, "wh": 2,
+                     "reg": 2}, (96, 320)
+    else:
+        heads = {"hm_" + p: 80 for p in "tlbrc"}
+        heads.update({"reg_" + p: 2 for p in "tlbr"})
+        hw = (128, 128)
+    gen = torch.Generator().manual_seed(57)
+    cpu = create_model("shufflenetv2", heads, 64, device="cpu",
+                       generator=gen)
+    x = torch.randn(2, *hw, 3, generator=gen)
+    calibrate_bn(cpu, x.numpy())
+    card = create_model("shufflenetv2", heads, 64, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    before = DC.LAUNCHES
+    with torch.no_grad():
+        got = card(x.to(cuda_device))
+        torch.cuda.synchronize()
+        ref = cpu(x)
+    assert DC.LAUNCHES == before + 3
+    assert set(got) == set(heads)
+    for name in ref:
+        scale = float(ref[name].abs().max())
+        err = float((got[name].cpu() - ref[name]).abs().max())
+        assert err <= 1e-3 * scale, (name, err, scale)

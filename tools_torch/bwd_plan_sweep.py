@@ -2,6 +2,7 @@
 
     python tools_torch/bwd_plan_sweep.py [--batch 32] [--iters 50]
         [--shapes 32x32x58 16x16x116 ...]
+    python tools_torch/bwd_plan_sweep.py --kitti   # KITTI's maps, batch 16
 
 For each backward shape (H x W x C; by default `chip_smoke.py`'s), in f32
 and bf16, launches
@@ -33,6 +34,9 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=50)
     parser.add_argument("--shapes", nargs="+", default=None,
                         help="HxWxC maps (default: chip_smoke.BWD_SHAPES)")
+    parser.add_argument("--kitti", action="store_true",
+                        help="chip_smoke.KITTI_SHAPES (ddd at 384x1280) at "
+                        "its train batch, chip_smoke.KITTI_TRAIN_BATCH")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("bwd_plan_sweep.py needs a CUDA card; none is visible")
@@ -47,6 +51,8 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(cs.SEED)
     shapes = ([tuple(int(v) for v in sh.split("x")) for sh in args.shapes]
               if args.shapes else cs.BWD_SHAPES)
+    if args.kitti:
+        shapes, args.batch = cs.KITTI_SHAPES, cs.KITTI_TRAIN_BATCH
     for shape in shapes:
         h, w, c = shape
         for dtype in (torch.float32, torch.bfloat16):

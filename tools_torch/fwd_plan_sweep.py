@@ -2,6 +2,7 @@
 
     python tools_torch/fwd_plan_sweep.py [--batches 2 32] [--iters 100]
         [--shapes 32x32x58 16x16x116 ...]
+    python tools_torch/fwd_plan_sweep.py --kitti   # KITTI's maps, 1 and 16
 
 For each deform shape (H x W x C; by default the model's three,
 `chip_smoke.MODEL_SHAPES`), at each batch, in f32 and bf16, launches
@@ -61,6 +62,9 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=100)
     parser.add_argument("--shapes", nargs="+", default=None,
                         help="HxWxC maps (default: the model's three)")
+    parser.add_argument("--kitti", action="store_true",
+                        help="chip_smoke.KITTI_SHAPES (ddd at 384x1280) at "
+                        "its served batch (1) and train batch")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("fwd_plan_sweep.py needs a CUDA card; none is visible")
@@ -75,6 +79,9 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(cs.SEED)
     shapes = ([tuple(int(v) for v in sh.split("x")) for sh in args.shapes]
               if args.shapes else cs.MODEL_SHAPES)
+    if args.kitti:
+        shapes = cs.KITTI_SHAPES
+        args.batches = [1, cs.KITTI_TRAIN_BATCH]
     for shape in shapes:
         for n in args.batches:
             for dtype in (torch.float32, torch.bfloat16):
