@@ -171,6 +171,27 @@ BF16_HEAD_TOL = 3e-2
 BF16_LOSS_TOL, BF16_GRAD_TOL = 3e-2, 5e-2
 # the deform backbone's f32 heads card vs CPU
 BACKBONE_HEAD_TOL = 2e-3
+# CenterNet's other backbones on COCO ctdet at 512^2, each with its
+# per-card train batch: experiments/ctdet_coco_{resdcn18,dla_34,hg}.sh
+# split over their GPUs (res_18 as resdcn_18, dlav0_34 as dla_34)
+ARCHS = [("res_18", 32), ("resdcn_18", 32), ("dlav0_34", 16),
+         ("dla_34", 16), ("hourglass", 5)]
+# f32 heads card vs CPU (every stack's), each within this of its max
+ARCH_HEAD_TOL = 2e-3
+ARCH_TIMED_STEPS = 6
+# the BN whose ReLU feeds each arch's heads (they have no BN of their
+# own): conditioned_init leaves its bias at 0, so the heatmap logits stay
+# off the loss's clamp, and raises the others' by ARCH_BN_SHIFT. Raised
+# by 3 (BN_SHIFT), resdcn_18's step on an H100 was 5.2e-3 from the CPU's
+# (median tensor, 512^2), and tools_torch/step_conditioning.py --arch
+# resdcn_18 --batch 2 puts f32 6.6e-4 from f64 at 256^2; raised by 6,
+# 3.3e-6 at 256^2 and 2.1e-4 at 512^2 (hourglass 2.9e-4)
+ARCH_BN_SHIFT = 6.0
+HEAD_FEATURE_BNS = {"res_18": ("deconv_layers.7",),
+                    "resdcn_18": ("deconv_layers.16",),
+                    "dlav0_34": ("dla_up.ida_2.node_3.1",),
+                    "dla_34": ("ida_up.node_2.actf.0",),
+                    "hourglass": ("cnvs.0.bn", "cnvs.1.bn")}
 # bf16 QAT against f32 QAT from one start (the JAX package's
 # test_qat_bf16_matches_f32_numerics): losses relative, ranges rtol/atol
 QAT_BF16_LOSS_TOL, QAT_BF16_RANGE_TOL = 0.05, 5e-2
@@ -549,10 +570,12 @@ def build_served_model(device="cuda", deform_backbone=False,
 @torch.no_grad()
 def heads_card_vs_cpu(model, tol, launches, res=RES):
     """A `res`^2 (or (h, w) = `res`) batch-2 forward on the card (kernels)
-    vs on the CPU (plain) from the same weights: per head the shape, max |difference| and its
-    ratio to the head's max |value|, finiteness; ok when every head is
+    vs on the CPU (plain) from the same weights: per head (of every
+    stack) the shape, max |difference| and its ratio to the head's max
+    |value|, finiteness; ok when every head is
     finite and within `tol` and the card's forward launched the forward
     kernel `launches` times."""
+    from codenet_torch.engine.trainer import stacks
     from codenet_torch.ops import deform_cuda as DC
     gen = torch.Generator().manual_seed(SEED + 1)
     images = torch.randn(2, *_hw(res), 3, generator=gen)
@@ -564,8 +587,13 @@ def heads_card_vs_cpu(model, tol, launches, res=RES):
     ref = cpu_model(images)
     heads = {}
     ok = launched == launches
-    for name, r in ref.items():
-        o = out[name].cpu()
+    # hourglass: every stack's heads, named hm0, hm1, ...
+    pairs = [(head + (str(i) if isinstance(ref, list) else ""), r,
+              o_dict[head].cpu())
+             for i, (r_dict, o_dict) in enumerate(zip(stacks(ref),
+                                                      stacks(out)))
+             for head, r in r_dict.items()]
+    for name, r, o in pairs:
         scale = float(r.abs().max())
         err = float((o - r).abs().max())
         heads[name] = {"shape": list(o.shape), "max_abs_err": err,
@@ -709,16 +737,19 @@ class SmokeData:
             FRAMES[img_dir, img["id"]] = f
         serve_frames_from_memory()
 
-    def args(self, batch, *extra):
-        return [self.task, "--dataset", self.name, "--arch", "shufflenetv2",
+    def args(self, batch, *extra, arch="shufflenetv2"):
+        """CLI arguments; arch None leaves --arch out (the CLIs' default,
+        dla_34)."""
+        return [self.task, "--dataset", self.name,
+                *(["--arch", arch] if arch else []),
                 "--input_res", str(self.res), "--batch_size", str(batch),
                 "--num_workers", "8", "--data_dir", str(self.data_dir),
                 *extra]
 
-    def opt(self, batch, *extra):
+    def opt(self, batch, *extra, arch="shufflenetv2"):
         from codenet_torch import config as cfg
         return cfg.update_dataset_info_and_set_heads(
-            cfg.parse(self.args(batch, *extra)),
+            cfg.parse(self.args(batch, *extra, arch=arch)),
             cfg.DATASET_SPECS[self.name])
 
     def dataset(self, opt, split="train"):
@@ -903,8 +934,8 @@ class KittiSmokeData(SmokeData):
             (label_dir / "{:06d}.txt".format(img["id"])).write_text(text)
         serve_frames_from_memory()
 
-    def args(self, batch, *extra):
-        return [self.task, "--dataset", self.name, "--arch", "shufflenetv2",
+    def args(self, batch, *extra, arch="shufflenetv2"):
+        return [self.task, "--dataset", self.name, "--arch", arch,
                 "--batch_size", str(batch), "--num_workers", "8",
                 "--data_dir", str(self.data_dir), *extra]
 
@@ -917,11 +948,14 @@ def grads_vs(model, ref_model):
     tensors (scale predictor, deform weight, mixer) one by one."""
     num = den = 0.0
     per = {}
-    ref = {n: p.grad.detach().double().cpu()
-           for n, p in ref_model.named_parameters()}
+    def grad(p):  # a parameter nothing reads (a DLA tree's projection
+        # above its subtrees) has none: 0, as the JAX package's
+        return (torch.zeros_like(p) if p.grad is None
+                else p.grad).detach().double().cpu()
+    ref = {n: grad(p) for n, p in ref_model.named_parameters()}
     gmax = max(float(g.abs().max()) for g in ref.values())
     for name, p in model.named_parameters():
-        a = p.grad.detach().double().cpu()
+        a = grad(p)
         b = ref[name]
         num += float(((a - b) ** 2).sum())
         den += float((b ** 2).sum())
@@ -937,7 +971,8 @@ def grads_vs(model, ref_model):
 
 def conditioned_init(opt, deform_backbone=False):
     """The port's seeded init (s == 1 in every deform block) with every BN
-    bias raised by BN_SHIFT but those before the heads' last convs.
+    bias raised by BN_SHIFT (ARCH_BN_SHIFT in the other archs) but those
+    before the heads' last convs.
 
     At the init's zero biases a random network this deep with train-mode
     BN is chaotic in f32, so two correct devices disagree as much as f32
@@ -949,16 +984,19 @@ def conditioned_init(opt, deform_backbone=False):
     what stays ill-conditioned are a few BN biases whose gradients nearly
     cancel (the worst 5.5% of its own small max). The BNs before the
     heads' last convs keep their biases, so the heatmap logits stay off
-    the loss's sigmoid clamp."""
+    the loss's sigmoid clamp; in the other archs, whose heads have no
+    BN, the BN whose ReLU feeds the heads (HEAD_FEATURE_BNS)."""
     from codenet_torch.models import create_model
     model = create_model(opt.arch, opt.heads, opt.head_conv, device="cpu",
                          deform_backbone=deform_backbone,
                          generator=torch.Generator().manual_seed(opt.seed))
-    keep = {head + ".4" for head in opt.heads}
+    keep = {head + ".4" for head in opt.heads} \
+        | set(HEAD_FEATURE_BNS.get(opt.arch, ()))
+    shift = ARCH_BN_SHIFT if opt.arch in HEAD_FEATURE_BNS else BN_SHIFT
     with torch.no_grad():
         for name, m in model.named_modules():
             if isinstance(m, torch.nn.BatchNorm2d) and name not in keep:
-                m.bias.add_(BN_SHIFT)
+                m.bias.add_(shift)
     return model.state_dict()
 
 
@@ -2463,6 +2501,237 @@ def phase_exdet(data):
     return launches
 
 
+@torch.no_grad()
+def build_arch_model(arch, device="cuda", res=COCO_RES):
+    """One of CenterNet's other backbones at its published widths with
+    the 80 COCO heads, random but not degenerate: every DCNv2's offset
+    predictor redrawn (offsets of about a pixel, the mask off 0.5), BN
+    running stats from a random batch (each channel's variance at least
+    twice its layer's mean), BN scales and biases perturbed."""
+    from codenet_torch.models import create_model
+    gen = torch.Generator().manual_seed(SEED + 21)
+    model = create_model(arch, COCO_HEADS, 256 if "dla" in arch else 64,
+                         device=device, generator=gen)
+    for m in model.modules():
+        if hasattr(m, "conv_offset_mask"):
+            w, b = m.conv_offset_mask.weight, m.conv_offset_mask.bias
+            w.copy_(torch.randn(w.shape, generator=gen)
+                    / w[0].numel() ** 0.5)
+            b.copy_(torch.randn(b.shape, generator=gen))
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    model.train()
+    model(torch.randn(2, *_hw(res), 3, generator=gen).to(device))
+    for m in bns:
+        m.momentum = 0.1
+        m.running_var.clamp_(min=2.0 * float(m.running_var.mean()))
+        m.weight.mul_(torch.rand(m.weight.shape, generator=gen).to(device)
+                      + 0.5)
+        m.bias.add_(torch.randn(m.bias.shape, generator=gen).to(device)
+                    * 0.1)
+    return model.eval()
+
+
+def arch_step_parity(data, arch):
+    """One FP32 train step at TASK_STEP_BATCH on the card and on the CPU
+    from conditioned_init: the loss and the gradients (relative L2 over
+    all, the median tensor) within STEP_TOL; no deform kernel launched."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.ops import deform_cuda as DC
+    opt = data.opt(TASK_STEP_BATCH, arch=arch)
+    batch = next(iter(DataLoader(data.dataset(opt), TASK_STEP_BATCH,
+                                 shuffle=True, num_workers=4, seed=1)))
+    state = conditioned_init(opt)
+    card, cpu = (Trainer(opt, device=dev) for dev in ("cuda", "cpu"))
+    for trainer in (card, cpu):
+        trainer.model.load_state_dict(state)
+        trainer.init()
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    got = card.train_step(batch_to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    launches = [DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]]
+    ref = cpu.train_step(batch_to_device(batch, "cpu"))
+    err = grads_vs(card.model, cpu.model)
+    del err["deform_tensor_rel"]
+    out = {"batch": TASK_STEP_BATCH, "loss_card": float(got["loss"]),
+           "loss_cpu": float(ref["loss"]),
+           "loss_rel": abs(float(got["loss"]) - float(ref["loss"]))
+           / abs(float(ref["loss"])), "launches_fwd_bwd": launches,
+           "tol": STEP_TOL, **err}
+    return out, (launches == [0, 0] and out["loss_rel"] <= STEP_TOL
+                 and err["grad_rel_l2"] <= STEP_TOL
+                 and err["grad_tensor_rel_median"] <= STEP_TOL)
+
+
+def dcn_op_times(model, images, step_ms, iters=5):
+    """The plain DCNv2 op (ops/deform_conv.py::deform_conv2d, no kernel of
+    ours) of every ModulatedDeformConvPack in `model`, at the maps one
+    forward of `images` gives it: per distinct (N, H, W, Cin, Cout) the
+    calls, the ms of one forward and of one forward + backward (CUDA
+    events, `iters` after a warm-up), and their sum over one train step
+    beside `step_ms`."""
+    from codenet_torch.models.deform_modules import ModulatedDeformConvPack
+    from codenet_torch.ops.deform_conv import deform_conv2d
+    shapes = {}
+
+    def record(mod, inp, out):
+        n, c, h, w = inp[0].shape
+        key = (n, h, w, c, mod.weight.shape[0])
+        shapes[key] = shapes.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, ModulatedDeformConvPack)]
+    with torch.no_grad():
+        model(images)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rows, step_sum = [], 0.0
+    for (n, h, w, c, cout), calls in sorted(shapes.items()):
+        x = torch.randn(n, h, w, c, generator=gen).cuda().requires_grad_()
+        off = (torch.rand(n, h, w, 18, generator=gen) * 2 - 1).cuda() \
+            .requires_grad_()
+        mask = torch.rand(n, h, w, 9, generator=gen).cuda().requires_grad_()
+        wt = (torch.randn(3, 3, c, cout, generator=gen) * 0.05).cuda() \
+            .requires_grad_()
+        g = torch.randn(n, h, w, cout, generator=gen).cuda()
+
+        def fwd():
+            return deform_conv2d(x, off, wt, mask=mask)
+
+        def fwd_bwd():
+            fwd().backward(g)
+
+        times = {}
+        for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+            with torch.no_grad() if name == "fwd" else \
+                    contextlib.nullcontext():
+                times[name] = cuda_time_ms(fn, iters, warmup=2)
+        step_sum += calls * times["fwd_bwd"]
+        rows.append({"shape_nhwc_cout": [n, h, w, c, cout], "calls": calls,
+                     "ms_fwd": times["fwd"], "ms_fwd_bwd": times["fwd_bwd"]})
+        del x, off, mask, wt, g
+    torch.cuda.empty_cache()
+    return {"maps": rows, "ms_per_step": step_sum,
+            "share_of_step": step_sum / step_ms}
+
+
+def phase_backbones(data):
+    """CenterNet's other backbones (ARCHS) on COCO ctdet at COCO_RES^2,
+    80 classes, FP32, none of which runs a deform kernel of ours. Per
+    arch: a batch-2 forward card vs CPU (every stack's heads within
+    ARCH_HEAD_TOL); a train step card vs CPU at batch 2 (arch_step_parity);
+    ARCH_TIMED_STEPS timed steps at the arch's per-card batch with img/s
+    and peak memory; 8 flip-test requests with their stage timers; for
+    the DCNv2 archs the plain op's time at their maps (dcn_op_times);
+    and the deform kernels' launch counts, which must stay 0. Then
+    cli.main (2 steps, its final eval) -> cli.test --flip_test (12 bbox
+    stats) for dla_34 with no --arch (the CLIs' default) and hourglass."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    topt = data.opt(max(b for _, b in ARCHS), arch="res_18")
+    loader = DataLoader(data.dataset(topt), topt.batch_size, shuffle=True,
+                        num_workers=topt.num_workers, seed=topt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < ARCH_TIMED_STEPS:
+        batches.extend(loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    rows = {}
+    for arch, batch in ARCHS:
+        row = {"batch": batch}
+        model = build_arch_model(arch)
+        row["heads_card_vs_cpu"], ok = heads_card_vs_cpu(
+            model, ARCH_HEAD_TOL, 0, res=COCO_RES)
+        if not ok:
+            fail.append(arch + " heads")
+        row["train_parity"], ok = arch_step_parity(data, arch)
+        if not ok:
+            fail.append(arch + " train parity")
+        opt = data.opt(batch, arch=arch)
+        trainer = Trainer(opt, device="cuda")
+        trainer.init()
+        torch.cuda.reset_peak_memory_stats()
+        run = timed_steps(trainer, [
+            {k: v[:batch] for k, v in b.items() if k != "meta"}
+            for b in batches[:ARCH_TIMED_STEPS]])
+        run["max_memory_allocated_mb"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 20
+        row["train"] = run
+        if not np.all(np.isfinite(run["losses"])) or any(
+                st != [0, 0] for st in run["launches_per_step"]):
+            fail.append(arch + " train")
+        if arch in ("resdcn_18", "dla_34"):
+            images = torch.randn(batch, COCO_RES, COCO_RES, 3).cuda()
+            row["dcn_op"] = dcn_op_times(
+                trainer.model, images, run["ms_per_step_steady_median"])
+            del images
+        del trainer
+        det = CtdetDetector(data.opt(1, "--flip_test", arch=arch),
+                            state_dict=model.state_dict(), device="cuda")
+        val = data.dataset(det.opt, "val")
+        requests = []
+        for i in range(len(val)):
+            ret = det.run(val.load_image(i))
+            requests.append(dict(_ms(ret), dets=int(sum(
+                len(v) for v in ret["results"].values()))))
+        row["requests_ms"] = requests
+        if len(requests) != 8 or any(r["dets"] == 0 for r in requests):
+            fail.append(arch + " served")
+        del det, model
+        torch.cuda.empty_cache()
+        rows[arch] = row
+    out = {"phase": "backbones", "res": COCO_RES,
+           "loader_ms_per_batch": loader_ms,
+           "loader_batch": topt.batch_size, "archs": rows, "cli": {}}
+    del batches
+    for arch in ("dla_34", "hourglass"):
+        batch = dict(ARCHS)[arch]
+        flag = None if arch == "dla_34" else arch  # dla_34: no --arch
+        exp_id = "chip_smoke_cli_" + arch
+        text, seconds = _cli_log(cli_main.main, data.args(
+            batch, "--num_epochs", "1", "--num_iters", "2",
+            "--val_intervals", "-1", "--print_iter", "1", "--exp_id",
+            exp_id, arch=flag))
+        losses = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in _lines_with(text, "train epoch")]
+        path = ROOT / "exp" / "ctdet" / exp_id / "model_last.pth"
+        keys = torch.load(path, map_location="cpu",
+                          weights_only=True)["state_dict"]
+        final = _stats_lines(text)
+        text2, seconds2 = _cli_log(cli_test.main, data.args(
+            1, "--flip_test", "--load_model", str(path), "--exp_id",
+            exp_id + "_test", arch=flag))
+        stats = _stats_lines(text2)
+        out["cli"][arch] = {
+            "arch_flag": flag, "main_seconds": seconds, "losses": losses,
+            "final_eval_stats": len(final), "test_seconds": seconds2,
+            "stats": stats,
+            "dla_up_path": "ida_up.node_2.conv.weight" in keys}
+        if (len(losses) != 2 or not np.all(np.isfinite(losses))
+                or len(final) != 12 or len(stats) != 12
+                or (arch == "dla_34") != ("ida_up.node_2.conv.weight"
+                                          in keys)):
+            fail.append("cli " + arch)
+    out["launches_fwd_bwd"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    if out["launches_fwd_bwd"] != [0, 0]:
+        fail.append("deform kernel launched")
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("backbones check failed: {}".format(fail))
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -2533,6 +2802,7 @@ def main(argv=None):
     pose = phase_multi_pose(CocoSmokeData("multi_pose"))
     ddd = phase_ddd(KittiSmokeData(), rows, bwd_rows)
     exdet = phase_exdet(CocoSmokeData("exdet"))
+    phase_backbones(CocoSmokeData("ctdet"))
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()

@@ -116,9 +116,10 @@ def run_training(opt, qspec=None):
             print("Drop LR to", lr)
             trainer.set_lr(lr)
 
-    # the final eval runs for ctdet only, as in the JAX package; unlike
-    # there, an eval that fails raises
-    if opt.task == "ctdet" and opt.num_epochs > start_epoch:
+    # the final eval runs for ctdet only, as in the JAX package, also
+    # after a --resume at the last epoch; unlike there, an eval that
+    # fails raises
+    if opt.task == "ctdet" and opt.num_epochs > 0:
         from .test import prefetch_test
         last = "model_{}.pth".format(opt.num_epochs) if opt.save_all \
             else "model_last.pth"

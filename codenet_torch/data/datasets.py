@@ -5,8 +5,11 @@ Reference lib/datasets/dataset/{pascal,coco,kitti,coco_hp}.py on top of
 the self-contained CocoIndex and the in-process VOC, COCO and KITTI
 evaluators (eval/), composed with the task's training sampler
 (data/samplers.py) as the reference's dataset factory does: ctdet on
-pascal or coco, ddd on kitti, multi_pose on coco_hp, exdet on coco (its
-instances_extreme_*.json). Any other pairing raises.
+any of the four datasets, ddd on kitti, multi_pose on coco_hp, exdet on
+coco (its instances_extreme_*.json). Any other pairing raises: the JAX
+package composes it too, but its sampler fails on the first sample (ddd
+needs each annotation's alpha, multi_pose the dataset's joints, exdet
+the extreme points).
 """
 
 from __future__ import annotations
@@ -291,7 +294,7 @@ DATASET_FACTORY = {
 
 # the datasets each task's sampler serves (reference dataset_factory.py)
 SAMPLE_FACTORY = {
-    "ctdet": (CTDetSampler, ("pascal", "coco")),
+    "ctdet": (CTDetSampler, ("pascal", "coco", "kitti", "coco_hp")),
     "ddd": (DddSampler, ("kitti",)),
     "multi_pose": (MultiPoseSampler, ("coco_hp",)),
     "exdet": (ExdetSampler, ("coco",)),
@@ -304,7 +307,7 @@ def get_dataset(dataset, task):
     sampler, datasets = SAMPLE_FACTORY.get(task, (None, ()))
     if dataset not in datasets:
         raise NotImplementedError(
-            "codenet_torch serves ctdet on pascal and coco, ddd on kitti, "
+            "codenet_torch serves ctdet on every dataset, ddd on kitti, "
             "multi_pose on coco_hp and exdet on coco; not {} on {}"
             .format(task, dataset))
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import pickle
+import re
 
 import torch
 
@@ -72,6 +73,20 @@ def _read_pth(path):
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+_GROUPED_UP = re.compile(r"(^|\.)up_\d+\.weight$")
+
+
+def _shared_up_plane(key, value):
+    """A reference DLA checkpoint's grouped up kernel (C, 1, 2f, 2f) ->
+    channel 0's plane (1, 1, 2f, 2f): the port, like the JAX package,
+    shares one plane across the channels (the JAX package's
+    convert_dlav0 keeps channel 0's too)."""
+    if _GROUPED_UP.search(key) and value.dim() == 4 \
+            and value.shape[1] == 1 and value.shape[0] > 1:
+        return value[:1]
+    return value
+
+
 def read_checkpoint(path):
     """(epoch, state_dict in the reference layout) from a .ckpt or .pth."""
     if path.endswith((".pth", ".pt")):
@@ -79,8 +94,8 @@ def read_checkpoint(path):
         sd = payload.get("state_dict", payload)
         epoch = int(payload.get("epoch", 0)) if "state_dict" in payload \
             else 0
-        sd = {k[7:] if k.startswith("module.") else k: v
-              for k, v in sd.items()}
+        sd = {k[7:] if k.startswith("module.") else k:
+              _shared_up_plane(k, v) for k, v in sd.items()}
         return epoch, sd
     epoch, variables = read_jax_ckpt(path)
     return epoch, from_jax_variables(variables)

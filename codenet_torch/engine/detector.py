@@ -124,8 +124,22 @@ def device_from_opt(opt):
     return "cpu" if opt.gpus[0] < 0 else "cuda"
 
 
+def check_unported_eval_flags(opt):
+    """--debug rendering and --trace are not ported (ROADMAP.md items 22
+    and 23): raise rather than run as if they were not set."""
+    unported = []
+    if getattr(opt, "debug", 0) >= 1:
+        unported.append("--debug")
+    if getattr(opt, "trace", False):
+        unported.append("--trace")
+    if unported:
+        raise NotImplementedError(
+            "{} queued in ROADMAP.md".format(", ".join(unported)))
+
+
 class BaseDetector:
     def __init__(self, opt, state_dict=None, device=None):
+        check_unported_eval_flags(opt)
         self.opt = opt
         if opt.w4a8_artifact and not (opt.resume_quantize
                                       and opt.int8_infer):
@@ -207,6 +221,12 @@ class BaseDetector:
                 "trans_inv": trans_inv}
         return images, meta
 
+    def _forward(self, images):
+        """The model's heads; of a multi-stack model (hourglass) the last
+        stack's, as the JAX package's fused_heads.eval_forward returns."""
+        out = self.model(images)
+        return out[-1] if isinstance(out, (list, tuple)) else out
+
     def _to_device(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(
             self.device)
@@ -274,7 +294,7 @@ class CtdetDetector(BaseDetector):
 
     def _heads(self, images):
         """Forward + sigmoid (+ flip-test average of the two halves)."""
-        output = self.model(eval_input(images, self.mean, self.std))
+        output = self._forward(eval_input(images, self.mean, self.std))
         hm = output["hm"].sigmoid()
         wh = output["wh"]
         reg = output["reg"] if self.opt.reg_offset else None
@@ -439,7 +459,7 @@ class MultiPoseDetector(BaseDetector):
         """Forward + sigmoid (+ flip-test average of the two halves, the
         flipped half's joints swapped back)."""
         opt = self.opt
-        output = self.model(eval_input(images, self.mean, self.std))
+        output = self._forward(eval_input(images, self.mean, self.std))
         hm = output["hm"].sigmoid()
         hm_hp = output["hm_hp"] if opt.hm_hp else None
         if hm_hp is not None and not opt.mse_loss:
@@ -538,8 +558,8 @@ class DddDetector(BaseDetector):
         on the device (and, with return_time, the host time at which the
         forward finished)."""
         opt = self.opt
-        output = self.model(eval_input(self._to_device(images), self.mean,
-                                       self.std))
+        output = self._forward(eval_input(self._to_device(images),
+                                          self.mean, self.std))
         hm = output["hm"].sigmoid()
         dep = 1.0 / (output["dep"].sigmoid() + 1e-6) - 1.0
         self._sync()
@@ -579,8 +599,8 @@ class ExdetDetector(BaseDetector):
         the device (and, with return_time, the host time at which the
         forward finished)."""
         opt = self.opt
-        output = self.model(eval_input(self._to_device(images), self.mean,
-                                       self.std))
+        output = self._forward(eval_input(self._to_device(images),
+                                          self.mean, self.std))
         heats = [output["hm_" + p].sigmoid() for p in "tlbrc"]
         regrs = [output["reg_" + p] if opt.reg_offset else None
                  for p in "tlbr"]

@@ -65,6 +65,12 @@ def batch_size_of(batch):
     return batch[key].shape[0]
 
 
+def stacks(out):
+    """The model's head dicts as a list, one per stack: hourglass returns
+    its two stacks' dicts, the other networks one dict."""
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
 def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
                     std, down_ratio=4, num_classes=None, input_hw=None):
     """step(batch on the device) -> stats {name: 0-dim tensor}, after one
@@ -80,7 +86,7 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
             out = model(inp, update_stats=True)
         else:
             out = model(inp)
-        loss, stats = loss_fn([out], batch, loss_opts)
+        loss, stats = loss_fn(stacks(out), batch, loss_opts)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()
@@ -97,7 +103,7 @@ def make_val_step(model, loss_fn, loss_opts, mean, std, down_ratio=4,
         inp = model_input(batch, mean, std, input_hw,
                           batch.get("cache_images"))
         batch = resolve_targets(batch, inp, down_ratio, num_classes)
-        _, stats = loss_fn([model(inp)], batch, loss_opts)
+        _, stats = loss_fn(stacks(model(inp)), batch, loss_opts)
         return {k: torch.as_tensor(v) for k, v in stats.items()}
 
     return step

@@ -120,6 +120,45 @@ def deform_weight_init_(weight, in_channels, generator):
     return weight.uniform_(-bound, bound, generator=generator)
 
 
+@torch.no_grad()
+def normal_init_(weight, std, generator):
+    """normal(0, std): the JAX package's head and deconv inits."""
+    return weight.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def msra_init_(weight, generator):
+    """DLA's init, normal(0, sqrt(2/fan_out)), fan_out = kh * kw * Cout
+    (the JAX package's dlav0.py::_msra_init)."""
+    n = weight.shape[0] * weight.shape[2] * weight.shape[3]
+    return weight.normal_(0.0, math.sqrt(2.0 / n), generator=generator)
+
+
+def pose_head(cin, head_conv, classes):
+    """A CenterNet head of the resnet, dla and dlav0 networks: 3x3 conv +
+    ReLU + 1x1 conv to classes (``{head}.0``, ``{head}.2``), or one 1x1
+    conv (``{head}``) when head_conv is 0."""
+    if head_conv > 0:
+        return nn.Sequential(conv(cin, head_conv, 3, 1, 1, bias=True),
+                             nn.ReLU(inplace=True),
+                             conv(head_conv, classes, bias=True))
+    return conv(cin, classes, bias=True)
+
+
+@torch.no_grad()
+def reset_pose_head(head, name, generator, conv1_init, out_init):
+    """Init a `pose_head`: its convs with `conv1_init` / `out_init`
+    (callables (weight, generator)), biases 0 but the heatmap's -2.19;
+    a one-conv head takes `conv1_init`."""
+    convs = [head[0], head[2]] if isinstance(head, nn.Sequential) \
+        else [head]
+    inits = [conv1_init, out_init] if len(convs) == 2 else [conv1_init]
+    for m, init in zip(convs, inits):
+        init(m.weight, generator)
+        m.bias.zero_()
+    convs[-1].bias.fill_(-2.19 if "hm" in name else 0.0)
+
+
 def conv(cin, cout, kernel_size=1, stride=1, padding=0, groups=1,
          bias=False):
     return nn.Conv2d(cin, cout, kernel_size, stride, padding, groups=groups,

@@ -12,7 +12,10 @@ The co-designed CoDeNet variant (reference modules/dcn_deform_conv.py:
 285-330) constrains every tap offset to `anchor * (s - 1)` for one scalar
 s per position, so tap (i, j) samples `p + (i, j) * s` at dilation 1.
 `codesign_deform_conv` is that op at any stride; its stride-1 depthwise
-form has a CUDA kernel in `deform_cuda.py`.
+form has a CUDA kernel in `deform_cuda.py`. `deform_conv2d` is the
+general op (groups, deformable groups, the DCNv2 mask) of the resdcn and
+dla networks; in the JAX package it is XLA code, not a Pallas kernel, and
+here it is plain PyTorch on the same two pieces.
 """
 
 from __future__ import annotations
@@ -108,6 +111,36 @@ def _contract(cols, weight, groups):
     wg = wf.reshape(k, cpg, groups, opg)
     out = torch.einsum("nhwkgc,kcgo->nhwgo", colsg, wg)
     return out.reshape(n, ho, wo, cout)
+
+
+def deform_conv2d(x, offset, weight, stride=1, padding=1, dilation=1,
+                  groups=1, deformable_groups=1, mask=None):
+    """General deformable convolution (DCNv1, and DCNv2 with `mask`), the
+    JAX package's ops/deform_conv.py:138-172; autograd differentiates it.
+
+    x: (N, H, W, C); offset: (N, Ho, Wo, dg*2*K) in the reference channel
+    layout [tap0_dy, tap0_dx, tap1_dy, ...] per deformable group; weight:
+    HWIO (kh, kw, C//groups, Cout); mask: None or (N, Ho, Wo, dg*K), which
+    multiplies each group's sampled columns. Returns (N, Ho, Wo, Cout).
+    """
+    kh, kw = weight.shape[0], weight.shape[1]
+    k = kh * kw
+    n, ho, wo, oc = offset.shape
+    dg = deformable_groups
+    if oc != dg * 2 * k:
+        raise ValueError("offset channels {} != {}".format(oc, dg * 2 * k))
+    offs = offset.reshape(n, ho, wo, dg, k, 2)
+    cpdg = x.shape[-1] // dg
+    cols = []
+    for g in range(dg):
+        xg = x[..., g * cpdg:(g + 1) * cpdg] if dg > 1 else x
+        col = deform_sample(xg, offs[:, :, :, g], (kh, kw), stride, padding,
+                            dilation)
+        if mask is not None:
+            col = col * mask.reshape(n, ho, wo, dg, k)[:, :, :, g, :, None]
+        cols.append(col)
+    cols = cols[0] if dg == 1 else torch.cat(cols, dim=-1)
+    return _contract(cols, weight.to(cols.dtype), groups)
 
 
 def codesign_deform_conv(x, s, weight, stride=1, padding=1, dilation=1,

@@ -119,16 +119,19 @@ def test_dataset_metadata_matches_jax():
                                           ("coco_hp", "multi_pose"),
                                           ("kitti", "ddd"),
                                           ("coco", "exdet"),
-                                          ("coco_hp", "ctdet")])
+                                          ("coco_hp", "ctdet"),
+                                          ("pascal", "exdet")])
 def test_get_dataset(dataset, task):
-    """The five served (dataset, task) pairs compose (kitti / ddd and coco
-    / exdet among them); any other pair raises and names itself."""
-    if (dataset, task) in (("coco", "ctdet"), ("pascal", "ctdet"),
-                           ("coco_hp", "multi_pose"), ("kitti", "ddd"),
-                           ("coco", "exdet")):
+    """The served (dataset, task) pairs compose (ctdet on every dataset,
+    kitti / ddd and coco / exdet among them); any other pair raises and
+    names itself (test_torch_faults.py holds each against the JAX
+    package's composition)."""
+    if task == "ctdet" or (dataset, task) in (
+            ("coco_hp", "multi_pose"), ("kitti", "ddd"), ("coco", "exdet")):
         cls = TD.get_dataset(dataset, task)
         assert issubclass(cls, TD.DATASET_FACTORY[dataset])
         assert hasattr(cls, "get_sample")
         return
-    with pytest.raises(NotImplementedError, match="not ctdet on coco_hp"):
+    with pytest.raises(NotImplementedError,
+                       match="not {} on {}".format(task, dataset)):
         TD.get_dataset(dataset, task)

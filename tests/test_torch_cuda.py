@@ -676,3 +676,69 @@ def test_task_forward_on_card_matches_cpu(task, cuda_device):
         scale = float(ref[name].abs().max())
         err = float((got[name].cpu() - ref[name]).abs().max())
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,dg,masked", [(1, 1, True), (2, 2, True),
+                                              (1, 2, False)])
+def test_deform_conv2d_on_card_matches_cpu(groups, dg, masked, cuda_device):
+    """The general deformable conv (plain PyTorch, no kernel of ours) on
+    the card against the CPU, forward and gradients of x, offset, weight
+    and mask, 1e-4 of each one's max; it launches no deform kernel."""
+    from codenet_torch.ops.deform_conv import deform_conv2d
+    r = np.random.RandomState(60 + groups + dg)
+    ins = [r.randn(2, 16, 16, 32), r.uniform(-3, 3, (2, 16, 16, dg * 18)),
+           r.randn(3, 3, 32 // groups, 24) * 0.1]
+    if masked:
+        ins.append(r.rand(2, 16, 16, dg * 9))
+    cot = torch.from_numpy(r.randn(2, 16, 16, 24).astype(np.float32))
+    res = []
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    for dev in (cuda_device, "cpu"):
+        t = [torch.from_numpy(a.astype(np.float32)).to(dev).requires_grad_()
+             for a in ins]
+        y = deform_conv2d(t[0], t[1], t[2], groups=groups,
+                          deformable_groups=dg,
+                          mask=t[3] if masked else None)
+        (y * cot.to(dev)).sum().backward()
+        res.append([y.detach().cpu()] + [a.grad.cpu() for a in t])
+    assert (DC.LAUNCHES, DC.BWD_LAUNCHES) == before
+    for got, ref in zip(*res):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["res_18", "resdcn_18", "dlav0_34",
+                                  "dla_34", "hourglass"])
+def test_arch_heads_on_card_match_cpu(arch, cuda_device):
+    """Each other backbone (COCO's 80 classes) at 128^2, batch 2: every
+    head (both hourglass stacks) within 2e-3 of its max of the CPU's
+    forward from the same weights (BN calibrated, DCNv2 offsets of about
+    a pixel), and no deform kernel launched."""
+    from test_torch_common import randomize_dcn_offsets
+    from codenet_torch.models import create_model
+    heads = {"hm": 80, "wh": 2, "reg": 2}
+    head_conv = 256 if "dla" in arch else 64
+    gen = torch.Generator().manual_seed(61)
+    cpu = create_model(arch, heads, head_conv, device="cpu", generator=gen)
+    randomize_dcn_offsets(cpu, 62)
+    x = torch.randn(2, 128, 128, 3, generator=gen)
+    calibrate_bn(cpu, x.numpy())
+    card = create_model(arch, heads, head_conv, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    with torch.no_grad():
+        got = card(x.to(cuda_device))
+        torch.cuda.synchronize()
+        ref = cpu(x)
+    assert (DC.LAUNCHES, DC.BWD_LAUNCHES) == before
+    got = got if isinstance(got, list) else [got]
+    ref = ref if isinstance(ref, list) else [ref]
+    assert len(got) == len(ref) == (2 if arch == "hourglass" else 1)
+    for g, r in zip(got, ref):
+        for name in r:
+            scale = float(r[name].abs().max())
+            err = float((g[name].cpu() - r[name]).abs().max())
+            assert err <= 2e-3 * scale, (arch, name, err, scale)

@@ -91,18 +91,18 @@ def test_init_is_seeded_and_matches_jax_rules():
                                     dict(deform_backbone=True),
                                     dict(dtype="bfloat16")])
 def test_unported_options_raise(kwargs):
-    """Unported arches raise (ROADMAP.md item 19). The deform backbone
-    and the bf16 model, ported since, keep their case ids and check
-    instead that a forward runs: finite f32 heads of the right shape
-    (tests/test_torch_deform_backbone.py and test_torch_bf16.py hold them
-    against the JAX package)."""
+    """Options once unported: the res_18 arch, the deform backbone and
+    the bf16 model, ported since, keep their case ids and check that a
+    forward runs: finite f32 heads of the right shape
+    (tests/test_torch_resnet.py, test_torch_deform_backbone.py and
+    test_torch_bf16.py hold them against the JAX package); an arch the
+    JAX package does not have either raises."""
     args = dict(arch="shufflenetv2", heads=HEADS, head_conv=64,
                 device="cpu")
     args.update(kwargs)
     if "arch" in kwargs:
-        with pytest.raises(NotImplementedError):
-            create_model(**args)
-        return
+        with pytest.raises(ValueError, match="unknown arch"):
+            create_model(**dict(args, arch="mobilenet_2"))
     with torch.no_grad():
         out = create_model(**args)(torch.zeros(1, 64, 64, 3))
     for name, classes in HEADS.items():

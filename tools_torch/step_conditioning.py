@@ -1,6 +1,7 @@
 """How well conditioned one FP32 train step of the port is, on the CPU.
 
     python tools_torch/step_conditioning.py [--res 256] [--batch 4]
+        [--arch resdcn_18 [--shift 6]]
 
 Takes one train step of the full ShuffleNetV2-DCN 1x model (train-mode BN)
 in f32 and in f64 on the same batch of `chip_smoke.py`'s synthetic frames,
@@ -9,7 +10,10 @@ from two starts: the port's seeded init, and `chip_smoke.py`'s
 JSON line per start: the loss in both precisions, the relative L2 error of
 all f32 gradients against the f64 ones, and each tensor's error relative
 to its max (floored at 1e-5 of the largest gradient): the median, the
-worst, and the worst of the deform blocks' tensors.
+worst, and the worst of the deform blocks' tensors. With --arch, one of
+the other backbones on the COCO frames (ctdet, 80 classes), its
+conditioned start raising the BN biases by --shift (default
+chip_smoke.ARCH_BN_SHIFT).
 
 Two correct devices that each round in f32 can disagree by about as much
 as f32 does from f64, so this says what tolerance a parity check of the
@@ -40,9 +44,13 @@ def step_grads(model, trainer, batch, dtype):
                         trainer.opt.num_classes)
     b = {k: b[k].to(dtype) for k in ("hm", "wh", "reg")} | {
         "ind": b["ind"], "reg_mask": b["reg_mask"]}
-    loss, _ = trainer.loss_fn([model(inp.to(dtype))], b, trainer.loss_opts)
+    out = model(inp.to(dtype))
+    loss, _ = trainer.loss_fn(out if isinstance(out, list) else [out], b,
+                              trainer.loss_opts)
     loss.backward()
-    return float(loss), {n: p.grad.double()
+    # a parameter nothing reads (a DLA tree's top projection) has none
+    return float(loss), {n: (torch.zeros_like(p) if p.grad is None
+                             else p.grad).double()
                          for n, p in model.named_parameters()}
 
 
@@ -57,21 +65,30 @@ def compare(g32, g64, deform_prefixes):
     return {"grad_rel_l2": (num / den) ** 0.5,
             "grad_tensor_rel_median": float(np.median(list(per.values()))),
             "grad_tensor_rel_max": per[worst], "grad_tensor_worst": worst,
-            "deform_tensor_rel_max": max(deform.values())}
+            "deform_tensor_rel_max": max(deform.values(), default=None)}
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--res", type=int, default=256)
     parser.add_argument("--batch", type=int, default=4)
+    parser.add_argument("--arch", default="shufflenetv2")
+    parser.add_argument("--shift", type=float, default=None,
+                        help="the other archs' BN bias shift")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.trainer import Trainer
 
-    data = cs.SmokeData(n_train=max(8, args.batch), n_val=2)
-    opt = data.opt(args.batch, "--input_res", str(args.res), "--gpus", "-1")
+    if args.shift is not None:
+        cs.ARCH_BN_SHIFT = args.shift
+    n_train = max(8, args.batch)
+    data = cs.SmokeData(n_train=n_train, n_val=2) \
+        if args.arch == "shufflenetv2" \
+        else cs.CocoSmokeData("ctdet", n_train=n_train, n_val=2)
+    opt = data.opt(args.batch, "--input_res", str(args.res), "--gpus", "-1",
+                   arch=args.arch)
     batch = next(iter(DataLoader(data.dataset(opt), args.batch, shuffle=True,
                                  num_workers=4, seed=1)))
     trainer = Trainer(opt, device="cpu")
@@ -81,7 +98,10 @@ def main(argv=None):
         model.load_state_dict(state)
         l32, g32 = step_grads(model, trainer, batch, torch.float32)
         l64, g64 = step_grads(model, trainer, batch, torch.float64)
-        print(json.dumps({"start": start, "res": args.res,
+        print(json.dumps({"arch": args.arch, "start": start,
+                          "shift": cs.ARCH_BN_SHIFT
+                          if args.arch in cs.HEAD_FEATURE_BNS
+                          else cs.BN_SHIFT, "res": args.res,
                           "batch": args.batch, "loss_f32": l32,
                           "loss_f64": l64,
                           **compare(g32, g64, cs.DEFORM_PARAMS)}),
