@@ -9,7 +9,11 @@ plain PyTorch version at the shapes the model gives it (the forward at
 batches 2, 32, 64 and 128, and at the non-square maps of --keep_res
 requests; the deform backbone's 32x32x58, 16x16x116 and 8x8x232; the
 512^2 maps 16x16x1024, 32x32x256 and 64x64x128; KITTI's 12x40x1024,
-24x80x256 and 48x160x128) and at ragged ones, timing both. Then it drives the port's paths at full width
+24x80x256 and 48x160x128; the 128^2 regression's 4x4x1024, 8x8x256 and
+16x16x128) and at ragged ones, timing both. It reports what the card's
+host offers for image files (host_io: cv2, PIL, imageio, libjpeg,
+libturbojpeg, libpng) and round-trips a frame through the port's PNG
+writer and reader. Then it drives the port's paths at full width
 (ctdet ShuffleNetV2-DCN 1x, 256^2, unless said otherwise):
 
 - serving: flip-test per-image requests and a batch-32 request through
@@ -64,7 +68,19 @@ requests; the deform backbone's 32x32x58, 16x16x116 and 8x8x232; the
   and exct_decode (K 100, its time and peak memory) card vs CPU,
   flip-test requests, a train step card vs CPU and timed steps at batch
   32, then `cli.main` -> `cli.quant_main` -> `cli.test`, scored by the
-  port's COCO evaluator.
+  port's COCO evaluator;
+- real int8 of every task (int8_tasks): COCO ctdet, multi_pose, ddd and
+  exdet from their phases' QAT checkpoints, each exported to its W4A8
+  artifact and served from the .pth and the artifact (equal detections
+  and equal decoded top-K),
+  int8 heads card vs CPU and against act-clamp fake-quant, `cli.test
+  --int8_infer` with the task's evaluator;
+- the synthetic accuracy regression (synthreg,
+  tools_torch/synthetic_regression.py at its --smoke size): FP32, QAT
+  and clamp-trained QAT through the CLIs on PNG files it writes, eight
+  held-out APs, the fp32 and clamped fake-quant APs over a floor and
+  the delta bands that hold at any training length, and its 128^2
+  train steps timed.
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
@@ -74,10 +90,10 @@ Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
 fractional and partly outside the maps; training starts from the port's
 init (s == 1), its card-vs-CPU parity steps (FP32 and QAT) from that init
-with the BN biases raised (conditioned_init). Images are synthetic frames
-held in memory (the dataset's `load_image` is overridden; the card's
-machine has no cv2). TF32 is off throughout: the parity phases compare
-FP32 against FP32.
+with the BN biases raised (conditioned_init). The training and task
+phases' images are synthetic frames held in memory (the dataset's
+`load_image` is overridden); the regression's are PNG files on disk.
+TF32 is off throughout: the parity phases compare FP32 against FP32.
 """
 
 from __future__ import annotations
@@ -85,8 +101,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -131,6 +149,12 @@ TASK_HEAD_TOL = 1e-5
 TASK_STEP_BATCH = 2
 # exct_decode's kept scores, card vs CPU on the same heads
 LATTICE_SCORE_TOL = 1e-6
+# the synthetic accuracy regression (tools_torch/synthetic_regression.py)
+# at 128^2: its three deconv-stage maps (on the 4x4 map most samples at
+# s up to 8 fall off the image) at its train batch (16) and the
+# flip-test eval's (2)
+SYNTH_SHAPES = [(4, 4, 1024), (8, 8, 256), (16, 16, 128)]
+SYNTH_TRAIN_BATCH = 16
 RAGGED_SHAPES = [(12, 12, 58), (16, 16, 2153), (24, 24, 32)]
 # both kernels also at KITTI's largest deconv map (the forward's bands clip
 # at both edges; the backward's slices are 4 channels wide)
@@ -382,7 +406,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
            "model_shape": shape in MODEL_SHAPES,
            "backbone_shape": shape in BACKBONE_SHAPES,
            "coco_shape": shape in COCO_SHAPES,
-           "kitti_shape": shape in KITTI_SHAPES}
+           "kitti_shape": shape in KITTI_SHAPES,
+           "synth_shape": shape in SYNTH_SHAPES}
     emit(row)
     if launched != 1 or not err <= TOL[dtype]:
         raise SystemExit("{} check failed: {}".format(phase, row))
@@ -392,8 +417,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
 def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
     batch, dtype; each row with its launch plan (deform_cuda.fwd_plan).
-    The deform backbone's, the 512^2 and KITTI's maps at the served and
-    trained batches."""
+    The deform backbone's, the 512^2, KITTI's and the 128^2 regression's
+    maps at the served and trained batches."""
     gen = torch.Generator().manual_seed(SEED)
     cases = [(shape, n) for shape in BWD_SHAPES
              for n in (BATCHES if shape in MODEL_SHAPES
@@ -402,6 +427,8 @@ def phase_kernels(bw, flops):
               for n in (2, TRAIN_BATCH)]
     cases += [(shape, n) for shape in KITTI_SHAPES
               for n in (1, KITTI_TRAIN_BATCH)]
+    cases += [(shape, n) for shape in SYNTH_SHAPES
+              for n in (2, SYNTH_TRAIN_BATCH)]
     return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
             for shape, n in cases
             for dtype in (torch.float32, torch.bfloat16)]
@@ -454,8 +481,8 @@ def _bwd_case(shape, n, dtype, gen):
 
 def phase_kernel_bwd(bw, flops):
     """Backward kernel vs the plain backward at every shape, batch, dtype
-    (the deform backbone's, the 512^2 and KITTI's maps at the trained
-    batch): error
+    (the deform backbone's, the 512^2, KITTI's and the 128^2
+    regression's maps at the trained batch): error
     of dx, ds and dw relative to each output's max; each row with its
     launch plan (deform_cuda.bwd_plan)."""
     from codenet_torch.ops import deform_cuda as DC
@@ -465,6 +492,7 @@ def phase_kernel_bwd(bw, flops):
     cases += [(shape, TRAIN_BATCH) for shape in BACKBONE_SHAPES
               + COCO_SHAPES]
     cases += [(shape, KITTI_TRAIN_BATCH) for shape in KITTI_SHAPES]
+    cases += [(shape, SYNTH_TRAIN_BATCH) for shape in SYNTH_SHAPES]
     for shape, n in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, s, wt, g = _bwd_case(shape, n, dtype, gen)
@@ -507,7 +535,8 @@ def phase_kernel_bwd(bw, flops):
                    "model_shape": shape in MODEL_SHAPES,
                    "backbone_shape": shape in BACKBONE_SHAPES,
                    "coco_shape": shape in COCO_SHAPES,
-                   "kitti_shape": shape in KITTI_SHAPES}
+                   "kitti_shape": shape in KITTI_SHAPES,
+                   "synth_shape": shape in SYNTH_SHAPES}
             emit(row)
             rows.append(row)
             worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
@@ -700,14 +729,32 @@ def phase_detector(model, device="cuda"):
 
 # the synthetic sets' frames, by (the dataset's image directory, image id)
 FRAMES = {}
+# BaseDataset.load_image as the port defines it (it reads the file)
+FILE_LOAD_IMAGE = []
 
 
 def serve_frames_from_memory():
-    """Every dataset's `load_image` returns the in-memory frame of FRAMES
-    (the card's machine has no cv2 to read files with)."""
+    """Every dataset's `load_image` returns the in-memory frame of FRAMES:
+    the sets of the training and task phases are written as annotations
+    only."""
     from codenet_torch.data.datasets import BaseDataset
+    if not FILE_LOAD_IMAGE:
+        FILE_LOAD_IMAGE.append(BaseDataset.load_image)
     BaseDataset.load_image = \
         lambda ds, index: FRAMES[ds.img_dir, ds.images[index]]
+
+
+@contextlib.contextmanager
+def images_from_files():
+    """Within the block every dataset reads its image files again."""
+    from codenet_torch.data.datasets import BaseDataset
+    override = BaseDataset.load_image
+    if FILE_LOAD_IMAGE:
+        BaseDataset.load_image = FILE_LOAD_IMAGE[0]
+    try:
+        yield
+    finally:
+        BaseDataset.load_image = override
 
 
 class SmokeData:
@@ -2042,8 +2089,12 @@ def phase_coco_ctdet(data):
     through CtdetDetector with their stage timers and 4 batch-32 requests
     (64 forwards with the flipped copies); `cli.test --flip_test` over
     the 8 val frames, per image and with --batch_eval 32, each scored by
-    the port's COCO evaluator (bbox, 12 stats). Returns the forward
-    launches of the served paths."""
+    the port's COCO evaluator (bbox, 12 stats); then `cli.main` ->
+    `cli.quant_main` (2 steps each, each with its final eval), the QAT
+    checkpoint of the int8_tasks phase. Returns the (forward, backward)
+    launches of the served, CLI and training paths."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import quant_main
     from codenet_torch.cli import test as cli_test
     from codenet_torch.engine import checkpoint
     from codenet_torch.engine.detector import CtdetDetector
@@ -2099,11 +2150,37 @@ def phase_coco_ctdet(data):
         want = 3 * len(val) if name == "per_image" else 3
         if DC.LAUNCHES != want or len(stats) != 12:
             fail.append("cli " + name)
+    # the QAT checkpoint of the int8_tasks phase, as multi_pose's phase
+    # writes its own: cli.main (2 steps at batch 32 from the port's init)
+    # -> cli.quant_main (2 steps), each ending in its eval of 8 frames
+    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
+              "-1", "--print_iter", "1"]
+    fp32 = str(ROOT / "exp" / "ctdet" / "chip_smoke_coco" / "model_last.pth")
+    bwd = 0
+    for name, fn, args in (
+            ("main", cli_main.main, ["--exp_id", "chip_smoke_coco"]),
+            ("quant_main", quant_main.main, ["--exp_id",
+                                             "chip_smoke_coco_qat",
+                                             "--load_model", fp32])):
+        DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+        text, seconds = _cli_log(fn, data.args(TRAIN_BATCH, *common, *args))
+        losses = [float(ln.split(" loss ")[1].split()[0])
+                  for ln in _lines_with(text, "train epoch")]
+        out["cli"][name] = {"seconds": seconds, "losses": losses,
+                            "stats": _stats_lines(text),
+                            "launches_fwd": DC.LAUNCHES,
+                            "launches_bwd": DC.BWD_LAUNCHES}
+        launches += DC.LAUNCHES
+        bwd += DC.BWD_LAUNCHES
+        if len(losses) != 2 or not np.all(np.isfinite(losses)) \
+                or len(out["cli"][name]["stats"]) != 12 \
+                or (DC.LAUNCHES, DC.BWD_LAUNCHES) != (6 + 3 * len(val), 6):
+            fail.append("cli " + name)
     out["failed"] = fail
     emit(out)
     if fail:
         raise SystemExit("coco_ctdet check failed: {}".format(fail))
-    return launches
+    return launches, bwd
 
 
 def phase_multi_pose(data):
@@ -2501,6 +2578,166 @@ def phase_exdet(data):
     return launches
 
 
+def _results_equal(a, b):
+    """Two detectors' results of one request equal, class by class."""
+    return list(a) == list(b) and all(
+        np.array_equal(np.asarray(a[j]), np.asarray(b[j])) for j in a)
+
+
+def int8_task(name, data, ckpt, extra, stats_of, want_stats, export):
+    """Real int8 of one task from its QAT checkpoint `ckpt` (see
+    phase_int8_tasks). Returns (its JSON entry, forward launches of its
+    served and CLI paths, failed checks)."""
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.cli.test import _request_meta
+    from codenet_torch.engine.detector import detector_factory, eval_input
+    from codenet_torch.models import create_model
+    from codenet_torch.models import layers as L
+    from codenet_torch.ops import deform_cuda as DC
+    fail = []
+    art = str(ROOT / "exp" / "chip_smoke" / "{}_w4a8.npz".format(name))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = export.main(data.args(1, "--resume-quantize", "--load_model",
+                                   ckpt, "--out", art))
+    out = {"artifact_bytes": Path(art).stat().st_size,
+           "export_log": log.getvalue().splitlines()[-1]}
+    if rc != 0:
+        fail.append("export")
+
+    def detector(*more):
+        return detector_factory(data.task)(data.opt(
+            1, *extra, "--resume-quantize", "--int8_infer", *more),
+            device="cuda")
+    dets = {"pth": detector("--load_model", ckpt),
+            "artifact": detector("--w4a8_artifact", art)}
+    opt = dets["pth"].opt
+    val = data.dataset(opt, "val")
+    frames = [val.load_image(i) for i in range(len(val))]
+    metas = [_request_meta(val, opt, i) for i in range(len(val))]
+    dtypes, results, requests = [], {}, {}
+    with recording(DC, "_launch",
+                   lambda x, s, w: dtypes.append(str(x.dtype))):
+        DC.LAUNCHES = 0  # counts from here on: the served paths
+        for key, det in dets.items():
+            rets = [det.run(f, m) for f, m in zip(frames, metas)]
+            results[key] = [r["results"] for r in rets]
+            requests[key] = [dict(_ms(r), dets=int(sum(
+                len(v) for v in r["results"].values()))) for r in rets]
+        served = DC.LAUNCHES
+    same = all(_results_equal(a, b)
+               for a, b in zip(results["pth"], results["artifact"]))
+    # the decoded top-K of every request, scores below the threshold
+    # included: equal even where a request serves no detection
+    def decoded(det, frame, meta):
+        images, meta = det.pre_process(frame, 1, meta)
+        with torch.inference_mode():
+            return det.process(images, meta["trans_inv"], 1)
+    same_raw = all(torch.equal(decoded(dets["pth"], f, m),
+                               decoded(dets["artifact"], f, m))
+                   for f, m in zip(frames, metas))
+    out.update(requests_ms=requests["artifact"], launches=served,
+               launch_dtypes=sorted(set(dtypes)), dets_equal=same,
+               decoded_equal=same_raw)
+    if served != 3 * len(dets) * len(frames) \
+            or set(dtypes) != {"torch.bfloat16"}:
+        fail.append("launches")
+    if not same:
+        fail.append("pth vs artifact detections")
+    if not same_raw:
+        fail.append("pth vs artifact decoded top-K")
+
+    # one request's input: card vs CPU, int8 vs act-clamp fake-quant (as
+    # served, and sampling the deform conv in f32), forwards timed
+    model = dets["pth"].model
+    images, _ = dets["pth"].pre_process(frames[0], 1, metas[0])
+    x = eval_input(dets["pth"]._to_device(images), opt.mean, opt.std)
+    fake = create_model(opt.arch, opt.heads, opt.head_conv,
+                        qspec=dataclasses.replace(
+                            dets["pth"].qspec, int8_infer=False,
+                            act_clamp=True), device="cuda")
+    fake.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        card = model(x)
+        cpu = copy.deepcopy(model).cpu()(x.cpu())
+        ref = fake(x)
+        L.INT8_SAMPLE_DTYPE = torch.float32
+        try:
+            f32 = model(x)
+        finally:
+            L.INT8_SAMPLE_DTYPE = torch.bfloat16
+        out["net_forward_ms"] = {
+            "int8": cuda_time_ms(lambda: model(x), 20),
+            "fake_quant": cuda_time_ms(lambda: fake(x), 20)}
+    out["input"] = list(x.shape)
+    out["card_vs_cpu"] = head_errs(cpu, card)
+    out["int8_vs_act_clamp"] = head_errs(ref, card)
+    out["int8_f32_sampling_vs_act_clamp"] = head_errs(ref, f32)
+    out["heads_finite"] = all(bool(torch.isfinite(v).all())
+                              for v in card.values())
+    if not out["heads_finite"] or any(
+            max(out[k].values()) > INT8_TOL
+            for k in ("card_vs_cpu", "int8_vs_act_clamp",
+                      "int8_f32_sampling_vs_act_clamp")):
+        fail.append("heads")
+
+    DC.LAUNCHES = 0
+    text, seconds = _cli_log(cli_test.main, data.args(
+        1, *extra, "--resume-quantize", "--int8_infer", "--w4a8_artifact",
+        art, "--exp_id", "chip_smoke_int8_" + name))
+    stats = stats_of(text)
+    out["cli"] = {"seconds": seconds, "stats": stats,
+                  "launches": DC.LAUNCHES}
+    if len(stats) != want_stats or DC.LAUNCHES != 3 * len(frames):
+        fail.append("cli")
+    return out, served + DC.LAUNCHES, fail
+
+
+def phase_int8_tasks():
+    """Real int8 (--resume-quantize --int8_infer) of ctdet on COCO (512^2,
+    80 classes), multi_pose (512^2), ddd (384x1280) and exdet (512^2),
+    each from the QAT checkpoint its phase wrote: the W4A8 artifact
+    exported (tools_torch/export_w4a8.py, its bytes); 8 requests served
+    from the .pth and 8 from the artifact (equal detections, stage
+    timers, every forward launch bf16); one request's int8 heads card vs
+    CPU and against the act-clamp fake-quant, as served and sampling in
+    f32 (INT8_TOL of each head's max), its int8 and fake-quant forwards
+    timed; `cli.test --resume-quantize --int8_infer` from the artifact
+    with the task's evaluator stats. Returns the forward launches."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "export_w4a8", ROOT / "tools_torch" / "export_w4a8.py")
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+
+    def ckpt(task, exp_id):
+        return str(ROOT / "exp" / task / exp_id / "model_last.pth")
+    tasks = [
+        ("coco_ctdet", CocoSmokeData("ctdet"),
+         ckpt("ctdet", "chip_smoke_coco_qat"), ["--flip_test"],
+         _stats_lines, 12),
+        ("multi_pose", CocoSmokeData("multi_pose"),
+         ckpt("multi_pose", "chip_smoke_pose_qat"), ["--flip_test"],
+         _stats_lines, 10),
+        ("ddd", KittiSmokeData(), ckpt("ddd", "chip_smoke_ddd_qat"), [],
+         lambda text: _lines_with(text, ": AP2D "), 9),
+        ("exdet", CocoSmokeData("exdet"),
+         ckpt("exdet", "chip_smoke_exdet_qat"), ["--flip_test"],
+         _stats_lines, 12)]
+    out, launches, fail = {"phase": "int8_tasks"}, 0, []
+    for name, data, path, extra, stats_of, want in tasks:
+        out[name], n, failed = int8_task(name, data, path, extra, stats_of,
+                                         want, export)
+        launches += n
+        fail += ["{} {}".format(name, f) for f in failed]
+    out["launches"] = launches
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("int8_tasks check failed: {}".format(fail))
+    return launches
+
+
 @torch.no_grad()
 def build_arch_model(arch, device="cuda", res=COCO_RES):
     """One of CenterNet's other backbones at its published widths with
@@ -2732,6 +2969,154 @@ def phase_backbones(data):
         raise SystemExit("backbones check failed: {}".format(fail))
 
 
+def phase_host_io():
+    """What the card's host offers for image files: the Python modules
+    cv2, PIL and imageio (found, and each found one imported in a
+    process of its own: its version or the error), and the shared
+    libraries of libjpeg, libturbojpeg and libpng; then a 375x500 frame
+    written with the port's write_png and read back with its read_png,
+    held exact; where cv2 imports, tools_torch/png_read_time.py: read_png
+    and cv2.imread timed on a 375x1242 frame cv2 wrote with each filter
+    setting, their pixels held equal."""
+    import ctypes.util
+    import importlib.util
+    from codenet_torch.data.image_io import read_png, write_png
+    frame = synthetic_frames(1)[0][0]
+    path = ROOT / "exp" / "chip_smoke" / "host_io.png"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_png(str(path), frame)
+    t1 = time.perf_counter()
+    back = read_png(str(path))
+    t2 = time.perf_counter()
+    found = [m for m in ("cv2", "PIL", "imageio")
+             if importlib.util.find_spec(m) is not None]
+    imports = {}
+    for m in found:
+        probe = subprocess.run(
+            [sys.executable, "-c", "import {0}; print({0}.__version__)"
+             .format(m)], capture_output=True, text=True, timeout=120)
+        imports[m] = (probe.stdout.strip() if probe.returncode == 0
+                      else probe.stderr.strip().splitlines()[-1:])
+    out = {"phase": "host_io",
+           "modules": {m: m in found for m in ("cv2", "PIL", "imageio")},
+           "imports": imports,
+           "libraries": {lib: ctypes.util.find_library(lib)
+                         for lib in ("jpeg", "turbojpeg", "png")},
+           "frame": list(frame.shape), "png_bytes": path.stat().st_size,
+           "write_ms": (t1 - t0) * 1e3, "read_ms": (t2 - t1) * 1e3,
+           "exact": bool(np.array_equal(back, frame))}
+    if "cv2" in imports and not isinstance(imports["cv2"], list):
+        # read_png against cv2.imread on libpng-written KITTI-size frames
+        timed = subprocess.run(
+            [sys.executable, str(ROOT / "tools_torch" / "png_read_time.py"),
+             "--dir", str(path.parent)], capture_output=True, text=True,
+            timeout=300)
+        out["png_read_vs_cv2"] = (json.loads(timed.stdout.splitlines()[-1])
+                                  if timed.stdout else timed.stderr[-500:])
+        out["png_read_equal"] = timed.returncode == 0
+    emit(out)
+    if not out["exact"] or not out.get("png_read_equal", True):
+        raise SystemExit("host_io check failed: the PNG round trip or "
+                         "read_png against cv2.imread")
+
+
+def synthreg_steps(data_root, res, steps=6):
+    """The regression's train step at its size (SYNTH_TRAIN_BATCH, `res`^2,
+    its one loader worker): `steps` FP32 steps from the port's init and
+    `steps` QAT steps from its FP32 checkpoint, timed with CUDA events
+    (timed_steps), the loader timed apart."""
+    from codenet_torch import config as cfg
+    from codenet_torch.data.datasets import get_dataset
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.layers import QuantSpec
+    opt = cfg.update_dataset_info_and_set_heads(cfg.parse(
+        ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+         "--input_res", str(res), "--batch_size", str(SYNTH_TRAIN_BATCH),
+         "--num_workers", "1", "--no_color_aug", "--data_dir",
+         str(data_root)]), cfg.DATASET_SPECS["pascal"])
+    loader = DataLoader(get_dataset("pascal", "ctdet")(opt, "train"),
+                        SYNTH_TRAIN_BATCH, shuffle=True, num_workers=1,
+                        seed=opt.seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < steps:
+        batches.extend(loader)
+    out = {"loader_ms_per_batch": (time.perf_counter() - t0) * 1e3
+           / len(batches), "batch": SYNTH_TRAIN_BATCH, "res": res}
+    fp32 = Trainer(opt, device="cuda")
+    fp32.init()
+    out["fp32"] = timed_steps(fp32, batches[:steps])
+    qat = Trainer(opt, qspec=QuantSpec(), device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        checkpoint.load_model(str(ROOT / "exp" / "ctdet" /
+                                  "chip_smoke_synth_fp32" /
+                                  "model_last.pth"), qat.model)
+    qat.init()
+    out["qat"] = timed_steps(qat, batches[:steps])
+    return out
+
+
+def phase_synthreg():
+    """The synthetic accuracy regression (tools_torch/synthetic_regression
+    .py run_deltas) at its --smoke size on PNG files it writes: cli.main
+    (FP32), cli.quant_main (QAT, and clamp-trained QAT), then eight
+    cli.test evals, each entry point run in this process (its launches
+    counted) and reading the image files (no in-memory frames), after
+    the outputs of any earlier run are removed. Holds every stage's exit
+    code 0, eight finite APs, the fp32 and qat_clamped APs at
+    SMOKE_MIN_AP or above and the bands that hold at any training length
+    (SMOKE_BANDS); reports the other deltas; then the regression's FP32 and QAT steps timed
+    (synthreg_steps). Returns the (forward, backward) launches."""
+    import importlib
+    import importlib.util
+    from codenet_torch.ops import deform_cuda as DC
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_regression", ROOT / "tools_torch" /
+        "synthetic_regression.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    work = ROOT / "exp" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    launches = []
+
+    def runner(cmd):
+        """[python, -m, codenet_torch.cli.<name>, *argv] -> its main(argv)
+        here, its output into synthreg.log; an exception ends the
+        script."""
+        entry = importlib.import_module(cmd[2])
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        with open(work / "synthreg.log", "a") as log, \
+                contextlib.redirect_stdout(log):
+            entry.main(cmd[3:])
+        launches.append([DC.LAUNCHES - before[0],
+                         DC.BWD_LAUNCHES - before[1]])
+        return 0
+    # a run's marker files would let this one skip its training stages
+    for old in [ROOT / "exp" / "chip_smoke_synth_data",
+                *(ROOT / "exp" / "ctdet").glob("chip_smoke_synth_*")]:
+        shutil.rmtree(old, ignore_errors=True)
+    with images_from_files():
+        payload, data_root = tool.run_deltas(
+            gpus="0", exp_prefix="chip_smoke_synth", runner=runner,
+            out_json=str(work / "synthreg.json"), **tool.SMOKE)
+        steps = synthreg_steps(data_root, payload["config"]["input_res"])
+    failed = tool.smoke_failures(payload)
+    total = [sum(v[i] for v in launches) for i in (0, 1)]
+    # the stages and evals ran in the order payload["seconds"] lists them
+    emit({"phase": "synthreg", **payload, "smoke_bands": tool.SMOKE_BANDS,
+          "smoke_min_ap": tool.SMOKE_MIN_AP,
+          "launches": dict(zip(payload["seconds"], launches)),
+          "launches_fwd_bwd": total, "steps": steps, "failed": failed})
+    if failed or not all(total) or not all(
+            np.isfinite(steps[k]["losses"]).all() for k in ("fp32", "qat")):
+        raise SystemExit("synthreg check failed: {}".format(failed))
+    return [total[0] + sum(steps[k]["launches_fwd"] for k in ("fp32", "qat")),
+            total[1] + sum(steps[k]["launches_bwd"] for k in ("fp32", "qat"))]
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -2780,6 +3165,7 @@ def main(argv=None):
     smi = phase_env()
     bw, flops = card_peaks(torch.cuda.get_device_name(0))
     phase_build()
+    phase_host_io()
     rows = phase_kernels(bw, flops)
     bwd_rows = phase_kernel_bwd(bw, flops)
     keep_res_rows, keep_res_requests = phase_kernel_keep_res(bw, flops)
@@ -2798,11 +3184,13 @@ def main(argv=None):
     bf16_launches, _ = phase_bf16(model, data)
     bf16_train, _ = phase_bf16_train(data, batches)
     backbone = phase_deform_backbone(data)
-    coco_launches = phase_coco_ctdet(CocoSmokeData("ctdet"))
+    coco = phase_coco_ctdet(CocoSmokeData("ctdet"))
     pose = phase_multi_pose(CocoSmokeData("multi_pose"))
     ddd = phase_ddd(KittiSmokeData(), rows, bwd_rows)
     exdet = phase_exdet(CocoSmokeData("exdet"))
+    int8_tasks = phase_int8_tasks()
     phase_backbones(CocoSmokeData("ctdet"))
+    synth = phase_synthreg()
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -2822,8 +3210,8 @@ def main(argv=None):
         + qat_run["launches_fwd"] + qat_eval_launches + int8_launches
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
-        + backbone[0] + cli_bf16[0] + coco_launches + pose[0] + ddd[0]
-        + exdet[0],
+        + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
+        + exdet[0] + int8_tasks + synth[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -2852,8 +3240,8 @@ def main(argv=None):
         "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
-        + bf16_train[1] + backbone[1] + cli_bf16[1] + pose[1] + ddd[1]
-        + exdet[1], bwd_rows,
+        + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
+        + ddd[1] + exdet[1] + synth[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone

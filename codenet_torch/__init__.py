@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of codenet-tpu: CoDeNet's four CenterNet tasks, ctdet
 (VOC, COCO), multi_pose (COCO keypoints), ddd (KITTI 3D) and exdet
-(ExtremeNet, COCO), trained (FP32, then W4A8 QAT) and served (FP32 or
-fake-quant; ctdet also in real int8, from a checkpoint or a W4A8
-artifact) on an NVIDIA Hopper card, with hand-written CUDA kernels for
+(ExtremeNet, COCO), trained (FP32, then W4A8 QAT) and served (FP32,
+fake-quant, or real int8 from a checkpoint or a W4A8 artifact) on an
+NVIDIA Hopper card, with hand-written CUDA kernels for
 the co-designed deformable convolution's forward and backward
 (``ops/deform_cuda.py``, ``csrc/deform_fwd.cu``, ``csrc/deform_bwd.cu``).
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from types import SimpleNamespace
 
 
@@ -251,11 +252,17 @@ def parse(args=None, root_dir=None):
     """
     parser = build_parser()
     if args is None:
-        opt = parser.parse_args()
+        args = sys.argv[1:]
     elif isinstance(args, str):
-        opt = parser.parse_args(args.split())
-    else:
-        opt = parser.parse_args(list(args))
+        args = args.split()
+    args = list(args)
+    opt = parser.parse_args(args)
+    # the options the command line gives (a later --resume-quantize load
+    # takes the checkpoint's quantization recipe for the others)
+    given = build_parser()
+    for action in given._actions:
+        action.default = argparse.SUPPRESS
+    opt.given_flags = frozenset(vars(given.parse_args(args)))
 
     opt.gpus_str = opt.gpus
     gpus = [int(g) for g in opt.gpus.split(",")]

@@ -23,7 +23,7 @@ reference.
 
 Draws come from `rng` in the JAX sampler's order, so the same per-batch
 RandomState gives the same sample in every mode. The warp is the port's
-torch `warp_affine_u8`, not cv2 (the card's machine has no cv2); images
+torch `warp_affine_u8`, not cv2 (the port needs no cv2); images
 come from the dataset's `load_image`, which a caller may override (e.g.
 with in-memory frames).
 

@@ -161,20 +161,28 @@ def save_model(path, epoch, model, optimizer=None, qspec=None):
     os.replace(tmp, path)
 
 
-def adopt_quant_recipe(opt, path):
-    """Set opt's quantization flags from the recipe recorded in a port
-    .pth (a QAT checkpoint evaluated with other flags loses accuracy);
-    returns the recipe, or None when the checkpoint has none."""
+def adopt_quant_recipe(opt, path, given=()):
+    """Set opt's quantization flags that are not in `given` (the options
+    the command line gave, config.parse's opt.given_flags) from the recipe
+    recorded in a port .pth (a QAT checkpoint evaluated with other flags
+    loses accuracy). A flag given on the command line wins, as in the JAX
+    package, which runs what its flags say: its synthetic regression
+    evaluates a checkpoint trained without --act_clamp with it. Returns
+    the recipe, or None when the checkpoint has none."""
     if not path.endswith((".pth", ".pt")):
         return None
     recipe = _read_pth(path).get("quant")
     if not recipe:
         return None
     for key in RECIPE_FIELDS:
-        if key in recipe and getattr(opt, key, None) != recipe[key]:
-            print("quant recipe from {}: {} = {}".format(path, key,
-                                                        recipe[key]))
-            setattr(opt, key, recipe[key])
+        if key not in recipe or getattr(opt, key) == recipe[key]:
+            continue
+        if key in given:
+            print("quant recipe from {}: {} = {}, the flags' {} kept".format(
+                path, key, recipe[key], getattr(opt, key)))
+            continue
+        print("quant recipe from {}: {} = {}".format(path, key, recipe[key]))
+        setattr(opt, key, recipe[key])
     return recipe
 
 

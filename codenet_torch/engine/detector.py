@@ -43,8 +43,8 @@ pre-process, then on the device forward -> sigmoid -> the K^4 extreme
 point decode of each image of the flip-test pair; on the host the
 flipped copy's boxes are mirrored back, the corners back-projected, and
 per class the boxes merged with soft-NMS and cut to the top 100. Both per
-image, as in the JAX package. Their --int8_infer path is not held against
-the JAX package yet (queued in ROADMAP.md).
+image, as in the JAX package. Every task serves FP32, fake-quant and real
+int8, from a checkpoint or a W4A8 artifact, as ctdet does.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from .. import resolve_device
 from ..data.affine import (get_affine_transform, invert_affine, resize_u8,
                            transform_preds, warp_affine_batch,
                            warp_affine_u8)
+from ..data.image_io import read_png
 from ..models import create_model
 from ..models import decode as D
 from ..models.layers import qspec_from_opt
@@ -106,13 +107,18 @@ def eval_input(images, mean, std):
 
 
 def imread(path):
-    """BGR uint8 image from a file. Only this host I/O needs cv2."""
+    """BGR uint8 image from a file: a PNG through data/image_io.py's
+    reader (no cv2; the pixels cv2.imread gives), any other format
+    through cv2."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
     try:
         import cv2
     except ImportError as e:
         raise RuntimeError(
-            "reading image files needs OpenCV (cv2), which is not "
-            "installed; pass decoded (H, W, 3) uint8 arrays instead") from e
+            "reading {} needs OpenCV (cv2), which is not installed; PNG "
+            "files need none, or pass decoded (H, W, 3) uint8 arrays"
+            .format(path)) from e
     image = cv2.imread(path)
     if image is None:
         raise FileNotFoundError(path)
@@ -155,7 +161,8 @@ class BaseDetector:
         self.qspec = None
         if opt.resume_quantize:
             if opt.load_model:
-                checkpoint.adopt_quant_recipe(opt, opt.load_model)
+                checkpoint.adopt_quant_recipe(opt, opt.load_model,
+                                           opt.given_flags)
             self.qspec = qspec_from_opt(opt)
         self.model = create_model(opt.arch, opt.heads, opt.head_conv,
                                   w2=opt.w2, maxpool=opt.maxpool,

@@ -742,3 +742,51 @@ def test_arch_heads_on_card_match_cpu(arch, cuda_device):
             scale = float(r[name].abs().max())
             err = float((g[name].cpu() - r[name]).abs().max())
             assert err <= 2e-3 * scale, (arch, name, err, scale)
+
+
+# -- the synthetic regression's 128^2 maps ---------------------------------------
+
+# the deconv stage's three stride-1 deform maps at 128^2, 1x: on the 4x4
+# map most taps at s up to 8 fall off the image, and the map is shorter
+# than some of fwd_plan's row bands
+SYNTH_SHAPES = [(4, 4, 1024), (8, 8, 256), (16, 16, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SYNTH_SHAPES)
+@pytest.mark.parametrize("n", [2, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_forward_128_maps_on_card(shape, n, dtype, cuda_device):
+    """The forward kernel at the 128^2 maps, at the flip-test eval's batch
+    (2) and the regression's train batch (16)."""
+    x, s, w = deform_case(shape, seed=60, n=n)
+    _fwd_check(torch.from_numpy(x).to(cuda_device, dtype),
+               torch.from_numpy(_mixed_s(s, 61)).to(cuda_device),
+               torch.from_numpy(w).to(cuda_device, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SYNTH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_128_maps_on_card(shape, dtype, cuda_device):
+    """The backward kernel (one launch) at the 128^2 maps, batch 16: dx,
+    ds and dw within 1e-4 (f32) or 3e-2 (bf16) of each output's max of
+    the plain backward, ds exactly 0 where s sits on a clamp bound."""
+    x, s, w = deform_case(shape, seed=62, n=16)
+    s = _mixed_s(s, 63)
+    g = np.random.RandomState(64).randn(*x.shape).astype(np.float32)
+    xt, wt, gt = (torch.from_numpy(a).to(cuda_device, dtype)
+                  for a in (x, w, g))
+    st = torch.from_numpy(s).to(cuda_device)
+    before = DC.BWD_LAUNCHES
+    got = DC.codesign_deform_conv_bwd(xt, st, wt, gt)
+    torch.cuda.synchronize()
+    assert DC.BWD_LAUNCHES == before + 1
+    refs = DC.codesign_deform_conv_bwd_plain(xt, st, wt, gt)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for name, a, b in zip(("dx", "ds", "dw"), got, refs):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * scale, \
+            name
+    bounds = (st == -7.0) | (st == 8.0)
+    assert float(got[1][bounds].abs().max()) == 0.0

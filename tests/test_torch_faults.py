@@ -10,7 +10,13 @@
   sampled by the JAX package: where JAX yields a sample, the port
   composes the pair too and its sample equals JAX's (the JAX sampler's
   cv2 warp replaced by the port's, as the other sampler tests do); where
-  JAX fails, the port refuses, and the test records JAX's error.
+  JAX fails, the port refuses, and the test records JAX's error;
+- F4: with --resume-quantize, a port .pth's recorded QAT recipe fills in
+  only the quantization flags the command line does not give: a flag
+  given there wins, also one equal to its default, as in the JAX package, which records no recipe and
+  runs what its flags say. Before, the recipe overrode it, so the
+  synthetic regression's `qat_clamped` eval (--act_clamp on a checkpoint
+  trained without it) ran unclamped.
 """
 
 import json
@@ -180,3 +186,68 @@ def test_pairs_follow_the_jax_composition(data_root, monkeypatch, dataset,
             continue
         assert np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("trained_clamped", [False, True])
+@pytest.mark.parametrize("flags", [[], ["--wt-percentile"],
+                                   ["--wt-percentile", "--act_clamp"],
+                                   ["--w-bit", "8"]],
+                         ids=["defaults", "wt", "wt-clamp", "w8"])
+def test_explicit_quant_flags_win_over_the_recipe(tmp_path, flags,
+                                                  trained_clamped):
+    """F4: the detector's quantization of a QAT .pth recorded with
+    wt_percentile (and act_clamp or not): every flag given on the command
+    line as the JAX detector reads it from the same flags, every flag left
+    at its default as the recipe says."""
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.models import create_model
+    from codenet_torch.models.layers import QuantSpec
+    recipe = QuantSpec(wt_percentile=True, act_clamp=trained_clamped)
+    path = str(tmp_path / "model_last.pth")
+    checkpoint.save_model(path, 1, create_model(
+        "shufflenetv2", {"hm": 20, "wh": 2, "reg": 2}, 64, qspec=recipe,
+        device="cpu"), qspec=recipe)
+    args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+            "--input_res", "64", "--gpus", "-1", "--resume-quantize",
+            "--load_model", path] + flags
+    opt = tcfg.update_dataset_info_and_set_heads(
+        tcfg.parse(args), tcfg.DATASET_SPECS["pascal"])
+    got = TDET.CtdetDetector(opt, device="cpu").qspec
+    jopt = jcfg.parse(args)
+    defaults = tcfg.build_parser()
+    for key in ("w_bit", "a_bit", "wt_percentile", "act_percentile",
+                "act_clamp"):
+        given = getattr(jopt, key)
+        want = getattr(recipe, key) if given == defaults.get_default(key) \
+            else given
+        assert getattr(got, key) == want, key
+    if "--act_clamp" in flags:
+        assert got.act_clamp  # the regression's qat_clamped eval
+
+
+@pytest.mark.parametrize("flags,w_bit", [([], 8), (["--w-bit", "4"], 4)],
+                         ids=["recipe", "given-default"])
+def test_given_flag_equal_to_its_default_wins_over_the_recipe(
+        tmp_path, flags, w_bit):
+    """F4: a flag given on the command line at its default value (--w-bit
+    4 on an 8-bit recipe) is kept, as the JAX detector keeps it; left out,
+    the recipe's value is taken. The given flags are what config.parse
+    records, so export_w4a8.py reads a checkpoint as the detector does."""
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.models import create_model
+    from codenet_torch.models.layers import QuantSpec
+    recipe = QuantSpec(w_bit=8, wt_percentile=True)
+    path = str(tmp_path / "model_last.pth")
+    checkpoint.save_model(path, 1, create_model(
+        "shufflenetv2", {"hm": 20, "wh": 2, "reg": 2}, 64, qspec=recipe,
+        device="cpu"), qspec=recipe)
+    args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+            "--input_res", "64", "--gpus", "-1", "--resume-quantize",
+            "--load_model", path] + flags
+    opt = tcfg.update_dataset_info_and_set_heads(
+        tcfg.parse(args), tcfg.DATASET_SPECS["pascal"])
+    assert ("w_bit" in opt.given_flags) == bool(flags)
+    got = TDET.CtdetDetector(opt, device="cpu").qspec
+    assert got.w_bit == w_bit and got.wt_percentile
+    if flags:
+        assert jcfg.parse(args).w_bit == w_bit

@@ -14,6 +14,8 @@ Usage (the flags of codenet_torch.cli.test):
   python tools_torch/export_w4a8.py ctdet --arch shufflenetv2 \\
       --dataset pascal --head_conv 64 --exp_id myexp --resume \\
       --resume-quantize [--w2] [--maxpool] [--gpus -1] [--out path.npz]
+  (any task with its own flags: multi_pose --dataset coco_hp, ddd
+  --dataset kitti, exdet --dataset coco)
 
 The checkpoint's QAT recipe (bit widths, percentile ranges) is adopted
 as the detector adopts it. Runs on the card unless `--gpus -1`.
@@ -47,7 +49,7 @@ def main(argv=None):
         print("ERROR: export requires a QAT checkpoint "
               "(--resume-quantize)", file=sys.stderr)
         return 2
-    checkpoint.adopt_quant_recipe(opt, opt.load_model)
+    checkpoint.adopt_quant_recipe(opt, opt.load_model, opt.given_flags)
     opt.int8_infer = True
     model = create_model(opt.arch, opt.heads, opt.head_conv, w2=opt.w2,
                          maxpool=opt.maxpool, qspec=qspec_from_opt(opt),
