@@ -10,7 +10,8 @@ batches 2, 32, 64 and 128, and at the non-square maps of --keep_res
 requests; the deform backbone's 32x32x58, 16x16x116 and 8x8x232; the
 512^2 maps 16x16x1024, 32x32x256 and 64x64x128; KITTI's 12x40x1024,
 24x80x256 and 48x160x128; the 128^2 regression's 4x4x1024, 8x8x256 and
-16x16x128) and at ragged ones, timing both. It reports what the card's
+16x16x128; the 2x network's 16x16x2153 at batches 2, 32, 64 and 128) and
+at ragged ones, timing both. It reports what the card's
 host offers for image files (host_io: cv2, PIL, imageio, libjpeg,
 libturbojpeg, libpng) and round-trips a frame through the port's PNG
 writer and reader. Then it drives the port's paths at full width
@@ -75,6 +76,16 @@ writer and reader. Then it drives the port's paths at full width
   and equal decoded top-K),
   int8 heads card vs CPU and against act-clamp fake-quant, `cli.test
   --int8_infer` with the task's evaluator;
+- the paper's configs b-e (configs_ae; config a is the main path): each
+  at its input side (256^2 with --maxpool; 512^2; 512^2 --w2; 512^2 --w2
+  --maxpool) with the full-width 1x or 2x network, heads card vs CPU,
+  FP32 and QAT (--wt-percentile --act_clamp) steps at batch 32 with peak
+  memory, for config d one step card vs CPU (the 2153-channel backward),
+  flip-test requests; then tools_torch/run_configs_ae.py --smoke over
+  b-e on PNG files (FP32 -> QAT -> fake-quant and int8 evals -> export),
+  and from each config's QAT checkpoint and artifact: equal detections,
+  int8 heads card vs CPU and against act-clamp fake-quant, the int8 and
+  fake-quant forwards timed, the artifact's bytes beside the reference's;
 - the synthetic accuracy regression (synthreg,
   tools_torch/synthetic_regression.py at its --smoke size): FP32, QAT
   and clamp-trained QAT through the CLIs on PNG files it writes, eight
@@ -407,7 +418,8 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
            "backbone_shape": shape in BACKBONE_SHAPES,
            "coco_shape": shape in COCO_SHAPES,
            "kitti_shape": shape in KITTI_SHAPES,
-           "synth_shape": shape in SYNTH_SHAPES}
+           "synth_shape": shape in SYNTH_SHAPES,
+           "w2_shape": shape == W2_SHAPE}
     emit(row)
     if launched != 1 or not err <= TOL[dtype]:
         raise SystemExit("{} check failed: {}".format(phase, row))
@@ -418,7 +430,8 @@ def phase_kernels(bw, flops):
     """Forward kernel vs its plain version on the card at every shape,
     batch, dtype; each row with its launch plan (deform_cuda.fwd_plan).
     The deform backbone's, the 512^2, KITTI's and the 128^2 regression's
-    maps at the served and trained batches."""
+    maps at the served and trained batches; the 2x network's 16x16x2153
+    at 2, 32, 64 and 128."""
     gen = torch.Generator().manual_seed(SEED)
     cases = [(shape, n) for shape in BWD_SHAPES
              for n in (BATCHES if shape in MODEL_SHAPES
@@ -429,6 +442,9 @@ def phase_kernels(bw, flops):
               for n in (1, KITTI_TRAIN_BATCH)]
     cases += [(shape, n) for shape in SYNTH_SHAPES
               for n in (2, SYNTH_TRAIN_BATCH)]
+    # the 2x network's deconv0 map (configs d and e) at the train forward
+    # and a batch-32 request with its flipped copies
+    cases += [(W2_SHAPE, n) for n in (TRAIN_BATCH, 64)]
     return [_fwd_row("kernel", shape, n, dtype, gen, bw, flops)
             for shape, n in cases
             for dtype in (torch.float32, torch.bfloat16)]
@@ -536,7 +552,8 @@ def phase_kernel_bwd(bw, flops):
                    "backbone_shape": shape in BACKBONE_SHAPES,
                    "coco_shape": shape in COCO_SHAPES,
                    "kitti_shape": shape in KITTI_SHAPES,
-                   "synth_shape": shape in SYNTH_SHAPES}
+                   "synth_shape": shape in SYNTH_SHAPES,
+                   "w2_shape": shape == W2_SHAPE}
             emit(row)
             rows.append(row)
             worst = max(errs[k + "_rel"] for k in ("dx", "ds", "dw"))
@@ -554,8 +571,9 @@ def _hw(res):
 
 @torch.no_grad()
 def build_served_model(device="cuda", deform_backbone=False,
-                       heads=None, res=RES):
-    """Full-width PoseShuffleNetV2 1x on `device` (with deform_backbone,
+                       heads=None, res=RES, w2=False, maxpool=False):
+    """Full-width PoseShuffleNetV2 1x on `device` (2x with w2, the pooled
+    stem with maxpool; with deform_backbone,
     that variant; the VOC ctdet heads unless `heads`; calibrated at
     `res`^2, or at (h, w) = `res`), random but not degenerate: every deform block's
     conv_scale redrawn (s fractional, partly off the map), BN running
@@ -569,6 +587,7 @@ def build_served_model(device="cuda", deform_backbone=False,
     gen = torch.Generator().manual_seed(SEED)
     model = create_model("shufflenetv2",
                          heads or {"hm": 20, "wh": 2, "reg": 2}, 64,
+                         w2=w2, maxpool=maxpool,
                          deform_backbone=deform_backbone, device=device,
                          generator=gen)
     for block in model.modules():
@@ -1035,6 +1054,7 @@ def conditioned_init(opt, deform_backbone=False):
     BN, the BN whose ReLU feeds the heads (HEAD_FEATURE_BNS)."""
     from codenet_torch.models import create_model
     model = create_model(opt.arch, opt.heads, opt.head_conv, device="cpu",
+                         w2=opt.w2, maxpool=opt.maxpool,
                          deform_backbone=deform_backbone,
                          generator=torch.Generator().manual_seed(opt.seed))
     keep = {head + ".4" for head in opt.heads} \
@@ -1111,6 +1131,29 @@ def timed_steps(trainer, batches, cache=None):
     return timed_steps_in_turns({"run": (trainer, batches, cache)})["run"]
 
 
+def timed_steps_with_memory(trainer, batches):
+    """timed_steps with the peak memory allocated over them, in MiB
+    (`peak_mib`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = timed_steps(trainer, batches)
+    run["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    return run
+
+
+def loader_batches(dataset, batch_size, n, num_workers, seed):
+    """The first n batches of a shuffled loader over `dataset`, taking
+    more epochs where one holds fewer, and the loader's ms per batch."""
+    from codenet_torch.data.loader import DataLoader
+    loader = DataLoader(dataset, batch_size, shuffle=True,
+                        num_workers=num_workers, seed=seed)
+    t0 = time.perf_counter()
+    batches = []
+    while len(batches) < n:
+        batches.extend(loader)
+    return batches[:n], (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
 def timed_steps_in_turns(paths):
     """Train steps on the card, each timed with CUDA events. `paths` maps a
     name to (trainer, batches, cache): step i of every path runs before
@@ -1157,7 +1200,6 @@ def timed_steps_in_turns(paths):
 def phase_train(data):
     """FP32 training: one step card vs CPU at batch 4; then 12 steps at
     batch 32 on port-sampler batches, the loader timed separately."""
-    from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.trainer import Trainer
     opt = data.opt(TRAIN_BATCH)
     parity, ok = step_parity(data, conditioned_init(opt))
@@ -1166,14 +1208,8 @@ def phase_train(data):
     if not ok:
         raise SystemExit("train parity check failed")
 
-    loader = DataLoader(data.dataset(opt), TRAIN_BATCH, shuffle=True,
-                        num_workers=opt.num_workers, seed=opt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < 12:
-        batches.extend(loader)
-    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
-    batches = batches[:12]
+    batches, loader_ms = loader_batches(data.dataset(opt), TRAIN_BATCH, 12,
+                                        opt.num_workers, opt.seed)
     trainer = Trainer(opt, device="cuda")
     trainer.init()
     run = timed_steps(trainer, batches)
@@ -1605,14 +1641,8 @@ def phase_devcache(data, train_run, host_batches):
     if len(same) != len(host) - 1 or not pixel_err <= CACHE_PIXEL_TOL:
         fail.append("cache batch vs host batch")
 
-    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True,
-                        num_workers=opt.num_workers, seed=opt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < 12:
-        batches.extend(loader)
-    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
-        / len(batches)
+    batches, out["loader_ms_per_batch"] = loader_batches(
+        ds, TRAIN_BATCH, 12, opt.num_workers, opt.seed)
     out["host_loader_ms_per_batch"] = train_run["loader_ms_per_batch"]
     trainer = Trainer(opt, device="cuda")
     trainer.init()
@@ -2335,7 +2365,6 @@ def _train_and_time(data, topt, steps, fail, out,
     """One step card vs CPU at `parity_batch` from conditioned_init
     (STEP_TOL), then `steps` timed steps at topt's batch on sampler
     batches, the loader timed apart. Returns the timed run."""
-    from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.trainer import Trainer
     parity, ok = step_parity(data, conditioned_init(topt),
                              batch=parity_batch)
@@ -2343,18 +2372,13 @@ def _train_and_time(data, topt, steps, fail, out,
                            "tol": STEP_TOL}
     if not ok:
         fail.append("train parity")
-    loader = DataLoader(data.dataset(topt), topt.batch_size, shuffle=True,
-                        num_workers=topt.num_workers, seed=topt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < steps:
-        batches.extend(loader)
-    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1e3 \
-        / len(batches)
+    batches, out["loader_ms_per_batch"] = loader_batches(
+        data.dataset(topt), topt.batch_size, steps, topt.num_workers,
+        topt.seed)
     out["loader_workers"] = topt.num_workers
     trainer = Trainer(topt, device="cuda")
     trainer.init()
-    run = timed_steps(trainer, batches[:steps])
+    run = timed_steps(trainer, batches)
     del batches
     out["train"] = run
     if not np.all(np.isfinite(run["losses"])) or any(
@@ -2584,10 +2608,12 @@ def _results_equal(a, b):
         np.array_equal(np.asarray(a[j]), np.asarray(b[j])) for j in a)
 
 
-def int8_task(name, data, ckpt, extra, stats_of, want_stats, export):
+def int8_task(name, data, ckpt, extra, stats_of, want_stats, export,
+              art=None):
     """Real int8 of one task from its QAT checkpoint `ckpt` (see
-    phase_int8_tasks). Returns (its JSON entry, forward launches of its
-    served and CLI paths, failed checks)."""
+    phase_int8_tasks), and from its artifact `art` where one was written,
+    else from the one `export` writes. Returns (its JSON entry, forward
+    launches of its served and CLI paths, failed checks)."""
     from codenet_torch.cli import test as cli_test
     from codenet_torch.cli.test import _request_meta
     from codenet_torch.engine.detector import detector_factory, eval_input
@@ -2595,15 +2621,17 @@ def int8_task(name, data, ckpt, extra, stats_of, want_stats, export):
     from codenet_torch.models import layers as L
     from codenet_torch.ops import deform_cuda as DC
     fail = []
-    art = str(ROOT / "exp" / "chip_smoke" / "{}_w4a8.npz".format(name))
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        rc = export.main(data.args(1, "--resume-quantize", "--load_model",
-                                   ckpt, "--out", art))
-    out = {"artifact_bytes": Path(art).stat().st_size,
-           "export_log": log.getvalue().splitlines()[-1]}
-    if rc != 0:
-        fail.append("export")
+    out = {}
+    if art is None:
+        art = str(ROOT / "exp" / "chip_smoke" / "{}_w4a8.npz".format(name))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = export.main(data.args(1, "--resume-quantize",
+                                       "--load_model", ckpt, "--out", art))
+        out["export_log"] = log.getvalue().splitlines()[-1]
+        if rc != 0:
+            fail.append("export")
+    out["artifact_bytes"] = Path(art).stat().st_size
 
     def detector(*more):
         return detector_factory(data.task)(data.opt(
@@ -2652,7 +2680,8 @@ def int8_task(name, data, ckpt, extra, stats_of, want_stats, export):
     model = dets["pth"].model
     images, _ = dets["pth"].pre_process(frames[0], 1, metas[0])
     x = eval_input(dets["pth"]._to_device(images), opt.mean, opt.std)
-    fake = create_model(opt.arch, opt.heads, opt.head_conv,
+    fake = create_model(opt.arch, opt.heads, opt.head_conv, w2=opt.w2,
+                        maxpool=opt.maxpool,
                         qspec=dataclasses.replace(
                             dets["pth"].qspec, int8_infer=False,
                             act_clamp=True), device="cuda")
@@ -2870,20 +2899,15 @@ def phase_backbones(data):
     stats) for dla_34 with no --arch (the CLIs' default) and hourglass."""
     from codenet_torch.cli import main as cli_main
     from codenet_torch.cli import test as cli_test
-    from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.detector import CtdetDetector
     from codenet_torch.engine.trainer import Trainer
     from codenet_torch.ops import deform_cuda as DC
     fail = []
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0
     topt = data.opt(max(b for _, b in ARCHS), arch="res_18")
-    loader = DataLoader(data.dataset(topt), topt.batch_size, shuffle=True,
-                        num_workers=topt.num_workers, seed=topt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < ARCH_TIMED_STEPS:
-        batches.extend(loader)
-    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    batches, loader_ms = loader_batches(
+        data.dataset(topt), topt.batch_size, ARCH_TIMED_STEPS,
+        topt.num_workers, topt.seed)
     rows = {}
     for arch, batch in ARCHS:
         row = {"batch": batch}
@@ -2898,12 +2922,9 @@ def phase_backbones(data):
         opt = data.opt(batch, arch=arch)
         trainer = Trainer(opt, device="cuda")
         trainer.init()
-        torch.cuda.reset_peak_memory_stats()
-        run = timed_steps(trainer, [
+        run = timed_steps_with_memory(trainer, [
             {k: v[:batch] for k, v in b.items() if k != "meta"}
-            for b in batches[:ARCH_TIMED_STEPS]])
-        run["max_memory_allocated_mb"] = \
-            torch.cuda.max_memory_allocated() / 2 ** 20
+            for b in batches])
         row["train"] = run
         if not np.all(np.isfinite(run["losses"])) or any(
                 st != [0, 0] for st in run["launches_per_step"]):
@@ -3028,7 +3049,6 @@ def synthreg_steps(data_root, res, steps=6):
     (timed_steps), the loader timed apart."""
     from codenet_torch import config as cfg
     from codenet_torch.data.datasets import get_dataset
-    from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine import checkpoint
     from codenet_torch.engine.trainer import Trainer
     from codenet_torch.models.layers import QuantSpec
@@ -3037,25 +3057,21 @@ def synthreg_steps(data_root, res, steps=6):
          "--input_res", str(res), "--batch_size", str(SYNTH_TRAIN_BATCH),
          "--num_workers", "1", "--no_color_aug", "--data_dir",
          str(data_root)]), cfg.DATASET_SPECS["pascal"])
-    loader = DataLoader(get_dataset("pascal", "ctdet")(opt, "train"),
-                        SYNTH_TRAIN_BATCH, shuffle=True, num_workers=1,
-                        seed=opt.seed)
-    t0 = time.perf_counter()
-    batches = []
-    while len(batches) < steps:
-        batches.extend(loader)
-    out = {"loader_ms_per_batch": (time.perf_counter() - t0) * 1e3
-           / len(batches), "batch": SYNTH_TRAIN_BATCH, "res": res}
+    batches, loader_ms = loader_batches(
+        get_dataset("pascal", "ctdet")(opt, "train"), SYNTH_TRAIN_BATCH,
+        steps, 1, opt.seed)
+    out = {"loader_ms_per_batch": loader_ms, "batch": SYNTH_TRAIN_BATCH,
+           "res": res}
     fp32 = Trainer(opt, device="cuda")
     fp32.init()
-    out["fp32"] = timed_steps(fp32, batches[:steps])
+    out["fp32"] = timed_steps(fp32, batches)
     qat = Trainer(opt, qspec=QuantSpec(), device="cuda")
     with contextlib.redirect_stdout(io.StringIO()):
         checkpoint.load_model(str(ROOT / "exp" / "ctdet" /
                                   "chip_smoke_synth_fp32" /
                                   "model_last.pth"), qat.model)
     qat.init()
-    out["qat"] = timed_steps(qat, batches[:steps])
+    out["qat"] = timed_steps(qat, batches)
     return out
 
 
@@ -3115,6 +3131,223 @@ def phase_synthreg():
         raise SystemExit("synthreg check failed: {}".format(failed))
     return [total[0] + sum(steps[k]["launches_fwd"] for k in ("fp32", "qat")),
             total[1] + sum(steps[k]["launches_bwd"] for k in ("fp32", "qat"))]
+
+
+# the paper's configs b-e (config a is the script's main path): input
+# side, the 2x network, the pooled stem (tools_torch/run_configs_ae.py)
+AE_CONFIGS = {"b": (RES, False, True), "c": (COCO_RES, False, False),
+              "d": (COCO_RES, True, False), "e": (COCO_RES, True, True)}
+# the 2x network's deconv maps at 512^2 (configs d and e)
+W2_SHAPE = (16, 16, 2153)
+W2_SHAPES = [W2_SHAPE, (32, 32, 256), (64, 64, 128)]
+AE_TIMED_STEPS = 6
+# the driver's smoke: its PNG set (tools_torch/synthetic_data.py) and the
+# epochs of its stages (an epoch is one step: 32 train frames at batch 32;
+# QAT resumes at epoch 2)
+AE_SMOKE_IMAGES = (32, 8)
+AE_SMOKE_ARGS = ["--fp32_epochs", "2", "--qat_epochs", "4",
+                 "--device_cache", "--retries", "0"]
+# the reference's published W4A8 parameter files, 1x and 2x (bytes)
+REFERENCE_ARTIFACT = {False: 0.76e6, True: 2.90e6}
+
+
+class ConfigSmokeData(SmokeData):
+    """One of configs b-e on a synthetic VOC set: SmokeData's in-memory
+    frames, or with `data_dir` a PNG set on disk; every command line
+    carries the config's input side and flags."""
+
+    def __init__(self, config, data_dir=None):
+        self.res, w2, maxpool = AE_CONFIGS[config]
+        self.flags = ["--w2"] * w2 + ["--maxpool"] * maxpool
+        if data_dir is None:
+            super().__init__()
+        else:
+            self.data_dir = Path(data_dir)
+
+    def args(self, batch, *extra, arch="shufflenetv2"):
+        return super().args(batch, *self.flags, *extra, arch=arch)
+
+
+def configs_ae_driver(configs, work, fail):
+    """tools_torch/run_configs_ae.py --smoke over `configs` on a small PNG
+    set, each stage's entry point run in this process (its launches
+    counted). Returns (data root, {config: [forward, backward]
+    launches}, the driver's stage lines)."""
+    import importlib
+    import importlib.util
+    from codenet_torch.ops import deform_cuda as DC
+    sys.path.insert(0, str(ROOT / "tools_torch"))
+    from synthetic_data import make_voc_dataset
+
+    def tool(name):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "tools_torch" / "{}.py".format(name))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    driver, export = tool("run_configs_ae"), tool("export_w4a8")
+    # the driver's exp dirs are the real matrix's: take over only those
+    # this script made (marker .chip_smoke), so that a trained matrix in
+    # this checkout is never deleted
+    for name in configs:
+        old = ROOT / "exp" / "ctdet" / \
+            "pascal_shufflenetv2_config_{}".format(name)
+        if old.exists():
+            if not (old / ".chip_smoke").exists():
+                raise SystemExit("configs_ae: {} holds a run this script "
+                                 "did not make; move it aside".format(old))
+            shutil.rmtree(old)
+    root = work / "configs_ae_data"
+    shutil.rmtree(root, ignore_errors=True)
+    make_voc_dataset(str(root), num_images=AE_SMOKE_IMAGES[0], img_w=160,
+                     img_h=120, seed=SEED, test_images=AE_SMOKE_IMAGES[1])
+    launches, current = {}, []
+
+    def runner(cmd):
+        """[python, -m, codenet_torch.cli.<name>, *argv] or [python,
+        tools_torch/export_w4a8.py, *argv] -> its main(argv) here, its
+        output into configs_ae.log; an exception ends the script."""
+        if cmd[1] == "-m":
+            entry, argv = importlib.import_module(cmd[2]).main, cmd[3:]
+        else:
+            entry, argv = export.main, cmd[2:]
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        with open(work / "configs_ae.log", "a") as log, \
+                contextlib.redirect_stdout(log):
+            rc = entry(argv)
+        counts = launches.setdefault(current[0], [0, 0])
+        counts[0] += DC.LAUNCHES - before[0]
+        counts[1] += DC.BWD_LAUNCHES - before[1]
+        # the CLIs return their trainer or detector, the export tool its
+        # exit code
+        return rc if isinstance(rc, int) else 0
+    lines = []
+    for name in configs:
+        current[:] = [name]
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log), images_from_files():
+            rc = driver.main(["--configs", name, "--data_dir", str(root),
+                              "--smoke", *AE_SMOKE_ARGS], runner=runner)
+        lines += [json.loads(ln) for ln in log.getvalue().splitlines()
+                  if ln.startswith("{")]
+        exp_dir = ROOT / "exp" / "ctdet" / \
+            "pascal_shufflenetv2_config_{}".format(name)
+        (exp_dir / ".chip_smoke").write_text("")
+        if rc != 0:
+            fail.append("{} driver rc {}".format(name, rc))
+    return root, launches, lines
+
+
+def phase_configs_ae():
+    """The paper's configs b-e (config a is the main path's), each at its
+    input side with the full-width 1x or 2x network: a served batch-2
+    forward card vs CPU (1e-3 of each head's max, 3 launches); FP32 and
+    QAT (--wt-percentile --act_clamp) train steps at batch 32 from the
+    port's init, AE_TIMED_STEPS each timed with CUDA events, with peak
+    memory; for config d one FP32 step card vs CPU at batch 2 from
+    conditioned_init (STEP_TOL: the 2153-channel backward in a real
+    step); 8 flip-test requests with their stage timers. Then
+    tools_torch/run_configs_ae.py --smoke over b-e on a PNG set (FP32 ->
+    QAT -> fake-quant and int8 evals -> export, each stage one step or
+    one eval) and, from each config's QAT checkpoint and the driver's
+    artifact (int8_task): equal detections and decoded top-K from the
+    .pth and the artifact, int8 heads card vs CPU and against the
+    act-clamp fake-quant (INT8_TOL), the int8 and fake-quant forwards
+    timed, `cli.test --int8_infer` from the artifact, and the artifact's
+    bytes beside the reference's. Returns the (forward, backward)
+    launches."""
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    out, fail = {"phase": "configs_ae"}, []
+    total = [0, 0]
+    batches = {}
+    for name, (res, w2, maxpool) in AE_CONFIGS.items():
+        entry = {"res": res, "w2": w2, "maxpool": maxpool}
+        out[name] = entry
+        model = build_served_model(res=res, w2=w2, maxpool=maxpool)
+        DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+        fwd, ok = heads_card_vs_cpu(model, 1e-3, 3, res=res)
+        entry["heads_card_vs_cpu"] = fwd
+        if not ok:
+            fail.append(name + " heads")
+
+        data = ConfigSmokeData(name)
+        opt = data.opt(TRAIN_BATCH)
+        if res not in batches:
+            batches[res] = loader_batches(data.dataset(opt), opt.batch_size,
+                                          AE_TIMED_STEPS, opt.num_workers,
+                                          opt.seed)
+        steps, entry["loader_ms_per_batch"] = batches[res]
+        fp32 = Trainer(opt, device="cuda")
+        fp32.init()
+        entry["fp32"] = timed_steps_with_memory(fp32, steps)
+        qat = Trainer(opt, qspec=QuantSpec(wt_percentile=True,
+                                           act_clamp=True), device="cuda")
+        qat.model.load_state_dict(fp32.model.state_dict(), strict=False)
+        qat.init()
+        entry["qat"] = timed_steps_with_memory(qat, steps)
+        del fp32, qat
+        for key in ("fp32", "qat"):
+            if not np.all(np.isfinite(entry[key]["losses"])) or any(
+                    st != [3, 3] for st in entry[key]["launches_per_step"]):
+                fail.append("{} {} steps".format(name, key))
+        if name == "d":
+            parity, ok = step_parity(data, conditioned_init(opt), batch=2)
+            entry["train_parity"] = {"batch": 2, **parity, "tol": STEP_TOL}
+            if not ok:
+                fail.append("d train parity")
+
+        det = CtdetDetector(data.opt(1, "--flip_test"),
+                            state_dict=model.state_dict(), device="cuda")
+        val = data.dataset(det.opt, "val")
+        rets = [det.run(val.load_image(i)) for i in range(len(val))]
+        entry["requests_ms"] = [dict(_ms(r), dets=int(sum(
+            len(v) for v in r["results"].values()))) for r in rets]
+        total[0] += DC.LAUNCHES
+        total[1] += DC.BWD_LAUNCHES
+        if not all(np.isfinite(v).all() for r in rets
+                   for v in r["results"].values()):
+            fail.append(name + " requests")
+        del model, det
+        torch.cuda.empty_cache()
+
+    work = ROOT / "exp" / "chip_smoke"
+    t0 = time.perf_counter()
+    root, launches, lines = configs_ae_driver(list(AE_CONFIGS), work, fail)
+    out["driver"] = {"seconds": time.perf_counter() - t0,
+                     "args": AE_SMOKE_ARGS, "images": AE_SMOKE_IMAGES,
+                     "stages": lines, "launches": launches}
+    for name, (res, w2, maxpool) in AE_CONFIGS.items():
+        counts = launches.get(name, [0, 0])
+        total = [a + b for a, b in zip(total, counts)]
+        # FP32 and QAT: two steps each (an epoch is one batch) and a
+        # final eval of the val frames; the two flip-test evals, the int8
+        # one deriving its weights with one more forward; the export's
+        # capture forward
+        want = [3 * (4 * AE_SMOKE_IMAGES[1] + 4 + 1 + 1), 3 * 4]
+        if counts != want:
+            fail.append("{} driver launches {} (want {})".format(
+                name, counts, want))
+        exp_dir = ROOT / "exp" / "ctdet" / \
+            "pascal_shufflenetv2_config_{}".format(name)
+        data = ConfigSmokeData(name, root)
+        with images_from_files():
+            entry, n, failed = int8_task(
+                name, data, str(exp_dir / "model_last.pth"),
+                ["--flip_test"], lambda text: _lines_with(text, "Mean AP"),
+                1, None, art=str(exp_dir / "model_w4a8.npz"))
+        total[0] += n
+        entry["reference_artifact_bytes"] = REFERENCE_ARTIFACT[w2]
+        out[name]["int8"] = entry
+        fail += ["{} int8 {}".format(name, f) for f in failed]
+    out["launches"] = total
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("configs_ae check failed: {}".format(fail))
+    return total
 
 
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
@@ -3189,6 +3422,7 @@ def main(argv=None):
     ddd = phase_ddd(KittiSmokeData(), rows, bwd_rows)
     exdet = phase_exdet(CocoSmokeData("exdet"))
     int8_tasks = phase_int8_tasks()
+    configs = phase_configs_ae()
     phase_backbones(CocoSmokeData("ctdet"))
     synth = phase_synthreg()
 
@@ -3211,7 +3445,7 @@ def main(argv=None):
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
-        + exdet[0] + int8_tasks + synth[0],
+        + exdet[0] + int8_tasks + configs[0] + synth[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -3233,6 +3467,10 @@ def main(argv=None):
     # and of one served ddd forward at 384x1280 (batch 1: no flip test)
     fwd_entry.update(path_ms(rows, "served_forward_kitti", 1, "float32",
                              shapes=KITTI_SHAPES))
+    # and of one served forward of the 2x network at 512^2 (configs d and
+    # e; batch 2, f32)
+    fwd_entry.update(path_ms(rows, "served_forward_w2_512", 2, "float32",
+                             shapes=W2_SHAPES))
     # backward: one train step's three calls (batch 32, f32); launches
     # over the FP32, QAT, image-cache, bf16, deform-backbone, multi_pose,
     # ddd and exdet training paths and the CLIs that train
@@ -3241,7 +3479,7 @@ def main(argv=None):
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
-        + ddd[1] + exdet[1] + synth[1], bwd_rows,
+        + ddd[1] + exdet[1] + configs[1] + synth[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone
@@ -3256,6 +3494,10 @@ def main(argv=None):
     # and of one ddd train step at 384x1280 (batch 16, f32)
     bwd_entry.update(path_ms(bwd_rows, "train_step_kitti", KITTI_TRAIN_BATCH,
                              "float32", shapes=KITTI_SHAPES))
+    # and of one train step of the 2x network at 512^2 (configs d and e;
+    # batch 32, f32)
+    bwd_entry.update(path_ms(bwd_rows, "train_step_w2_512", TRAIN_BATCH,
+                             "float32", shapes=W2_SHAPES))
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,

@@ -15,6 +15,9 @@ eval of the last checkpoint (reference quant_main.py:104-107).
         --arch shufflenetv2 --batch_size 32 [--gpus -1]
 
 ``--gpus -1`` runs on the CPU; otherwise the CUDA card is required.
+``--test`` only decodes and scores the val split; ``--debug N`` renders
+each batch's first image into exp/<task>/<exp_id>/debug/;
+``--eval_oracle_*`` replaces heads by their ground truth in the val loss.
 ``--device_cache`` (ctdet) holds the train split's raw frames on the
 device and warps them there; ``--host_normalize`` augments and normalises
 on the host (the reference's path). Checkpoints are .pth files in
@@ -35,10 +38,9 @@ from ..utils.logger import Logger
 
 
 def run_training(opt, qspec=None):
-    for flag in ("test", "trace"):
-        if getattr(opt, flag, False):
-            raise NotImplementedError(
-                "--{} is queued in ROADMAP.md".format(flag))
+    if opt.trace:
+        raise NotImplementedError(
+            "--trace is queued in ROADMAP.md (item 23)")
     check_sampler_opt(opt)
     Dataset = get_dataset(opt.dataset, opt.task)
     opt = cfg.update_dataset_info_and_set_heads(
@@ -62,6 +64,14 @@ def run_training(opt, qspec=None):
 
     val_loader = DataLoader(Dataset(opt, "val"), 1, shuffle=False,
                             num_workers=1)
+    if opt.test:
+        # val only: decode the val images' predictions and score them
+        # (reference main.py:51-54)
+        _, preds = trainer.val(0, val_loader)
+        os.makedirs(opt.save_dir, exist_ok=True)
+        val_loader.dataset.run_eval(preds, opt.save_dir)
+        logger.close()
+        return trainer
     train_dataset = Dataset(opt, "train")
     if opt.device_cache:
         if opt.task != "ctdet":

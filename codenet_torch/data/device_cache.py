@@ -108,7 +108,7 @@ class ImageCache:
         if shard:
             raise NotImplementedError(
                 "--device_cache_shard needs data-parallel training, queued "
-                "with DDP in ROADMAP.md")
+                "with DDP in ROADMAP.md (item 20)")
         device = torch.device(device)
         if device.type == "cuda":
             total = torch.cuda.get_device_properties(device).total_memory

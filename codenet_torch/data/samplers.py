@@ -44,17 +44,17 @@ from .device_aug import draw_color_aug_params, identity_aug_params
 from .device_cache import flip_compose
 from .image_aug import color_aug
 
-_UNPORTED = {"mse_loss": "--mse_loss", "dense_wh": "--dense_wh",
-             "dense_hp": "--dense_hp",
-             "device_cache_shard": "--device_cache_shard"}
+# flag -> its ROADMAP.md item
+_UNPORTED = {"mse_loss": 22, "dense_wh": 22, "dense_hp": 22,
+             "device_cache_shard": 20}
 
 
 def check_sampler_opt(opt):
-    for flag, name in _UNPORTED.items():
+    for flag, item in _UNPORTED.items():
         if getattr(opt, flag, False):
             raise NotImplementedError(
-                "{} is queued in ROADMAP.md; the port's samplers ship the "
-                "focal-loss targets".format(name))
+                "--{} is queued in ROADMAP.md (item {}); the port's "
+                "samplers ship the focal-loss targets".format(flag, item))
 
 
 def finish_input(sampler, inp_u8, is_train, rng):

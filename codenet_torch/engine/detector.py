@@ -131,16 +131,11 @@ def device_from_opt(opt):
 
 
 def check_unported_eval_flags(opt):
-    """--debug rendering and --trace are not ported (ROADMAP.md items 22
-    and 23): raise rather than run as if they were not set."""
-    unported = []
-    if getattr(opt, "debug", 0) >= 1:
-        unported.append("--debug")
+    """--trace is not ported (ROADMAP.md item 23): raise rather than run
+    as if it were not set."""
     if getattr(opt, "trace", False):
-        unported.append("--trace")
-    if unported:
         raise NotImplementedError(
-            "{} queued in ROADMAP.md".format(", ".join(unported)))
+            "--trace is queued in ROADMAP.md (item 23)")
 
 
 class BaseDetector:
@@ -156,7 +151,7 @@ class BaseDetector:
         if opt.device_cache_shard:
             raise NotImplementedError(
                 "--device_cache_shard needs data-parallel training, queued "
-                "with DDP in ROADMAP.md")
+                "with DDP in ROADMAP.md (item 20)")
         self.device = resolve_device(device or device_from_opt(opt))
         self.qspec = None
         if opt.resume_quantize:
@@ -291,9 +286,30 @@ class BaseDetector:
         end_time = time.time()
         merge_time += end_time - post_process_time
         tot_time += end_time - start_time
+
+        if self.opt.debug >= 1 and image is not None:
+            self.show_results(image, results)
         return {"results": results, "tot": tot_time, "load": load_time,
                 "pre": pre_time, "net": net_time, "dec": dec_time,
                 "post": post_time, "merge": merge_time}
+
+    def show_results(self, image, results):
+        """--debug >= 1: the request's final detections above
+        --vis_thresh drawn over its image, saved as
+        det_<ms>_out.png in opt.debug_dir (headless; the JAX package's
+        BaseDetector.show_results, for every task)."""
+        from ..utils.debugger import Debugger
+        debugger = Debugger(dataset=self.opt.dataset,
+                            theme=self.opt.debugger_theme)
+        debugger.add_img(image, img_id="out")
+        for j in range(1, self.num_classes + 1):
+            for bbox in results.get(j, []):
+                bbox = np.asarray(bbox)
+                if bbox[4] > self.opt.vis_thresh:
+                    debugger.add_coco_bbox(bbox[:4], j - 1, bbox[4],
+                                           img_id="out")
+        debugger.save_all_imgs(self.opt.debug_dir, prefix="det_{}_".format(
+            int(time.time() * 1000) % 1000000))
 
 
 class CtdetDetector(BaseDetector):

@@ -15,9 +15,10 @@ bias correction, eps outside the square root. With ``--dtype bfloat16``
 the model's convs take bf16 operands (models/layers.py); its heads, the
 loss, the parameters and Adam's state stay f32.
 
-The epoch loop is the JAX package's per-step path. Its scan-epoch engine,
-fused train heads, oracle probes and debug / result hooks are not ported
-and their flags raise.
+The epoch loop is the JAX package's per-step path, with its hooks:
+--debug renders and --test's decoded val results (engine/train_hooks.py)
+and the --eval_oracle_* probes (make_oracle_val_step). Its scan-epoch
+engine and fused train heads are not ported; --spatial_shard raises.
 """
 
 from __future__ import annotations
@@ -95,6 +96,61 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
     return step
 
 
+def make_oracle_val_step(model, loss_fn, loss_opts, opt, mean, std):
+    """The val step with ground-truth head substitution: the
+    --eval_oracle_* upper-bound probes (the JAX package's
+    make_oracle_val_step; reference trains/ctdet.py:36-47,
+    multi_pose.py:36-54). Each probe replaces its head (logits of the
+    clipped ground-truth heatmap for hm and hm_hp; utils/oracle.py's
+    nearest-object fill for wh, reg, dep, hps and hp_offset) before the
+    loss."""
+    from ..utils.oracle import gen_oracle_map
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    @torch.no_grad()
+    def step(batch):
+        model.eval()
+        inp = model_input(batch, mean, std, (opt.input_h, opt.input_w),
+                          batch.get("cache_images"))
+        batch = resolve_targets(batch, inp, opt.down_ratio, opt.num_classes)
+        dev = inp.device
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        def logits(gt):
+            gt = np.clip(host(gt), 1e-4, 1 - 1e-4)
+            return put(np.log(gt / (1 - gt)))
+        subbed = []
+        for output in stacks(model(inp)):
+            output = dict(output)
+            h, w = output[next(iter(output))].shape[1:3]
+            ind = host(batch["ind"]) if "ind" in batch else None
+            if opt.eval_oracle_hm and "hm" in output:
+                output["hm"] = logits(batch["hm"])
+            for flag, head in (("eval_oracle_wh", "wh"),
+                               ("eval_oracle_offset", "reg"),
+                               ("eval_oracle_dep", "dep")):
+                if getattr(opt, flag) and head in output:
+                    output[head] = put(gen_oracle_map(host(batch[head]),
+                                                      ind, w, h))
+            if opt.eval_oracle_hmhp and "hm_hp" in output:
+                output["hm_hp"] = logits(batch["hm_hp"])
+            if opt.eval_oracle_kps and "hps" in output:
+                output["hps"] = put(gen_oracle_map(host(batch["hps"]), ind,
+                                                   w, h))
+            if opt.eval_oracle_hp_offset and "hp_offset" in output:
+                output["hp_offset"] = put(gen_oracle_map(
+                    host(batch["hp_offset"]), host(batch["hp_ind"]), w, h))
+            subbed.append(output)
+        _, stats = loss_fn(subbed, batch, loss_opts)
+        return {k: torch.as_tensor(v) for k, v in stats.items()}
+
+    return step
+
+
 def make_val_step(model, loss_fn, loss_opts, mean, std, down_ratio=4,
                   num_classes=None, input_hw=None):
     @torch.no_grad()
@@ -114,14 +170,9 @@ class Trainer:
     `cuda` unless opt.gpus is -1 or `device` says otherwise."""
 
     def __init__(self, opt, qspec=None, device=None):
-        unported = [f for f in _ORACLES if getattr(opt, f, False)]
-        if getattr(opt, "debug", 0) > 0:
-            unported.append("--debug")
         if getattr(opt, "spatial_shard", 1) > 1:
-            unported.append("--spatial_shard")
-        if unported:
             raise NotImplementedError(
-                "{} queued in ROADMAP.md".format(", ".join(unported)))
+                "--spatial_shard is queued with DDP in ROADMAP.md (item 20)")
         self.opt = opt
         self.qspec = qspec
         self.device = resolve_device(device or device_from_opt(opt))
@@ -141,10 +192,24 @@ class Trainer:
         # the device-resident image stack (data/device_cache.py), set by
         # the CLI with --device_cache; run_epoch hands it to cache batches
         self.image_cache = None
-        self.val_step = make_val_step(self.model, self.loss_fn,
-                                      self.loss_opts, self.mean, self.std,
-                                      opt.down_ratio, opt.num_classes,
-                                      self.input_hw)
+        if any(getattr(opt, f, False) for f in _ORACLES):
+            self.val_step = make_oracle_val_step(
+                self.model, self.loss_fn, self.loss_opts, opt, self.mean,
+                self.std)
+        else:
+            self.val_step = make_val_step(
+                self.model, self.loss_fn, self.loss_opts, self.mean,
+                self.std, opt.down_ratio, opt.num_classes, self.input_hw)
+        self._hooks = None
+
+    @property
+    def hooks(self):
+        """The debug / save_result hooks (engine/train_hooks.py), made when
+        --debug or --test first needs them."""
+        if self._hooks is None:
+            from .train_hooks import TrainHooks
+            self._hooks = TrainHooks(self.opt, self.model)
+        return self._hooks
 
     # -- state ---------------------------------------------------------
     def init(self):
@@ -165,7 +230,11 @@ class Trainer:
             group["lr"] = lr
 
     # -- epochs ----------------------------------------------------------
-    def run_epoch(self, phase, epoch, loader, num_iters=-1, print_iter=0):
+    def run_epoch(self, phase, epoch, loader, num_iters=-1, print_iter=0,
+                  results=None):
+        """One epoch of `phase` steps; the meters' averages. With --debug
+        each batch's first image is rendered after its step, and with
+        --test and a `results` dict its decoded predictions go there."""
         meters = {}
         data_time = AverageMeter()
         batch_time = AverageMeter()
@@ -187,6 +256,7 @@ class Trainer:
             if it >= n_iters:
                 break
             bs = batch_size_of(batch)
+            meta = batch.get("meta")
             batch = batch_to_device(batch, self.device)
             if "img_idx" in batch:
                 batch["cache_images"] = self.image_cache
@@ -205,6 +275,16 @@ class Trainer:
                         data_time.avg, batch_time.avg)
                 print("{} epoch {} [{}/{}] {}{}".format(
                     phase, epoch, it, n_iters, msg, times))
+            want_debug = self.opt.debug > 0
+            want_save = results is not None and self.opt.test
+            if want_debug or want_save:
+                fwd_out = self.hooks.forward(batch)
+                if want_debug:
+                    self.hooks.debug(batch, meta, it, phase=phase,
+                                     fwd_out=fwd_out)
+                if want_save:
+                    self.hooks.save_result(batch, meta, results,
+                                           fwd_out=fwd_out)
         flush()
         return {k: m.avg for k, m in meters.items()}
 
@@ -214,6 +294,10 @@ class Trainer:
                               print_iter=self.opt.print_iter)
 
     def val(self, epoch, loader):
-        """Returns (stats, results); results stays empty (the decoded
-        predictions of --test are not ported)."""
-        return self.run_epoch("val", epoch, loader), {}
+        """Returns (stats, results), as the reference trainer.val: with
+        --test, `results` holds each val image's decoded detections
+        (ctdet, multi_pose, ddd), keyed by image id; else it stays
+        empty."""
+        results = {}
+        stats = self.run_epoch("val", epoch, loader, results=results)
+        return stats, results

@@ -211,9 +211,17 @@ def int8_conv_terms(values, q_w, stride=1, padding=1, groups=1):
     taps that fall inside the map.
 
     Every operand is an int8 level (|v| <= 128) or a weight level (|q| <=
-    128), exact in f32 and in TF32 (11 significant bits), and every
-    partial sum of config a stays far below 2^24, so a float conv of the
-    integer values sums exactly in any order. Unpadded 1x1 convs are a
+    2^(w_bit - 1): 8 at 4 bits, 128 for layer0's 8 bits), exact in f32 and
+    in TF32 (11 significant bits). Every partial sum is bounded by the
+    conv's fan-in per output (Cin / groups x kh x kw) x 128 x the weight
+    level bound, below 2^24 in every config (a-e), so a float conv of the
+    integer values sums exactly in any order. The largest is in configs d
+    and e (--w2): deconv0's 1x1 mixer over 2153 channels, 2153 x 128 x 8
+    = 2,204,672 (layer4's 1x1 over 976: 999,424; layer0: 27 x 128 x 128
+    = 442,368); at 1x, deconv0's mixer over 1024 channels, 1,048,576.
+    tests/test_torch_w2_int8.py::test_int8_partial_sums_exact_in_f32
+    computes the bound of every int8 conv of configs d and e and holds
+    their accumulators to the exact f64 sums. Unpadded 1x1 convs are a
     matmul of the (positions, Cin) values, their factor a per-channel
     constant (O,); the rest are a conv, their factor a conv of a ones map
     with the channel-summed kernel, (1, O, Ho, Wo)."""

@@ -2,8 +2,9 @@
 utils/ddd_utils.py; reference lib/utils/ddd_utils.py).
 
 Camera-frame 3D box <-> image projection, alpha <-> rotation_y, and the
-2D -> 3D unprojection at a known depth through a 3x4 calibration matrix.
-`draw_box_3d` (--debug rendering) is not ported.
+2D -> 3D unprojection at a known depth through a 3x4 calibration matrix,
+and `draw_box_3d`, the wireframe of --debug renders (cv2, imported when
+it draws).
 """
 
 from __future__ import annotations
@@ -31,6 +32,27 @@ def project_to_image(pts_3d, P):
         [pts_3d, np.ones((pts_3d.shape[0], 1), dtype=np.float32)], axis=1)
     pts_2d = np.dot(P, pts_3d_homo.transpose(1, 0)).transpose(1, 0)
     return pts_2d[:, :2] / pts_2d[:, 2:]
+
+
+def draw_box_3d(image, corners, c=(0, 0, 255)):
+    """Wireframe a projected 3D box (reference ddd_utils.py:53-68) into
+    `image` in place; (8, 2) int corners from project_to_image."""
+    import cv2
+    face_idx = [[0, 1, 5, 4], [1, 2, 6, 5], [2, 3, 7, 6], [3, 0, 4, 7]]
+    for ind_f in range(3, -1, -1):
+        f = face_idx[ind_f]
+        for j in range(4):
+            cv2.line(image, (corners[f[j], 0], corners[f[j], 1]),
+                     (corners[f[(j + 1) % 4], 0], corners[f[(j + 1) % 4], 1]),
+                     c, 2, lineType=cv2.LINE_AA)
+        if ind_f == 0:
+            cv2.line(image, (corners[f[0], 0], corners[f[0], 1]),
+                     (corners[f[2], 0], corners[f[2], 1]), c, 1,
+                     lineType=cv2.LINE_AA)
+            cv2.line(image, (corners[f[1], 0], corners[f[1], 1]),
+                     (corners[f[3], 0], corners[f[3], 1]), c, 1,
+                     lineType=cv2.LINE_AA)
+    return image
 
 
 def unproject_2d_to_3d(pt_2d, depth, P):

@@ -1,7 +1,8 @@
-"""Host post-processing of multi_pose and ddd detections (the JAX
+"""Host post-processing of ctdet, multi_pose and ddd detections (the JAX
 package's utils/post_process.py:17-118; reference lib/utils/
-post_process.py). ctdet back-projects on the device (models/decode.py::
-backproject_dets)."""
+post_process.py). The ctdet detector back-projects on the device
+(models/decode.py::backproject_dets); `ctdet_post_process` serves the
+trainer's --test results (engine/train_hooks.py)."""
 
 from __future__ import annotations
 
@@ -23,6 +24,26 @@ def get_alpha(rot):
     alpha1 = np.arctan2(rot[:, 2], rot[:, 3]) + (-0.5 * np.pi)
     alpha2 = np.arctan2(rot[:, 6], rot[:, 7]) + (0.5 * np.pi)
     return alpha1 * idx + alpha2 * (1 - idx)
+
+
+def ctdet_post_process(dets, c, s, h, w, num_classes):
+    """dets (N, K, 6) output-map ctdet detections [x1 y1 x2 y2 score cls]
+    -> per image {class: [[x1, y1, x2, y2, score], ...]} in image pixels
+    (reference post_process.py:86-103); `dets` is changed in place."""
+    ret = []
+    for i in range(dets.shape[0]):
+        top_preds = {}
+        dets[i, :, :2] = transform_preds(dets[i, :, 0:2], c[i], s[i], (w, h))
+        dets[i, :, 2:4] = transform_preds(dets[i, :, 2:4], c[i], s[i],
+                                          (w, h))
+        classes = dets[i, :, -1]
+        for j in range(num_classes):
+            inds = classes == j
+            top_preds[j + 1] = np.concatenate([
+                dets[i, inds, :4].astype(np.float32),
+                dets[i, inds, 4:5].astype(np.float32)], axis=1).tolist()
+        ret.append(top_preds)
+    return ret
 
 
 def ddd_post_process_2d(dets, c, s, opt):

@@ -53,11 +53,13 @@ def deform_case(shape, seed=0, n=2, s_range=(-9.0, 10.0), dtype=np.float32):
     return x, s, wt
 
 
-def perturb_variables(variables, seed, res=64, deform_backbone=False):
+def perturb_variables(variables, seed, res=64, deform_backbone=False,
+                      w2=False, maxpool=False):
     """Numpy copy of JAX PoseShuffleNetV2 {'params', 'batch_stats'} trees
     that makes a random-weight model a fair test of the port (with
     `deform_backbone`, of that variant, whose trees only the port's
-    `to_jax_variables` writes):
+    `to_jax_variables` writes; with `w2` / `maxpool`, of the 2x network /
+    the pooled stem):
 
     - every deform block's conv_scale is redrawn, so that s is fractional
       and partly out of the map (at init s == 1 and every tap lands on a
@@ -98,7 +100,8 @@ def perturb_variables(variables, seed, res=64, deform_backbone=False):
     heads = {k[5:]: v["out"]["bias"].shape[0]
              for k, v in variables["params"].items() if k.startswith("head_")}
     model = create_model("shufflenetv2", heads, 64, device="cpu",
-                         deform_backbone=deform_backbone)
+                         deform_backbone=deform_backbone, w2=w2,
+                         maxpool=maxpool)
     model.load_state_dict(from_jax_variables(variables))
     calibrate_bn(model, r.randn(4, res, res, 3).astype(np.float32))
     if deform_backbone:

@@ -60,10 +60,12 @@ def _mixed_s(s, seed):
 
 
 # one image alone; the served batch; the train batch; KITTI's 48x160 map,
-# whose bands clip at row 0 and at row H - 1
+# whose bands clip at row 0 and at row H - 1; the 2x network's deconv0
+# map (configs d and e at 512^2: 2153 channels, a multiple of neither 4
+# nor 8) at the train batch
 FWD_CASES = [((32, 32, 128), 1), ((16, 16, 256), 2), ((8, 8, 1024), 32),
              ((32, 32, 128), 32), ((12, 12, 58), 32), ((48, 160, 64), 2),
-             ((48, 160, 64), 32)]
+             ((48, 160, 64), 32), ((16, 16, 2153), 32)]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Three repaired divergences of the port from the JAX package.
 
-- F1: `cli.test` and `BaseDetector` raise on --debug >= 1 and --trace
-  (the hooks are not ported), as `cli.main` and `Trainer` do, instead of
-  running as if the flag were not set;
+- F1: `cli.test` and `BaseDetector` raise on --trace (not ported), as
+  `cli.main` does, instead of running as if the flag were not set; since
+  --debug's renders are ported, --debug >= 1 draws each request's
+  detections into opt.debug_dir, as the JAX detector does;
 - F2: `cli.main` runs ctdet's final eval whenever num_epochs > 0, as the
   JAX package does, also after a --resume from a checkpoint already at
   the last epoch (no epoch left to train);
@@ -97,16 +98,48 @@ def _voc_args(root, *extra):
 
 @pytest.mark.parametrize("flag", [["--debug", "1"], ["--trace"]],
                          ids=["debug", "trace"])
-def test_cli_test_and_detector_refuse_unported_flags(data_root, flag):
+def test_cli_test_and_detector_refuse_unported_flags(data_root, flag,
+                                                     monkeypatch):
+    """--trace raises in cli.test and the detector (ROADMAP.md item 23);
+    --debug 1 runs both and renders one det_<ms>_out.png a request (the
+    renders are counted as saves: two requests in one millisecond write
+    one file name)."""
+    import shutil
     from codenet_torch.cli.test import main as test_main
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        test_main(_voc_args(data_root, "--exp_id", "torch_faults_f1",
-                            *flag))
     opt = tcfg.update_dataset_info_and_set_heads(
-        tcfg.parse(_voc_args(data_root, *flag)),
+        tcfg.parse(_voc_args(data_root, "--exp_id", "torch_faults_f1",
+                             *flag)),
         tcfg.DATASET_SPECS["pascal"])
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        TDET.CtdetDetector(opt, device="cpu")
+    if flag == ["--trace"]:
+        with pytest.raises(NotImplementedError, match="--trace.*item 23"):
+            test_main(_voc_args(data_root, "--exp_id", "torch_faults_f1",
+                                *flag))
+        with pytest.raises(NotImplementedError, match="--trace"):
+            TDET.CtdetDetector(opt, device="cpu")
+        return
+    from codenet_torch.utils.debugger import Debugger
+    saves = []
+    save_all_imgs = Debugger.save_all_imgs
+
+    def counted(self, path, prefix="", **kw):
+        saves.append((path, prefix, list(self.imgs)))
+        return save_all_imgs(self, path, prefix=prefix, **kw)
+    monkeypatch.setattr(Debugger, "save_all_imgs", counted)
+    shutil.rmtree(opt.debug_dir, ignore_errors=True)
+    test_main(_voc_args(data_root, "--exp_id", "torch_faults_f1", *flag))
+    assert len(saves) == 3 and all(
+        path == opt.debug_dir and prefix.startswith("det_") and
+        imgs == ["out"] for path, prefix, imgs in saves)
+    names = os.listdir(opt.debug_dir)
+    assert names and all(
+        n.startswith("det_") and n.endswith("_out.png") for n in names)
+    from codenet_torch.data.image_io import read_png
+    frame = (np.random.RandomState(3).rand(90, 120, 3) * 255).astype(
+        np.uint8)
+    shutil.rmtree(opt.debug_dir)
+    TDET.CtdetDetector(opt, device="cpu").run(frame)
+    (name,) = os.listdir(opt.debug_dir)
+    assert read_png(os.path.join(opt.debug_dir, name)).shape == frame.shape
 
 
 # -- F2 -----------------------------------------------------------------------

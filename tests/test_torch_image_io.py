@@ -308,3 +308,21 @@ def test_make_voc_dataset_writes_tests_synthetic_set_as_png(tmp_path):
         for info, (_, img) in zip(db["images"], pixels):
             np.testing.assert_array_equal(read_png(os.path.join(
                 root, "images", info["file_name"])), img)
+
+
+def test_make_voc_dataset_jpg_frames_are_tests_synthetic_files(tmp_path):
+    """frames="jpg": the set tests/synthetic.py writes, file for file
+    (the same json, the same JPEG bytes)."""
+    kw = dict(num_images=3, img_w=160, img_h=120, seed=4, test_images=2)
+    root = synthetic_data.make_voc_dataset(str(tmp_path / "port"),
+                                           frames="jpg", **kw)
+    ref = synthetic.make_voc_dataset(str(tmp_path / "ref"), **kw)
+    for sub in ("images", "annotations"):
+        names = sorted(os.listdir(os.path.join(ref, sub)))
+        assert sorted(os.listdir(os.path.join(root, sub))) == names
+        for name in names:
+            with open(os.path.join(root, sub, name), "rb") as a, \
+                    open(os.path.join(ref, sub, name), "rb") as b:
+                assert a.read() == b.read(), name
+    with pytest.raises(ValueError, match="png or jpg"):
+        synthetic_data.make_voc_dataset(str(tmp_path / "x"), frames="bmp")

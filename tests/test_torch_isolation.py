@@ -28,7 +28,9 @@ def test_importing_every_module_loads_no_jax_and_no_cv2():
         "codenet_torch.__path__, 'codenet_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "own = {'codenet_torch.ops.nms', 'codenet_torch.data.image_aug',\n"
-        "       'codenet_torch.data.device_cache'}\n"
+        "       'codenet_torch.data.device_cache',\n"
+        "       'codenet_torch.utils.debugger', 'codenet_torch.utils.oracle',\n"
+        "       'codenet_torch.engine.train_hooks', 'codenet_torch.cli.demo'}\n"
         "assert own <= set(names), own - set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'codenet_tpu', 'cv2'))\n"
@@ -58,3 +60,29 @@ def test_deform_route_reads_no_environment():
         text = f.read()
     for word in ("environ", "getenv", "putenv"):
         assert word not in text, word
+
+
+def test_importing_every_tool_loads_no_jax():
+    """Every script of tools_torch/ (the A-E driver, its summary, the int8
+    audit, vis_pred and the re-scoring CLIs among them) imports, and
+    loads nothing of JAX or of the JAX package."""
+    script = (
+        "import importlib.util, os, sys\n"
+        "tools = sorted(f for f in os.listdir('tools_torch')\n"
+        "               if f.endswith('.py'))\n"
+        "for f in tools:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        f[:-3], os.path.join('tools_torch', f))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'codenet_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(' '.join(tools))\n")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    tools = proc.stdout.split()
+    for name in ("run_configs_ae.py", "summarize_results.py",
+                 "int8_audit.py", "vis_pred.py", "reval.py", "eval_coco.py",
+                 "eval_coco_hp.py"):
+        assert name in tools, name

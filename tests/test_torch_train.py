@@ -312,7 +312,15 @@ def test_cli_main_trains_saves_and_drops_lr(voc_root, capsys):
 
 
 PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
-                           ["--dtype", "bfloat16"])
+                           ["--dtype", "bfloat16"], ["--debug", "1"],
+                           ["--eval_oracle_hm"], ["--test"])
+
+
+def _scalars(exp_id):
+    import json
+    path = os.path.join(REPO, "exp", "ctdet", exp_id, "scalars.jsonl")
+    with open(path) as f:
+        return {r["tag"]: r["value"] for r in map(json.loads, f)}
 
 
 @pytest.mark.parametrize("extra", [
@@ -320,26 +328,67 @@ PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
     ["--host_normalize"], ["--mse_loss"], ["--dense_wh"],
     ["--device_cache"], ["--test"], ["--trace"], ["--dtype", "bfloat16"],
     ["--device_cache_shard"]])
-def test_unported_training_options_raise(extra, voc_root, capsys):
+def test_unported_training_options_raise(extra, voc_root, capsys,
+                                        monkeypatch):
     """Options of the JAX trainer and sampler the port does not have yet
-    raise before any data is read (ROADMAP.md items 20 and 22). The
-    cases of options ported since (PORTED_TRAINING_OPTIONS) keep their
-    ids and check instead that `cli.main` trains one step with them: a
-    finite loss, and the cache's report line with --device_cache."""
+    raise before any data is read, naming their ROADMAP.md item (20, 22
+    or 23). The cases of options ported since (PORTED_TRAINING_OPTIONS)
+    keep their ids and check instead that `cli.main` runs with them:
+    one train step with a finite loss (and the cache's report line with
+    --device_cache); with --debug 1 the step's renders (the JAX hooks'
+    file names) and the final eval's; with --eval_oracle_hm a val epoch whose heatmap loss,
+    the ground truth's own, is below the trained model's; with --test
+    the val-only run: no step, the val split decoded and scored into
+    results.json."""
     from codenet_torch.cli.main import main
+    exp_id = "torch_unported_" + extra[0].strip("-")
     args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
-            "--input_res", "64", "--gpus", "-1", "--exp_id",
-            "torch_unported"] + extra
+            "--input_res", "64", "--gpus", "-1", "--exp_id", exp_id] + extra
     if extra not in PORTED_TRAINING_OPTIONS:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="item 2[023]"):
             main(args + ["--data_dir", "/nonexistent"])
         return
+    save_dir = os.path.join(REPO, "exp", "ctdet", exp_id)
+    if os.path.isdir(save_dir):
+        import shutil
+        shutil.rmtree(save_dir)
+    from codenet_torch.utils.debugger import Debugger
+    saves = []
+    save_all_imgs = Debugger.save_all_imgs
+
+    def counted(self, path, prefix="", **kw):
+        saves.append(prefix)
+        return save_all_imgs(self, path, prefix=prefix, **kw)
+    monkeypatch.setattr(Debugger, "save_all_imgs", counted)
+    vals = ["--val_intervals", "1" if extra == ["--eval_oracle_hm"]
+            else "-1"]
     main(args + ["--data_dir", voc_root, "--batch_size", "2",
-                 "--num_epochs", "1", "--num_iters", "1", "--val_intervals",
-                 "-1", "--num_workers", "1", "--print_iter", "1"])
+                 "--num_epochs", "1", "--num_iters", "1", *vals,
+                 "--num_workers", "1", "--print_iter", "1"])
     out = capsys.readouterr().out
     losses = [float(line.split(" loss ")[1].split()[0])
               for line in out.splitlines() if line.startswith("train epoch")]
+    assert "Mean AP" in out
+    if extra == ["--test"]:
+        assert losses == []
+        with open(os.path.join(save_dir, "results.json")) as f:
+            import json
+            results = json.load(f)
+        assert len(results) == 21 and len(results[1]) == 6
+        assert not os.path.exists(os.path.join(save_dir, "model_last.pth"))
+        return
     assert len(losses) == 1 and np.isfinite(losses[0])
     assert ("device_cache: 6 images" in out) == (extra == ["--device_cache"])
-    assert "Mean AP" in out
+    if extra == ["--debug", "1"]:
+        # the step's four renders, and the final eval's detector one per
+        # val image (counted as saves: its file names carry the
+        # millisecond, which two requests may share)
+        names = sorted(os.listdir(os.path.join(save_dir, "debug")))
+        assert [n for n in names if n.startswith("train_")] == [
+            "train_0_gt_hm.png", "train_0_out_gt.png",
+            "train_0_out_pred.png", "train_0_pred_hm.png"]
+        assert sum(p.startswith("det_") for p in saves) == 6
+        assert any(n.startswith("det_") for n in names)
+    if extra == ["--eval_oracle_hm"]:
+        scalars = _scalars(exp_id)
+        assert scalars["val_hm_loss"] < 0.5 * scalars["train_hm_loss"]

@@ -3,7 +3,8 @@
 The port's own copy of the JAX package's tests/synthetic.py generator:
 the same numpy RandomState draws in the same order, so the boxes,
 classes and pixels are that generator's, written as ``{id:06d}.png``
-through codenet_torch/data/image_io.py (no cv2 needed). Class identity
+through codenet_torch/data/image_io.py (no cv2 needed), or as that
+generator's JPEG files (``frames="jpg"``, through cv2). Class identity
 is encoded in the fill colour (or, with ``adversarial``, in a
 class-keyed texture), so a detector can generalise to held-out images:
 `make_voc_dataset(..., test_images=N)` writes a test2007 split of fresh
@@ -114,13 +115,18 @@ def _gen_images(rng, num_images, img_w, img_h, first_id, max_objects=3,
 
 def make_voc_dataset(root, num_images=4, img_w=128, img_h=96, seed=0,
                      test_images=None, max_objects=3, num_classes=20,
-                     min_side=16, adversarial=False):
+                     min_side=16, adversarial=False, frames="png"):
     """Write <root>/voc/{images,annotations}/ with deterministic boxes.
 
     test_images=None: test2007 == trainval0712 (an overfit fixture).
     test_images=N: a held-out test split of N fresh images from seed + 1,
-    the same distribution with disjoint content. Returns <root>/voc.
+    the same distribution with disjoint content. frames="jpg" writes the
+    frames as tests/synthetic.py does, JPEG through cv2.imwrite (needs
+    cv2), so that the set is that generator's file for file. Returns
+    <root>/voc.
     """
+    if frames not in ("png", "jpg"):
+        raise ValueError("frames is png or jpg, not {!r}".format(frames))
     rng = np.random.RandomState(seed)
     img_dir = os.path.join(root, "voc", "images")
     ann_dir = os.path.join(root, "voc", "annotations")
@@ -147,8 +153,16 @@ def make_voc_dataset(root, num_images=4, img_w=128, img_h=96, seed=0,
         splits["test2007"] = (te_imgs, te_anns)
         pixels += te_pix
 
-    for fname, img in pixels:
-        write_png(os.path.join(img_dir, fname), img)
+    if frames == "jpg":
+        import cv2
+        for images, _ in splits.values():
+            for info in images:
+                info["file_name"] = info["file_name"][:-4] + ".jpg"
+        for fname, img in pixels:
+            cv2.imwrite(os.path.join(img_dir, fname[:-4] + ".jpg"), img)
+    else:
+        for fname, img in pixels:
+            write_png(os.path.join(img_dir, fname), img)
     for split, (images, annotations) in splits.items():
         db = {"images": images, "annotations": annotations,
               "categories": categories}
