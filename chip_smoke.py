@@ -36,6 +36,15 @@ writer and reader. Then it drives the port's paths at full width
 - the image cache (--device_cache): the train frames on the card, a
   cache batch against a host batch, the cache loader and timed steps
   beside the host ones, and `cli.main --device_cache`;
+- data parallelism (ddp, codenet_torch/parallel/): an NCCL group over
+  every visible card trains config a at batch 32 with
+  --device_cache_shard (timed FP32 and QAT steps with each rank's peak
+  memory, then cli.main's and cli.quant_main's training as that rank);
+  two gloo ranks sharing one card race the kernels' first build, then
+  train 3 FP32 and 3 QAT steps from the conditioned init held to one
+  process on the card (5e-3) with bit-equal rank states, and one
+  --device_cache_shard step; each rank's kernel launches count in the
+  kernels line;
 - batched eval (`cli.test --batch_eval 32`) with the host warp,
   --device_warp and --device_cache;
 - multi-scale flip-test requests merged by soft-NMS, at fix_res with
@@ -783,7 +792,9 @@ class SmokeData:
     dataset's `load_image` overridden to return the in-memory frames."""
     task, name, res = "ctdet", "pascal", RES
 
-    def __init__(self, n_train=64, n_val=8):
+    def __init__(self, n_train=64, n_val=8, write=True):
+        """write=False: the frames alone (a process of the ddp phase, whose
+        parent wrote the annotations)."""
         frames, gt = synthetic_frames(n_train + n_val)
         self.data_dir = ROOT / "exp" / "chip_smoke" / "data"
         ann_dir = self.data_dir / "voc" / "annotations"
@@ -791,6 +802,8 @@ class SmokeData:
         for name, ids in (("trainval0712", range(1, n_train + 1)),
                           ("test2007", range(n_train + 1,
                                              n_train + n_val + 1))):
+            if not write:
+                break
             keep = set(ids)
             split = dict(gt, images=[i for i in gt["images"]
                                      if i["id"] in keep],
@@ -3350,6 +3363,343 @@ def phase_configs_ae():
     return total
 
 
+# -- data parallelism (ddp) ------------------------------------------------
+
+DDP_STEPS = 3          # FP32 and QAT steps of part (b), held to one process
+DDP_TIMED_STEPS = 6    # FP32 and QAT steps of part (a), timed
+DDP_QAT = ("--wt-percentile", "--act_clamp")
+
+
+@contextlib.contextmanager
+def _rank_log(dp, out_dir):
+    """A ddp rank prints into out_dir/rank<k>.log, not the script's
+    output."""
+    path = Path(out_dir) / "rank{}.log".format(dp.rank)
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        yield
+
+
+def _ddp_setup(dp, res):
+    """A ddp rank's process: TF32 off, the smoke set's frames in memory
+    (the parent wrote its annotations), the CPU threads shared."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dp.device.type == "cpu":
+        torch.set_num_threads(1)
+    data = SmokeData(write=False)
+    data.res = res
+    return data
+
+
+def _timed(dp, fn):
+    """fn() and its ms: CUDA events on a card, the host clock on the CPU."""
+    if dp.device.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dp.device)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(dp.device)
+    return out, start.elapsed_time(end)
+
+
+def _rank_batches(data, opt, dp, n, shard_ranges=None):
+    """This rank's rows of the first n global batches of the shuffled
+    loader (all rows with dp None)."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.parallel import process_batch_slice
+    rows = process_batch_slice(opt.batch_size, dp.rank, dp.world) \
+        if dp is not None else None
+    loader = DataLoader(data.dataset(opt), opt.batch_size, shuffle=True,
+                        num_workers=opt.num_workers, seed=opt.seed,
+                        shard_ranges=shard_ranges, rows=rows)
+    batches = []
+    while len(batches) < n:
+        batches.extend(loader)
+    return batches[:n]
+
+
+def _sharded_cache(data, opt, dp):
+    """The train split's cache with this rank's rows on its device."""
+    from codenet_torch.data.device_cache import ImageCache
+    cache = ImageCache.build(data.dataset(opt))
+    rows = cache.to_device(dp.device, shard=True, dp=dp)
+    return cache, rows
+
+
+def _ddp_nccl_rank(dp, res, batch, out_dir):
+    with _rank_log(dp, out_dir):
+        _ddp_nccl_body(dp, res, batch, out_dir)
+
+
+def _ddp_nccl_body(dp, res, batch, out_dir):
+    """Part (a), one rank of the NCCL group over every visible card: the
+    main path at config a with --device_cache_shard. Timed FP32 steps,
+    then QAT (--wt-percentile --act_clamp) steps from them, each fed this
+    rank's rows from its cache shard; then cli.main's and
+    cli.quant_main's training (run_training, this rank's) for 2 steps
+    each, rank 0 ending each in the final eval. Writes rank<k>.json."""
+    from codenet_torch import config as cfg
+    from codenet_torch.cli.main import run_training
+    from codenet_torch.engine.trainer import Trainer
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    data = _ddp_setup(dp, res)
+    opt = data.opt(batch, "--device_cache_shard")
+    cache, rows = _sharded_cache(data, opt, dp)
+    batches = _rank_batches(data, opt, dp, DDP_TIMED_STEPS,
+                            cache.shard_ranges)
+    out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
+           "device": str(dp.device), "batch_per_rank": batch // dp.world,
+           "cache_rows": int(rows.shape[0]),
+           "cache_shard_mib": rows.numel() / 2 ** 20}
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    state = None
+    for name, qspec in (("fp32", None),
+                        ("qat", QuantSpec(wt_percentile=True,
+                                          act_clamp=True))):
+        trainer = Trainer(opt, qspec=qspec, dp=dp)
+        if state is not None:
+            trainer.model.load_state_dict(state, strict=False)
+        trainer.init()
+        trainer.image_cache, trainer.cache_shard_rows = rows, \
+            cache.shard_rows
+        if dp.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dp.device)
+        ms, losses = [], []
+        for b in batches:
+            stats, t = _timed(dp, lambda: trainer.run_epoch("train", 1,
+                                                            [b]))
+            ms.append(t)
+            losses.append(stats["loss"])
+        out[name] = {"ms_per_step": ms,
+                     "ms_per_step_steady_median": float(np.median(ms[1:])),
+                     "losses": losses}
+        if dp.device.type == "cuda":
+            out[name]["peak_mib"] = \
+                torch.cuda.max_memory_allocated(dp.device) / 2 ** 20
+        state = trainer.model.state_dict()
+        del trainer
+    out["timed_launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    ckpt = ROOT / "exp" / "ctdet" / "chip_smoke_ddp_fp32" / "model_last.pth"
+    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
+              "-1", "--print_iter", "1", "--device_cache_shard",
+              "--gpus", "-1" if dp.device.type == "cpu" else "0"]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run_training(cfg.parse(data.args(
+            batch, *common, "--exp_id", "chip_smoke_ddp_fp32")), None, dp)
+        run_training(cfg.parse(data.args(
+            batch, *common, *DDP_QAT, "--exp_id", "chip_smoke_ddp_qat",
+            "--load_model", str(ckpt))),
+            QuantSpec(wt_percentile=True, act_clamp=True), dp)
+    text = log.getvalue()
+    out["cli"] = {"seconds": time.perf_counter() - t0,
+                  "losses": [float(ln.split(" loss ")[1].split()[0])
+                             for ln in text.splitlines()
+                             if ln.startswith("train epoch")],
+                  "mean_ap": _lines_with(text, "Mean AP"),
+                  "cache_lines": _lines_with(text, "device_cache:")}
+    out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    (Path(out_dir) / "rank{}.json".format(dp.rank)).write_text(
+        json.dumps(out))
+
+
+def _ddp_steps(data, opt, dp, state, qspec, n, device):
+    """n train steps from `state` on this rank's rows (dp None: the whole
+    batches, in one process): losses, ms per step, the final state."""
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    trainer = Trainer(opt, qspec=qspec, device=device, dp=dp)
+    trainer.model.load_state_dict(state, strict=qspec is None)
+    trainer.init()
+    timing = dp or types.SimpleNamespace(device=torch.device(device))
+    losses, ms = [], []
+    for b in _rank_batches(data, opt, dp, n):
+        dev = batch_to_device(b, trainer.device)
+        stats, t = _timed(timing, lambda: trainer.train_step(dev))
+        losses.append(float(stats["loss"]))
+        ms.append(t)
+    return {"losses": losses, "ms_per_step": ms,
+            "state": {k: v.detach().cpu() for k, v in
+                      trainer.model.state_dict().items()}}
+
+
+def _ddp_cache_step(data, opt, dp, state, device):
+    """One --device_cache_shard step through Trainer.run_epoch (dp None:
+    the unsharded cache in one process): the stats and the state."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.engine.trainer import Trainer
+    trainer = Trainer(opt, device=device, dp=dp)
+    trainer.model.load_state_dict(state)
+    trainer.init()
+    if dp is not None:
+        cache, trainer.image_cache = _sharded_cache(data, opt, dp)
+        trainer.cache_shard_rows = cache.shard_rows
+        ranges = cache.shard_ranges
+    else:
+        cache = ImageCache.build(data.dataset(opt))
+        trainer.image_cache = cache.to_device(device)
+        # the ranks' routing: DDP_GLOO_WORLD shards of ceil(n / world)
+        n = len(cache.dims)
+        rps = -(-n // DDP_GLOO_WORLD)
+        ranges = [(min(s * rps, n), min((s + 1) * rps, n))
+                  for s in range(DDP_GLOO_WORLD)]
+    batch = _rank_batches(data, opt, dp, 1, ranges)[0]
+    stats = trainer.run_epoch("train", 1, [batch])
+    return {"stats": stats, "state": {
+        k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
+
+
+DDP_GLOO_WORLD = 2
+
+
+def _ddp_gloo_rank(dp, res, batch, out_dir, build_dir):
+    with _rank_log(dp, out_dir):
+        _ddp_gloo_body(dp, res, batch, out_dir, build_dir)
+
+
+def _ddp_gloo_body(dp, res, batch, out_dir, build_dir):
+    """Part (b), one of two gloo ranks sharing a device: first the kernels'
+    build, raced by both ranks into an empty directory; then DDP_STEPS
+    FP32 and DDP_STEPS QAT steps from the conditioned init on this
+    rank's rows of the global batches, and one --device_cache_shard
+    step. Writes rank<k>.pt."""
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    data = _ddp_setup(dp, res)
+    out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
+           "device": str(dp.device)}
+    if dp.device.type == "cuda":
+        DC.BUILD_DIR = Path(build_dir)
+        t0 = time.perf_counter()
+        out["build"] = {name: {"cached": b["cached"],
+                               "seconds": b["seconds"]}
+                        for name, b in DC.build().items()}
+        out["build_seconds"] = time.perf_counter() - t0
+    opt = data.opt(batch)
+    state = conditioned_init(opt)
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    out["fp32"] = _ddp_steps(data, opt, dp, state, None, DDP_STEPS,
+                             dp.device)
+    out["qat"] = _ddp_steps(data, opt, dp, state,
+                            QuantSpec(wt_percentile=True, act_clamp=True),
+                            DDP_STEPS, dp.device)
+    out["cache"] = _ddp_cache_step(
+        data, data.opt(batch, "--device_cache_shard"), dp, state,
+        dp.device)
+    out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    torch.save(out, Path(out_dir) / "rank{}.pt".format(dp.rank))
+
+
+def _rel_l2(got, ref, keys):
+    num = sum(float(((got[k].double() - ref[k].double()) ** 2).sum())
+              for k in keys)
+    den = sum(float((ref[k].double() ** 2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
+              gloo_device="cuda:0"):
+    """Data parallelism (codenet_torch/parallel/): (a) an NCCL group over
+    every visible card trains config a with --device_cache_shard (timed
+    FP32 and QAT steps, then cli.main's and cli.quant_main's training);
+    (b) two gloo ranks sharing one card race the kernels' first build,
+    then train DDP_STEPS FP32 and DDP_STEPS QAT steps from the conditioned
+    init on the global batches of one process, held to that process's
+    steps on the card (losses, and parameters in relative L2, within
+    STEP_TOL) with the ranks' states bit-equal, and one
+    --device_cache_shard step; (c) every rank's kernel launches, counted
+    in its own process, returned for the kernels line."""
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.parallel import launch
+    work = ROOT / "exp" / "chip_smoke" / "ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("a", "b", "build"):
+        (work / sub).mkdir(parents=True)
+    nccl_devices = nccl_devices or ["cuda:{}".format(k) for k in
+                                    range(torch.cuda.device_count())]
+    fail = []
+    t0 = time.perf_counter()
+    launch(_ddp_nccl_rank, nccl_devices, args=(res, batch, str(work / "a")))
+    a = [json.loads((work / "a" / "rank{}.json".format(k)).read_text())
+         for k in range(len(nccl_devices))]
+    a_seconds = time.perf_counter() - t0
+    # FP32 and QAT: DDP_TIMED_STEPS steps each, then 2 + 2 CLI steps; rank
+    # 0 adds the two final evals (flip test over the 8 val frames)
+    steps = 2 * DDP_TIMED_STEPS + 4
+    for r in a:
+        evals = 2 * 8 if r["rank"] == 0 else 0
+        if r["launches"] != [3 * (steps + evals), 3 * steps]:
+            fail.append("a rank {} launches {}".format(r["rank"],
+                                                       r["launches"]))
+        if not np.all(np.isfinite(r["fp32"]["losses"] + r["qat"]["losses"]
+                                  + r["cli"]["losses"])):
+            fail.append("a rank {} losses".format(r["rank"]))
+    if len(a[0]["cli"]["mean_ap"]) != 2 or len(a[0]["cli"]["losses"]) != 4:
+        fail.append("a cli")
+
+    t0 = time.perf_counter()
+    launch(_ddp_gloo_rank, [gloo_device] * DDP_GLOO_WORLD, backend="gloo",
+           args=(res, batch, str(work / "b"), str(work / "build")))
+    b = [torch.load(work / "b" / "rank{}.pt".format(k), weights_only=False)
+         for k in range(DDP_GLOO_WORLD)]
+    b_seconds = time.perf_counter() - t0
+    opt = data.opt(batch)
+    state = conditioned_init(opt)
+    qspec = QuantSpec(wt_percentile=True, act_clamp=True)
+    ref = {"fp32": _ddp_steps(data, opt, None, state, None, DDP_STEPS,
+                              gloo_device),
+           "qat": _ddp_steps(data, opt, None, state, qspec, DDP_STEPS,
+                             gloo_device),
+           "cache": _ddp_cache_step(
+               data, data.opt(batch, "--device_cache_shard"), None, state,
+               gloo_device)}
+    held = {}
+    for part in ("fp32", "qat", "cache"):
+        got, want = b[0][part], ref[part]
+        equal = all(torch.equal(got["state"][k], b[1][part]["state"][k])
+                    for k in want["state"])
+        params = [k for k, v in want["state"].items()
+                  if v.is_floating_point()]
+        losses = got.get("losses", [got.get("stats", {}).get("loss")])
+        ref_losses = want.get("losses",
+                              [want.get("stats", {}).get("loss")])
+        loss_rel = max(abs(x - y) / abs(y)
+                       for x, y in zip(losses, ref_losses))
+        rel = _rel_l2(got["state"], want["state"], params)
+        held[part] = {"ranks_bit_equal": equal, "loss_rel": loss_rel,
+                      "state_rel_l2": rel, "losses": losses,
+                      "losses_one_process": ref_losses}
+        if part != "cache":
+            held[part]["ms_per_step_ranks"] = [r[part]["ms_per_step"]
+                                               for r in b]
+            held[part]["ms_per_step_one_process"] = want["ms_per_step"]
+        if not equal or loss_rel > STEP_TOL or rel > STEP_TOL:
+            fail.append("b {}".format(part))
+    for r in b:
+        if r["launches"] != [3 * (2 * DDP_STEPS + 1)] * 2:
+            fail.append("b rank {} launches {}".format(r["rank"],
+                                                       r["launches"]))
+    out = {"phase": "ddp", "a": {"seconds": a_seconds, "ranks": a},
+           "b": {"seconds": b_seconds, "world": DDP_GLOO_WORLD,
+                 "backend": b[0]["backend"], "device": b[0]["device"],
+                 "build": [r.get("build") for r in b],
+                 "build_seconds": [r.get("build_seconds") for r in b],
+                 "held": held, "tol": STEP_TOL},
+           "launches": {"a": [r["launches"] for r in a],
+                        "b": [r["launches"] for r in b]},
+           "failed": fail}
+    emit(out)
+    if fail:
+        raise SystemExit("ddp check failed: {}".format(fail))
+    return (sum(r["launches"][0] for r in a + b),
+            sum(r["launches"][1] for r in a + b))
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -3412,6 +3762,7 @@ def main(argv=None):
     int8_launches, int8_cli_launches, int8_bf16 = phase_int8(
         data, qat_model, bw, flops)
     cache_fwd, cache_bwd = phase_devcache(data, train_run, batches)
+    ddp = phase_ddp(data)
     eval_paths_launches = phase_eval_paths(data, model)
     multiscale_launches = phase_multiscale(model, synthetic_frames(8)[0])
     bf16_launches, _ = phase_bf16(model, data)
@@ -3445,7 +3796,7 @@ def main(argv=None):
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
-        + exdet[0] + int8_tasks + configs[0] + synth[0],
+        + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -3472,14 +3823,15 @@ def main(argv=None):
     fwd_entry.update(path_ms(rows, "served_forward_w2_512", 2, "float32",
                              shapes=W2_SHAPES))
     # backward: one train step's three calls (batch 32, f32); launches
-    # over the FP32, QAT, image-cache, bf16, deform-backbone, multi_pose,
-    # ddd and exdet training paths and the CLIs that train
+    # over the FP32, QAT, image-cache, data-parallel (every rank's, counted
+    # in its process), bf16, deform-backbone, multi_pose, ddd and exdet
+    # training paths and the CLIs that train
     bwd_entry = kernel_line_entry(
         "codesign_deform_bwd", "codenet_torch/csrc/deform_bwd.cu",
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
-        + ddd[1] + exdet[1] + configs[1] + synth[1], bwd_rows,
+        + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone
@@ -3501,8 +3853,9 @@ def main(argv=None):
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,
-        # image-cache training, batched eval, multi-scale, bf16,
-        # deform-backbone, COCO, multi_pose, ddd and exdet paths and CLIs
+        # image-cache training, data-parallel (every rank's), batched
+        # eval, multi-scale, bf16, deform-backbone, COCO, multi_pose, ddd
+        # and exdet paths and CLIs
         fwd_entry, bwd_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

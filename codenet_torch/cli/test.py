@@ -171,6 +171,10 @@ def batched_test(opt):
     cache_dev = cache_geo = None
     if opt.device_cache:
         from ..data.device_cache import ImageCache
+        if opt.device_cache_shard:
+            # eval runs in one process; its cache is always whole
+            print("note: --device_cache_shard shards the TRAIN cache "
+                  "only; the eval cache is replicated")
         t0 = time.time()
         eval_cache = ImageCache.build(dataset)
         cache_dev = eval_cache.to_device(detector.device)

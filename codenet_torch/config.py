@@ -6,8 +6,10 @@ layout, resume paths). Its own copy of the JAX package's config, so that
 the PyTorch package imports nothing from it.
 
 ``--gpus`` keeps the reference meaning: ``--gpus -1`` runs on the CPU,
-anything else on the CUDA card. Flags that only the JAX package implements
-(the sharded image cache, spatial sharding, the bf16 model, ...) are
+anything else on CUDA cards, and a list of several ids trains on each of
+them (one data-parallel rank per card: cli/main.py); ``opt.gpus`` is
+0..n-1 as in the reference and ``opt.gpus_str`` keeps the ids. Flags
+that only the JAX package implements (spatial sharding, ...) are
 accepted so command lines stay interchangeable; the PyTorch entry points
 that do not implement one raise when it is set.
 
@@ -293,8 +295,10 @@ def parse(args=None, root_dir=None):
         opt.master_batch_size = -1
 
     # Legacy uneven-chunk data parallelism (reference lib/opts.py:284-293,
-    # lib/models/scatter_gather.py): one card serves the whole batch, so
-    # chunk_sizes is recorded for log parity but unused.
+    # lib/models/scatter_gather.py): the data-parallel ranks take equal
+    # shares of the batch, so chunk_sizes is recorded for log parity but
+    # unused (--master_batch_size is a warned no-op, as in the JAX
+    # package).
     if opt.master_batch_size == -1:
         opt.master_batch_size = opt.batch_size // len(opt.gpus)
     rest = opt.batch_size - opt.master_batch_size
@@ -306,7 +310,8 @@ def parse(args=None, root_dir=None):
         opt.chunk_sizes.append(chunk)
     if len(set(opt.chunk_sizes)) > 1:
         print("warning: uneven chunk_sizes {} are a no-op here; "
-              "one card serves the whole batch".format(opt.chunk_sizes))
+              "batches split evenly across the cards".format(
+                  opt.chunk_sizes))
 
     opt.root_dir = root_dir or os.path.join(
         os.path.dirname(__file__), "..")

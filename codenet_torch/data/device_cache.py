@@ -18,6 +18,13 @@ same crop, scale, flip and colour stream as the host path; only the
 interpolation moves, and the warped pixels are not rounded to uint8.
 
 Batched eval (cli/test.py --device_cache) holds its split the same way.
+
+--device_cache_shard splits the stack's rows over the ranks of a
+data-parallel run: rank r's card holds rows [r * rps, (r + 1) * rps) of
+the stack padded to a multiple of the world size (rps = ceil(N / world);
+the tail shard zero-padded), the layout of the JAX package's
+`to_device(shard=True)` over its data mesh, and the loader routes each
+rank's rows of every batch to its shard (`shard_ranges`).
 """
 
 from __future__ import annotations
@@ -98,27 +105,45 @@ class ImageCache:
             raws[i] = None  # free as we go: peak ~1x the stack, not 2x
         return cls(stack, dims)
 
-    def to_device(self, device="cuda", shard=False):
-        """One copy of the stack to `device`; returns the tensor and drops
-        the host copy (`images` becomes None; `nbytes` and `dims` stay).
+    def to_device(self, device="cuda", shard=False, dp=None):
+        """Copy the stack to `device`; returns the tensor and drops the
+        host copy (`images` becomes None; `nbytes` and `dims` stay).
 
-        Warns when the stack takes more than half the card's memory.
-        shard=True (rows split over the cards of a data-parallel run,
-        --device_cache_shard) is queued with DDP in ROADMAP.md."""
-        if shard:
-            raise NotImplementedError(
-                "--device_cache_shard needs data-parallel training, queued "
-                "with DDP in ROADMAP.md (item 20)")
+        shard=True: only the rows of rank dp.rank of dp.world (one rank
+        without `dp`), rps = ceil(N / world) of them, the tail shard
+        zero-padded; sets `shard_rows` (rps) and `shard_ranges` (each
+        shard's (lo, hi) real rows, for DataLoader(shard_ranges=...)).
+        A dataset with fewer images than ranks raises. Warns when the
+        copy takes more than half the card's memory."""
         device = torch.device(device)
+        n = self.images.shape[0]
+        host = self.images
+        if shard:
+            rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+            if n < world:
+                raise ValueError(
+                    "--device_cache_shard: dataset ({} images) is smaller "
+                    "than the data-parallel group ({} ranks)".format(
+                        n, world))
+            rps = -(-n // world)
+            self.shard_rows = rps
+            self.shard_ranges = [(min(s * rps, n), min((s + 1) * rps, n))
+                                 for s in range(world)]
+            lo, hi = self.shard_ranges[rank]
+            host = self.images[lo:hi]
+            if hi - lo < rps:
+                host = np.zeros((rps,) + host.shape[1:], np.uint8)
+                host[:hi - lo] = self.images[lo:hi]
         if device.type == "cuda":
             total = torch.cuda.get_device_properties(device).total_memory
-            if self.nbytes > total / 2:
-                n, h, w = self.images.shape[:3]
-                print("WARNING: device_cache stack is {:.1f} GB ({} x {} x "
-                      "{} x 3 uint8), more than half of the card's {:.1f} "
-                      "GB; consider dropping --device_cache".format(
-                          self.nbytes / 1e9, n, h, w, total / 1e9))
-        out = torch.from_numpy(self.images).to(device)
+            if host.nbytes > total / 2:
+                print("WARNING: device_cache {} is {:.1f} GB ({} x 3 uint8), "
+                      "more than half of the card's {:.1f} GB; consider "
+                      "dropping --device_cache".format(
+                          "shard" if shard else "stack", host.nbytes / 1e9,
+                          " x ".join(map(str, host.shape[:3])),
+                          total / 1e9))
+        out = torch.from_numpy(np.ascontiguousarray(host)).to(device)
         self.images = None
         return out
 

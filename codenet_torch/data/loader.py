@@ -1,5 +1,4 @@
-"""Batched, prefetching data loader (the JAX package's data/loader.py,
-without the sharded-cache routing).
+"""Batched, prefetching data loader (the JAX package's data/loader.py).
 
 A pool of `num_workers` threads maps the numpy sampler, stacks samples
 into fixed-shape numpy dicts and prefetches ahead of the device. Batch
@@ -8,6 +7,23 @@ queue and publish into per-batch slots that the consumer drains in order.
 Each batch draws from its own np.random.RandomState seeded with
 SeedSequence((seed, epoch, batch)), the JAX loader's stream, so the same
 seed gives the same batches in both packages.
+
+Data parallelism: every rank builds the same global batches (the same
+shuffle stream, the same per-batch streams) and keeps rows [lo, hi) of
+each (`rows`, parallel/multihost.py::process_batch_slice), bit-equal to
+those rows of the single-process batch. A batch's samples draw one after
+another from its one stream, so a rank first replays the draws of the
+rows before lo, in rank order, without building them: the sampler's
+``get_sample(..., draw_only=True)`` makes the random draws of a sample
+(crop, scale, flip, rotation, colour state), which need the frame's
+dimensions only, and skips its image read, warp and targets. Rows after
+hi are never drawn.
+
+Sharded-cache routing (`shard_ranges`, --device_cache_shard): the JAX
+loader's. Batch slot-block s (the rows rank s holds) is drawn only from
+shard s's dataset rows, so a rank's cache holds every row its batches
+ask for. Each shard shuffles within itself, every batch takes batch/d
+rows of each, and an epoch stops at the smallest shard.
 """
 
 from __future__ import annotations
@@ -37,7 +53,8 @@ def batch_rng(seed, epoch, b):
 
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=False, num_workers=4,
-                 drop_last=None, seed=0, prefetch=3):
+                 drop_last=None, seed=0, prefetch=3, shard_ranges=None,
+                 rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -48,8 +65,25 @@ class DataLoader:
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self._epoch = 0
+        # (lo, hi): the rows of each batch this process keeps
+        self.rows = rows
+        self.shard_ranges = shard_ranges
+        if shard_ranges is not None:
+            if batch_size % len(shard_ranges):
+                raise ValueError(
+                    "batch_size {} not divisible by {} cache shards"
+                    .format(batch_size, len(shard_ranges)))
+            bl = batch_size // len(shard_ranges)
+            if min(hi - lo for lo, hi in shard_ranges) < bl:
+                raise ValueError(
+                    "a cache shard holds fewer images than its per-batch "
+                    "slice ({}); use fewer devices or a smaller batch"
+                    .format(bl))
 
     def __len__(self):
+        if self.shard_ranges is not None:
+            bl = self.batch_size // len(self.shard_ranges)
+            return min(hi - lo for lo, hi in self.shard_ranges) // bl
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
@@ -58,6 +92,8 @@ class DataLoader:
     def _batches(self):
         """This epoch's batches of dataset indices (advances the shuffle
         stream, as iterating does)."""
+        if self.shard_ranges is not None:
+            return self._shard_batches()
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
@@ -68,6 +104,25 @@ class DataLoader:
                 continue
             batches.append(idx)
         return batches
+
+    def _shard_batches(self):
+        """Per-shard orders -> slot-block-routed batches (the JAX
+        loader's)."""
+        orders = [np.arange(lo, hi) for lo, hi in self.shard_ranges]
+        if self.shuffle:
+            for o in orders:
+                self.rng.shuffle(o)
+        bl = self.batch_size // len(orders)
+        m = min(len(o) for o in orders) // bl
+        return [np.concatenate([o[k * bl:(k + 1) * bl] for o in orders])
+                for k in range(m)]
+
+    def _samples(self, idx, brng):
+        """The samples of this process's rows of batch `idx`."""
+        lo, hi = self.rows or (0, len(idx))
+        for j in idx[:lo]:
+            self.dataset.get_sample(j, rng=brng, draw_only=True)
+        return [self.dataset.get_sample(j, rng=brng) for j in idx[lo:hi]]
 
     def __iter__(self):
         batches = self._batches()
@@ -94,10 +149,8 @@ class DataLoader:
                 if b is None:
                     break
                 try:
-                    brng = batch_rng(self.seed, epoch, b)
-                    result = _stack_samples(
-                        [self.dataset.get_sample(j, rng=brng)
-                         for j in batches[b]])
+                    result = _stack_samples(self._samples(
+                        batches[b], batch_rng(self.seed, epoch, b)))
                 except Exception as e:  # handed to the consumer
                     result = e
                 with done_cv:

@@ -22,13 +22,18 @@ them. The ddd sampler has no colour aug (identity aug state), as in the
 reference.
 
 Draws come from `rng` in the JAX sampler's order, so the same per-batch
-RandomState gives the same sample in every mode. The warp is the port's
+RandomState gives the same sample in every mode. ``draw_only=True``
+makes a sample's draws alone and returns None: a data-parallel rank
+replays the draws of the rows of a batch that other ranks build
+(data/loader.py). The draws need the frame's dimensions only, taken from
+the image cache's records, or decoded once and remembered
+(`frame_dims`). The warp is the port's
 torch `warp_affine_u8`, not cv2 (the port needs no cv2); images
 come from the dataset's `load_image`, which a caller may override (e.g.
 with in-memory frames).
 
-Not ported: the dense targets of --mse_loss, --dense_wh and --dense_hp,
-and the sharded image cache (--device_cache_shard); they raise.
+Not ported: the dense targets of --mse_loss, --dense_wh and --dense_hp;
+they raise.
 """
 
 from __future__ import annotations
@@ -45,8 +50,7 @@ from .device_cache import flip_compose
 from .image_aug import color_aug
 
 # flag -> its ROADMAP.md item
-_UNPORTED = {"mse_loss": 22, "dense_wh": 22, "dense_hp": 22,
-             "device_cache_shard": 20}
+_UNPORTED = {"mse_loss": 22, "dense_wh": 22, "dense_hp": 22}
 
 
 def check_sampler_opt(opt):
@@ -85,6 +89,24 @@ def finish_input(sampler, inp_u8, is_train, rng):
     return fields
 
 
+def draw_input_aug(sampler, is_train, rng):
+    """The draws of `finish_input` without an image (a draw-only sample):
+    the colour-aug state, drawn as --host_normalize's color_aug draws
+    it."""
+    if is_train and not sampler.opt.no_color_aug:
+        draw_color_aug_params(rng, sampler._eig_val, sampler._eig_vec,
+                              py_random=rng)
+
+
+def frame_dims(sampler, index):
+    """(height, width) of frame `index` as `load_image` decodes it,
+    decoded once per process and remembered."""
+    memo = sampler.__dict__.setdefault("_frame_dims", {})
+    if index not in memo:
+        memo[index] = tuple(sampler.load_image(index).shape[:2])
+    return memo[index]
+
+
 def coco_box_to_bbox(box):
     return np.array([box[0], box[1], box[0] + box[2], box[1] + box[3]],
                     dtype=np.float32)
@@ -109,9 +131,10 @@ def splat(heat, ch, ct, radius):
 class CTDetSampler:
     """2D-box detection targets (reference sample/ctdet.py:30-146)."""
 
-    def get_sample(self, index, rng=None):
+    def get_sample(self, index, rng=None, draw_only=False):
         """One sample; `rng` (np.random.RandomState) draws the crop, flip
-        and colour aug, by default the dataset's own stream."""
+        and colour aug, by default the dataset's own stream. draw_only:
+        the draws alone (returns None)."""
         check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
@@ -125,6 +148,9 @@ class CTDetSampler:
             img = None
             height, width = int(cache_dims[index][0]), \
                 int(cache_dims[index][1])
+        elif draw_only:
+            img = None
+            height, width = frame_dims(self, index)
         else:
             img = self.load_image(index)
             height, width = img.shape[0], img.shape[1]
@@ -158,6 +184,9 @@ class CTDetSampler:
                     img = img[:, ::-1, :]
                 c[0] = width - c[0] - 1
 
+        if draw_only:
+            draw_input_aug(self, self.split == "train", rng)
+            return None
         if use_cache:
             ti = get_affine_transform(c, s, 0, [input_w, input_h], inv=1)
             if flipped:
@@ -249,15 +278,18 @@ class MultiPoseSampler:
     centre (hps), their heatmaps (hm_hp) and sub-pixel offsets, all dense
     or fixed-size on the host in the JAX sampler's dtypes."""
 
-    def get_sample(self, index, rng=None):
+    def get_sample(self, index, rng=None, draw_only=False):
         check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
         anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
         num_objs = min(len(anns), self.max_objs)
-        img = self.load_image(index)
-
-        height, width = img.shape[0], img.shape[1]
+        if draw_only:
+            img = None
+            height, width = frame_dims(self, index)
+        else:
+            img = self.load_image(index)
+            height, width = img.shape[0], img.shape[1]
         c = np.array([width / 2.0, height / 2.0], dtype=np.float32)
         s = max(height, width) * 1.0
         rot = 0
@@ -280,9 +312,13 @@ class MultiPoseSampler:
                 rot = np.clip(rng.randn() * rf, -rf * 2, rf * 2)
             if rng.random() < self.opt.flip:
                 flipped = True
-                img = img[:, ::-1, :]
                 c[0] = width - c[0] - 1
+                if img is not None:
+                    img = img[:, ::-1, :]
 
+        if draw_only:
+            draw_input_aug(self, self.split == "train", rng)
+            return None
         input_res = self.opt.input_res
         trans_input = get_affine_transform(c, s, rot, [input_res, input_res])
         inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_res,
@@ -406,9 +442,14 @@ class DddSampler:
             ret[6], ret[7] = np.sin(r), np.cos(r)
         return ret
 
-    def get_sample(self, index, rng=None):
+    def get_sample(self, index, rng=None, draw_only=False):
         check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
+        if draw_only:
+            # the draws need no frame: its shift scales with it
+            if self.split == "train" and rng.random() < self.opt.aug_ddd:
+                rng.randn(), rng.randn(), rng.randn()
+            return None
         img_id = self.images[index]
         img_info = self.coco.loadImgs(ids=[img_id])[0]
         img_path = os.path.join(self.img_dir, img_info["file_name"])
@@ -529,13 +570,16 @@ class ExdetSampler:
     centre heatmap, dense, with each point's sub-pixel offset and flat
     index. Annotations carry 'extreme_points' (instances_extreme_*.json)."""
 
-    def get_sample(self, index, rng=None):
+    def get_sample(self, index, rng=None, draw_only=False):
         check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
-        img = self.load_image(index)
-
-        height, width = img.shape[0], img.shape[1]
+        if draw_only:
+            img = None
+            height, width = frame_dims(self, index)
+        else:
+            img = self.load_image(index)
+            height, width = img.shape[0], img.shape[1]
         c = np.array([width / 2.0, height / 2.0])
         s = max(height, width) * 1.0
 
@@ -554,8 +598,12 @@ class ExdetSampler:
                 c[1] += height * np.clip(rng.randn() * cf, -2 * cf, 2 * cf)
             if rng.random() < self.opt.flip:
                 flipped = True
-                img = img[:, ::-1, :]
+                if img is not None:
+                    img = img[:, ::-1, :]
 
+        if draw_only:
+            draw_input_aug(self, self.split == "train", rng)
+            return None
         input_res = self.opt.input_res
         trans_input = get_affine_transform(c, s, 0, [input_res, input_res])
         inp_u8 = warp_affine_u8(img, invert_affine(trans_input), input_res,

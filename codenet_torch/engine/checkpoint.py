@@ -14,6 +14,9 @@ shape-mismatch-tolerantly with printed warnings. Two formats load:
 `save_model` writes the port's ``.pth``: {epoch, state_dict[, optimizer,
 quant]}, where ``quant`` is the QAT recipe (w_bit, a_bit, percentiles,
 act_clamp) that `adopt_quant_recipe` hands to a later quantized load.
+In a data-parallel run every rank calls it: the ranks' states are first
+checked bit-equal (parallel/mesh.py::check_replicas_equal), then rank 0
+writes. Every rank loads the same file.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import re
 
 import torch
 
+from ..parallel.mesh import barrier, check_replicas_equal
 from .jax_weights import from_jax_variables
 
 # numpy globals a pickled array tree needs; anything else becomes a stub
@@ -143,10 +147,19 @@ RECIPE_FIELDS = ("w_bit", "a_bit", "wt_percentile", "act_percentile",
                  "act_clamp")
 
 
-def save_model(path, epoch, model, optimizer=None, qspec=None):
+def save_model(path, epoch, model, optimizer=None, qspec=None, dp=None):
     """Write {epoch, state_dict[, optimizer, quant]} to a .pth (reference
     model.py:91-100), atomically: a crash mid-write never leaves a partial
-    model_last."""
+    model_last. With `dp`: rank 0 writes, once every rank's model is
+    bit-equal to it (raises otherwise), and no rank returns before the
+    file is there."""
+    check_replicas_equal(model, dp)
+    if dp is None or dp.main:
+        _write(path, epoch, model, optimizer, qspec)
+    barrier(dp)
+
+
+def _write(path, epoch, model, optimizer, qspec):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"epoch": int(epoch),
                "state_dict": {k: v.detach().cpu()

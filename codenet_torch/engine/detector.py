@@ -25,7 +25,8 @@ batched: `process_batch` over pre-warped images, `process_batch_raw` over
 raw frames warped on the device (``--device_warp``), and
 `process_batch_cached` / `process_batches_cached` over rows of a
 device-resident image stack (``--device_cache``). ``--device_cache_shard``
-raises and is queued in ROADMAP.md.
+shards the train cache only: eval replicates its cache (cli/test.py
+says so), as in the JAX package.
 
 multi_pose (COCO keypoints): the same pre-process, then on the device
 forward -> sigmoid -> flip-test averaging (joint channels swapped, x
@@ -148,10 +149,6 @@ class BaseDetector:
                 "--w4a8_artifact needs --resume-quantize --int8_infer: the "
                 "artifact holds integer weights for the real-int8 path "
                 "only")
-        if opt.device_cache_shard:
-            raise NotImplementedError(
-                "--device_cache_shard needs data-parallel training, queued "
-                "with DDP in ROADMAP.md (item 20)")
         self.device = resolve_device(device or device_from_opt(opt))
         self.qspec = None
         if opt.resume_quantize:

@@ -19,6 +19,17 @@ The epoch loop is the JAX package's per-step path, with its hooks:
 --debug renders and --test's decoded val results (engine/train_hooks.py)
 and the --eval_oracle_* probes (make_oracle_val_step). Its scan-epoch
 engine and fused train heads are not ported; --spatial_shard raises.
+
+Data parallelism (`dp`, a parallel.DataParallel; the JAX trainer's data
+mesh): the trainer is one rank's replica on its device, fed its rows of
+each global batch. Its BNs and quantizers reduce over the ranks, its
+loss normalisers are the global batch's (parallel/mesh.py), and each
+step sums the gradients over the ranks before Adam, so every rank keeps
+bit-equal state; the step's stats are the all-reduced sums. With
+--device_cache_shard the rank's card holds only its rows of the image
+cache, and `check_shard_routing` checks that each batch asks for no
+other rows. Val steps run on one rank alone (the CLI runs them on rank
+0), with this process's batch and no collective.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch
 from .. import resolve_device
 from ..data.device_aug import model_input, resolve_targets
 from ..models import create_model
+from ..models.layers import set_data_parallel
 from ..models.losses import LOSS_FACTORY
+from ..parallel.mesh import all_reduce_grads, all_sum, broadcast_module
 from ..utils.meters import AverageMeter
 from .detector import device_from_opt
 
@@ -49,9 +62,24 @@ class LossOpts:
               "reg_hp_offset", "dense_hp", "dep_weight", "dim_weight",
               "rot_weight")
 
-    def __init__(self, opt):
+    def __init__(self, opt, dp=None):
         for f in self.FIELDS:
             setattr(self, f, getattr(opt, f, None))
+        self.dp = dp  # the normalisers' ranks (models/losses.py)
+
+
+def check_shard_routing(img_idx, d, rps, first=0):
+    """The --device_cache_shard contract (the JAX trainer's check): the
+    rows of slot-block s of the batch (d equal blocks) lie in cache shard
+    first + s, rows [(first + s) * rps, (first + s + 1) * rps). A rank
+    checks its own block (d=1, first=rank) before the row lookup, which
+    would otherwise read another image silently."""
+    idx = np.asarray(img_idx).reshape(d, -1)
+    if not (idx // rps == first + np.arange(d)[:, None]).all():
+        raise ValueError(
+            "--device_cache_shard: batch slot-block routing violates "
+            "cache shard ownership; build the DataLoader with "
+            "shard_ranges=cache.shard_ranges")
 
 
 def batch_to_device(batch, device):
@@ -73,10 +101,14 @@ def stacks(out):
 
 
 def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
-                    std, down_ratio=4, num_classes=None, input_hw=None):
+                    std, down_ratio=4, num_classes=None, input_hw=None,
+                    dp=None):
     """step(batch on the device) -> stats {name: 0-dim tensor}, after one
     optimizer update. An image cache batch (img_idx) carries the device
-    stack as 'cache_images' and is warped to `input_hw`."""
+    stack as 'cache_images' and is warped to `input_hw`. With `dp` the
+    gradients are summed over the ranks before the update, and the stats
+    are the sums of the ranks' (each rank's loss is its share of the
+    global one)."""
 
     def step(batch):
         model.train(not quantized)
@@ -90,8 +122,15 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
         loss, stats = loss_fn(stacks(out), batch, loss_opts)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(model.parameters(), dp)
         optimizer.step()
-        return {k: torch.as_tensor(v).detach() for k, v in stats.items()}
+        stats = {k: torch.as_tensor(v, dtype=loss.dtype,
+                                    device=loss.device).detach()
+                 for k, v in stats.items()}
+        if dp is not None:
+            summed = all_sum(torch.stack(list(stats.values())), dp)
+            stats = dict(zip(stats, summed))
+        return stats
 
     return step
 
@@ -167,22 +206,29 @@ def make_val_step(model, loss_fn, loss_opts, mean, std, down_ratio=4,
 
 class Trainer:
     """Epoch-loop engine (reference base_trainer.py:23-119) on one device:
-    `cuda` unless opt.gpus is -1 or `device` says otherwise."""
+    `cuda` unless opt.gpus is -1 or `device` says otherwise; with `dp`,
+    one rank's replica on dp.device."""
 
-    def __init__(self, opt, qspec=None, device=None):
+    def __init__(self, opt, qspec=None, device=None, dp=None):
         if getattr(opt, "spatial_shard", 1) > 1:
             raise NotImplementedError(
-                "--spatial_shard is queued with DDP in ROADMAP.md (item 20)")
+                "--spatial_shard (halo-exchanged convs) is queued in "
+                "ROADMAP.md (item 20)")
         self.opt = opt
         self.qspec = qspec
-        self.device = resolve_device(device or device_from_opt(opt))
+        self.dp = dp
+        self.device = resolve_device(
+            dp.device if dp is not None else
+            device or device_from_opt(opt))
         self.model = create_model(
             opt.arch, opt.heads, opt.head_conv, w2=opt.w2,
             maxpool=opt.maxpool, qspec=qspec, dtype=opt.dtype,
             device=self.device,
             generator=torch.Generator().manual_seed(opt.seed))
+        set_data_parallel(self.model, dp)
         self.loss_fn = LOSS_FACTORY[opt.task]
         self.loss_opts = LossOpts(opt)
+        self.train_loss_opts = LossOpts(opt, dp)
         self.mean = np.asarray(opt.mean, np.float32)
         self.std = np.asarray(opt.std, np.float32)
         self.lr = opt.lr
@@ -190,8 +236,11 @@ class Trainer:
         self.train_step = None
         self.input_hw = (opt.input_h, opt.input_w)
         # the device-resident image stack (data/device_cache.py), set by
-        # the CLI with --device_cache; run_epoch hands it to cache batches
+        # the CLI with --device_cache; run_epoch hands it to cache batches.
+        # With --device_cache_shard it holds this rank's rows alone,
+        # cache_shard_rows of them from row rank * cache_shard_rows
         self.image_cache = None
+        self.cache_shard_rows = None
         if any(getattr(opt, f, False) for f in _ORACLES):
             self.val_step = make_oracle_val_step(
                 self.model, self.loss_fn, self.loss_opts, opt, self.mean,
@@ -213,14 +262,17 @@ class Trainer:
 
     # -- state ---------------------------------------------------------
     def init(self):
-        """Fresh Adam state over the model's parameters, at the base LR."""
+        """Fresh Adam state over the model's parameters, at the base LR;
+        with `dp`, rank 0's weights and buffers on every rank."""
+        broadcast_module(self.model, self.dp)
         self.lr = self.opt.lr
         self.optimizer = torch.optim.Adam(self.model.parameters(),
                                           lr=self.opt.lr)
         self.train_step = make_train_step(
-            self.model, self.loss_fn, self.loss_opts, self.optimizer,
+            self.model, self.loss_fn, self.train_loss_opts, self.optimizer,
             self.qspec is not None, self.mean, self.std,
-            self.opt.down_ratio, self.opt.num_classes, self.input_hw)
+            self.opt.down_ratio, self.opt.num_classes, self.input_hw,
+            self.dp)
         return self.model
 
     def set_lr(self, lr):
@@ -251,12 +303,22 @@ class Trainer:
             pending.clear()
 
         step = self.train_step if phase == "train" else self.val_step
+        # a train step's stats are the global batch's
+        ranks = self.dp.world if self.dp is not None and phase == "train" \
+            else 1
+        rank = self.dp.rank if self.dp is not None else 0
+        show = rank == 0
         end = time.time()
         for it, batch in enumerate(loader):
             if it >= n_iters:
                 break
-            bs = batch_size_of(batch)
+            bs = batch_size_of(batch) * ranks
             meta = batch.get("meta")
+            rows = self.cache_shard_rows
+            if rows and "img_idx" in batch:
+                # this rank's cache holds rows [rank * rows, ...) alone
+                check_shard_routing(batch["img_idx"], 1, rows, first=rank)
+                batch = dict(batch, img_idx=batch["img_idx"] - rank * rows)
             batch = batch_to_device(batch, self.device)
             if "img_idx" in batch:
                 batch["cache_images"] = self.image_cache
@@ -266,7 +328,7 @@ class Trainer:
                 flush()
             batch_time.update(time.time() - end)
             end = time.time()
-            if print_iter and it % print_iter == 0:
+            if print_iter and it % print_iter == 0 and show:
                 flush()
                 msg = " ".join("{} {:.4f}".format(k, m.avg)
                                for k, m in meters.items())

@@ -54,6 +54,7 @@ class SharedUp(nn.Module):
         self.channels = channels
         self.f = f
         self.weight = nn.Parameter(torch.empty(1, 1, 2 * f, 2 * f))
+        self.reset_parameters()  # bilinear from the start, never garbage
 
     @torch.no_grad()
     def reset_parameters(self):

@@ -6,10 +6,13 @@ Inside the network activations are NCHW-logical tensors in
 the (N, H, W, C) C-contiguous buffer the deform kernel reads. The public
 helpers here keep the JAX package's NHWC layout.
 
-Conv + BN pairs are plain ``nn.Conv2d`` (no bias) + ``nn.BatchNorm2d``
-(momentum 0.1, eps 1e-5: torch semantics, as the JAX ``ConvBN`` mirrors)
-placed at the reference ``nn.Sequential`` indices by the model, so the
-``state_dict`` has the reference CoDeNet names.
+Conv + BN pairs are plain ``nn.Conv2d`` (no bias) + ``BatchNorm2d``
+(``nn.BatchNorm2d``, momentum 0.1, eps 1e-5: torch semantics, as the JAX
+``ConvBN`` mirrors) placed at the reference ``nn.Sequential`` indices by
+the model, so the ``state_dict`` has the reference CoDeNet names. Under
+data parallelism (`set_data_parallel`) each train-mode BatchNorm takes
+the statistics of the global batch, as flax's BN does over a sharded
+batch, and each ``QuantAct`` the global activation range.
 
 Quantized (W4A8 fake-quant) execution follows the JAX package's layers.py:
 one module tree for both modes, selected by a ``QuantSpec`` (None = FP32).
@@ -53,6 +56,7 @@ from torch import nn
 from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
+from ..parallel.mesh import all_gather_rows, all_sum
 
 # int8 eval samples the deform conv in bf16 (the JAX package's
 # layers.py:562-574): its input holds 2^a_bit levels and `deform_act`
@@ -165,8 +169,81 @@ def conv(cin, cout, kernel_size=1, stride=1, padding=0, groups=1,
                      bias=bias)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the batch of every rank of `dp`.
+
+    Forward: each rank's per-channel (mean, biased variance, count) are
+    gathered and combined (Chan's pairwise update: exact, and no E[x^2] -
+    E[x]^2 cancellation); the running statistics take the global mean
+    and the global variance made unbiased over the global count, as
+    torch's BN does over one batch. Backward: the per-channel sums of dy
+    and dy * (x - mean) are all-reduced into dx; the weight's and bias's
+    gradients stay this rank's share (the trainer sums gradients over the
+    ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum, dp):
+        c = x.shape[1]
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        rows = all_gather_rows(torch.cat(
+            [mean, var, mean.new_full((1,), x.numel() // c)]), dp)
+        counts = rows[:, -1:]
+        total = counts.sum()
+        g_mean = (counts * rows[:, :c]).sum(0) / total
+        g_var = (counts * (rows[:, c:2 * c]
+                           + (rows[:, :c] - g_mean) ** 2)).sum(0) / total
+        with torch.no_grad():
+            running_mean.mul_(1.0 - momentum).add_(momentum * g_mean)
+            running_var.mul_(1.0 - momentum).add_(
+                momentum * g_var * (total / (total - 1.0)))
+        ctx.save_for_backward(x, weight, g_mean, torch.rsqrt(g_var + eps))
+        ctx.total, ctx.dp = total, dp
+        return F.batch_norm(x, g_mean, g_var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+
+        def chan(v):
+            return v[None, :, None, None]
+        xmu = x - chan(mean)
+        local = torch.cat([dy.sum((0, 2, 3)), (dy * xmu).sum((0, 2, 3))])
+        glob = all_sum(local, ctx.dp) / ctx.total
+        dx = (dy - chan(glob[:c])
+              - xmu * chan(invstd * invstd * glob[c:])) * chan(invstd
+                                                                 * weight)
+        return (dx, local[c:] * invstd, local[:c], None, None, None, None,
+                None)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that, in train mode with `dp` set (a
+    parallel.DataParallel, by `set_data_parallel`), normalises with the
+    statistics of the global batch (`_GlobalBatchNorm`). Same parameters,
+    buffers and names."""
+    dp = None
+
+    def forward(self, x):
+        if self.dp is None or not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                      self.running_mean, self.running_var,
+                                      self.eps, self.momentum, self.dp)
+
+
 def bn(c):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
+
+
+def set_data_parallel(model, dp):
+    """Make every BatchNorm and QuantAct of `model` reduce over the ranks
+    of `dp` (None: this process's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, QuantAct)):
+            m.dp = dp
 
 
 # -- quantized execution (the JAX package's layers.py:121-143, 267-508) ----
@@ -197,7 +274,9 @@ def qspec_from_opt(opt):
 class QuantAct(nn.Module):
     """EMA-range activation fake-quantizer (reference QuantAct,
     quant_modules.py:163-225). `x_min`/`x_max` are buffers; with
-    update=True the EMA takes this batch's range before quantizing."""
+    update=True the EMA takes this batch's range before quantizing: the
+    range of the global batch under data parallelism (`dp`)."""
+    dp = None
 
     def __init__(self, qspec):
         super().__init__()
@@ -212,7 +291,8 @@ class QuantAct(nn.Module):
                              "ranges")
         if update:
             with torch.no_grad():
-                bmin, bmax = Q.act_range_observe(x, q.act_percentile)
+                bmin, bmax = Q.act_range_observe(x, q.act_percentile,
+                                                 self.dp)
                 nmin, nmax = Q.ema_update(self.x_min, self.x_max, bmin,
                                           bmax)
                 self.x_min.copy_(nmin)

@@ -33,6 +33,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_gather_rows, all_max
+
 
 def _ste(x, qx_fn):
     """Forward qx_fn(x), backward identity."""
@@ -126,12 +128,20 @@ def fake_quant_act(x, k, x_min, x_max, clamp=False):
 
 
 @torch.no_grad()
-def act_range_observe(x, percentile=False):
-    """Batch (min, max) for the EMA (quant_modules.py:204-209)."""
+def act_range_observe(x, percentile=False, dp=None):
+    """Batch (min, max) for the EMA (quant_modules.py:204-209). Under data
+    parallelism (`dp`) the range of the global batch: the min and max
+    all-reduced (one MAX over (-min, max)), and the percentiles taken
+    over every rank's values gathered in rank order, the concatenated
+    batch (a percentile of the union is no function of local ones)."""
     flat = x.detach().reshape(-1)
     if percentile:
-        return percentile_min_max(flat, 0.1, 99.9)
-    return flat.min(), flat.max()
+        return percentile_min_max(all_gather_rows(flat, dp).reshape(-1),
+                                  0.1, 99.9)
+    if dp is None:
+        return flat.min(), flat.max()
+    lo_hi = all_max(torch.stack([-flat.min(), flat.max()]), dp)
+    return -lo_hi[0], lo_hi[1]
 
 
 @torch.no_grad()

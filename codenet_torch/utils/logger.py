@@ -2,7 +2,8 @@
 
 Writes opt.txt (the full config, the torch version and the device),
 a timestamped log_<time>.txt, and per-epoch scalars to scalars.jsonl (one
-{"tag", "value", "step"} record per line).
+{"tag", "value", "step"} record per line). In a data-parallel run only
+rank 0 writes (the others' loggers write nothing).
 """
 
 from __future__ import annotations
@@ -16,8 +17,11 @@ import torch
 
 
 class Logger:
-    def __init__(self, opt, device=None):
+    def __init__(self, opt, device=None, rank=0):
         self.save_dir = opt.save_dir
+        self.log = self.scalars = None
+        if rank != 0:
+            return
         os.makedirs(self.save_dir, exist_ok=True)
         debug_dir = getattr(opt, "debug_dir", None)
         if debug_dir:
@@ -42,6 +46,8 @@ class Logger:
         self.start_line = True
 
     def write(self, txt):
+        if self.log is None:
+            return
         if self.start_line:
             self.log.write("{}: {}".format(
                 time.strftime("%Y-%m-%d-%H-%M"), txt))
@@ -51,10 +57,13 @@ class Logger:
         self.log.flush()
 
     def scalar_summary(self, tag, value, step):
+        if self.scalars is None:
+            return
         self.scalars.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self.scalars.flush()
 
     def close(self):
-        self.log.close()
-        self.scalars.close()
+        for f in (self.log, self.scalars):
+            if f is not None:
+                f.close()

@@ -352,3 +352,32 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def assert_rank_rows_equal(make_dataset, batch_size=4, world=2, epochs=2,
+                           seed=3, shard_ranges=None):
+    """Each data-parallel rank's loader (`rows` from process_batch_slice,
+    its own dataset from `make_dataset()`) yields rows [lo, hi) of every
+    batch of the one-process loader, bit for bit, over `epochs` epochs
+    (the ranks replay the draws of the rows before theirs:
+    data/loader.py)."""
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.parallel import process_batch_slice
+
+    def loader(rows=None):
+        return DataLoader(make_dataset(), batch_size, shuffle=True,
+                          num_workers=2, seed=seed,
+                          shard_ranges=shard_ranges, rows=rows)
+    full = loader()
+    parts = [loader(process_batch_slice(batch_size, r, world))
+             for r in range(world)]
+    for _ in range(epochs):
+        batches = list(zip(full, *parts))
+        assert len(batches) == len(full) > 0
+        for whole, *rows in batches:
+            for k, v in whole.items():
+                if k == "meta":
+                    continue
+                got = np.concatenate([r[k] for r in rows])
+                assert got.dtype == v.dtype, k
+                np.testing.assert_array_equal(got, v, err_msg=k)

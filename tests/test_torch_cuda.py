@@ -792,3 +792,77 @@ def test_kernel_backward_128_maps_on_card(shape, dtype, cuda_device):
             name
     bounds = (st == -7.0) | (st == 8.0)
     assert float(got[1][bounds].abs().max()) == 0.0
+
+
+# -- data parallelism on the card (codenet_torch/parallel/) -----------------
+
+def _ranks(fn, devices, backend, tmp_path):
+    from codenet_torch.parallel import launch
+    launch(fn, devices, backend=backend, args=(str(tmp_path),))
+    return [torch.load(tmp_path / "rank{}.pt".format(k))
+            for k in range(len(devices))]
+
+
+@pytest.mark.cuda
+def test_synced_bn_two_gloo_ranks_share_a_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0, each on its half of the batch, against
+    plain BatchNorm2d on the concatenated batch there: output and dx of
+    the rows, the summed weight and bias gradients and the running
+    statistics (bit-equal on both ranks), f32 within 1e-5 of each max."""
+    import torch_parallel_worker as W
+    ranks = _ranks(W.card_bn_rank, ["cuda:0", "cuda:0"], "gloo", tmp_path)
+    x, g = W.bn_case()
+    m = torch.nn.BatchNorm2d(x.shape[1]).to(cuda_device)
+    xt = torch.from_numpy(x).float().to(cuda_device).requires_grad_()
+    y = m(xt)
+    (y * torch.from_numpy(g).float().to(cuda_device)).sum().backward()
+    ref = {"y": y, "dx": xt.grad, "dweight": m.weight.grad,
+           "dbias": m.bias.grad, "running_mean": m.running_mean,
+           "running_var": m.running_var}
+    for k, v in ref.items():
+        v = v.detach().cpu()
+        if k in ("y", "dx"):
+            got = torch.cat([r[k] for r in ranks])
+        elif k.startswith("running"):
+            assert torch.equal(ranks[0][k], ranks[1][k]), k
+            got = ranks[0][k]
+        else:
+            got = ranks[0][k] + ranks[1][k]
+        err = float((got - v).abs().max())
+        assert err <= 1e-5 * float(v.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_cache_shard_on_card(cuda_device):
+    """to_device(shard=True) puts each rank's rows on the card (the tail
+    shard zero-padded)."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.parallel import DataParallel
+    images = np.random.RandomState(4).randint(
+        0, 256, (7, 5, 6, 3)).astype(np.uint8)
+    for rank, (lo, hi) in enumerate([(0, 4), (4, 7)]):
+        cache = ImageCache(images.copy(), np.full((7, 2), 5, np.int32))
+        rows = cache.to_device(cuda_device, shard=True, dp=DataParallel(
+            rank, 2, cuda_device, "gloo"))
+        assert rows.is_cuda and rows.shape == (4, 5, 6, 3)
+        assert cache.shard_rows == 4 and cache.shard_ranges == [(0, 4),
+                                                                (4, 7)]
+        want = np.zeros((4, 5, 6, 3), np.uint8)
+        want[:hi - lo] = images[lo:hi]
+        np.testing.assert_array_equal(rows.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_each_ranks_card(cuda_device, tmp_path):
+    """One NCCL rank per visible card: both deform kernels launch on
+    cuda:LOCAL_RANK (one forward and one backward launch, counted in the
+    rank's process) and agree with their plain versions there (f32:
+    1e-4 of each output's max)."""
+    import torch_parallel_worker as W
+    n = torch.cuda.device_count()
+    ranks = _ranks(W.card_kernel_rank, ["cuda:{}".format(k)
+                                        for k in range(n)], None, tmp_path)
+    for k, r in enumerate(ranks):
+        assert r["device"] == "cuda:{}".format(k)
+        assert r["launches"] == [1, 1]
+        assert max(r["rel_errs"]) <= 1e-4, r["rel_errs"]

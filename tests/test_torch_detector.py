@@ -140,7 +140,7 @@ def test_pre_process_letterbox(detectors):
 
 
 SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"],
-                  ["--dtype", "bfloat16"])
+                  ["--dtype", "bfloat16"], ["--device_cache_shard"])
 
 
 @pytest.mark.parametrize("extra", [["--nms"], ["--test_scales", "0.5,1"],
@@ -148,9 +148,10 @@ SERVED_OPTIONS = (["--nms"], ["--test_scales", "0.5,1"], ["--keep_res"],
                                    ["--dtype", "bfloat16"],
                                    ["--device_cache_shard"]])
 def test_unserved_options_raise(extra, detectors):
-    """The sharded image cache raises (ROADMAP.md item 20). The cases of
-    options served since (SERVED_OPTIONS, the bf16 model among them) keep
-    their ids and check instead that one request runs: every scale
+    """Options the detector does not serve raise. The cases of options
+    served since (SERVED_OPTIONS: the bf16 model, and the sharded image
+    cache, which shards the train cache only) keep their ids and check
+    instead that one request runs: every scale
     through the network, --keep_res at the frame's own size rounded up to
     a multiple of 32, and finite merged detections (the carried weights
     of `detectors`: the init's tied scores would keep more than 100)."""

@@ -128,8 +128,17 @@ def test_image_cache_build_matches_jax(voc_root):
     dev = cache.to_device("cpu")
     assert cache.images is None and cache.nbytes == 6 * 120 * 160 * 3
     assert torch.equal(dev, torch.from_numpy(ref.images))
-    with pytest.raises(NotImplementedError):
-        ImageCache.build(tds).to_device("cpu", shard=True)
+    # --device_cache_shard in one process: its one shard holds every row,
+    # as the JAX cache's over a one-device mesh
+    import jax
+    from codenet_tpu.parallel import get_mesh
+    jcache = JDC.ImageCache.build(jds)
+    jdev = jcache.to_device(get_mesh(jax.devices()[:1]), shard=True)
+    cache = ImageCache.build(tds)
+    dev = cache.to_device("cpu", shard=True)
+    assert (cache.shard_rows, cache.shard_ranges) == (
+        jcache.shard_rows, jcache.shard_ranges) == (6, [(0, 6)])
+    assert torch.equal(dev, torch.from_numpy(np.asarray(jdev)))
 
 
 def _port_warp_in_jax_sampler(monkeypatch):

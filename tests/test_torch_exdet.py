@@ -217,6 +217,19 @@ def _port_warp_in_jax_sampler(monkeypatch):
         imread=real.imread, warpAffine=warp, INTER_LINEAR=real.INTER_LINEAR))
 
 
+@pytest.mark.parametrize("extra", [[], ["--not_rand_crop"]])
+def test_rank_rows_equal_one_process(coco_root, extra):
+    """Two data-parallel ranks, each keeping its rows of every batch and
+    replaying the draws of the rows before them without their frames
+    (data/loader.py): bit-equal to the one-process batches over three
+    epochs."""
+    from test_torch_common import assert_rank_rows_equal
+    assert_rank_rows_equal(
+        lambda: get_dataset("coco", "exdet")(
+            _ex_opt(tcfg, coco_root, extra), "train"),
+        batch_size=2, epochs=3)
+
+
 @pytest.mark.parametrize("extra", [[], ["--agnostic_ex"], ["--not_rand_crop"],
                                    ["--host_normalize"]],
                          ids=["device", "agnostic", "shift_scale",

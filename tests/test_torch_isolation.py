@@ -30,7 +30,10 @@ def test_importing_every_module_loads_no_jax_and_no_cv2():
         "own = {'codenet_torch.ops.nms', 'codenet_torch.data.image_aug',\n"
         "       'codenet_torch.data.device_cache',\n"
         "       'codenet_torch.utils.debugger', 'codenet_torch.utils.oracle',\n"
-        "       'codenet_torch.engine.train_hooks', 'codenet_torch.cli.demo'}\n"
+        "       'codenet_torch.engine.train_hooks', 'codenet_torch.cli.demo',\n"
+        "       'codenet_torch.parallel.mesh',\n"
+        "       'codenet_torch.parallel.multihost',\n"
+        "       'codenet_torch.parallel.dryrun'}\n"
         "assert own <= set(names), own - set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'codenet_tpu', 'cv2'))\n"

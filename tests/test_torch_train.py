@@ -313,7 +313,8 @@ def test_cli_main_trains_saves_and_drops_lr(voc_root, capsys):
 
 PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
                            ["--dtype", "bfloat16"], ["--debug", "1"],
-                           ["--eval_oracle_hm"], ["--test"])
+                           ["--eval_oracle_hm"], ["--test"],
+                           ["--device_cache_shard"])
 
 
 def _scalars(exp_id):
@@ -335,7 +336,8 @@ def test_unported_training_options_raise(extra, voc_root, capsys,
     or 23). The cases of options ported since (PORTED_TRAINING_OPTIONS)
     keep their ids and check instead that `cli.main` runs with them:
     one train step with a finite loss (and the cache's report line with
-    --device_cache); with --debug 1 the step's renders (the JAX hooks'
+    --device_cache and --device_cache_shard, one process holding the
+    one shard); with --debug 1 the step's renders (the JAX hooks'
     file names) and the final eval's; with --eval_oracle_hm a val epoch whose heatmap loss,
     the ground truth's own, is below the trained model's; with --test
     the val-only run: no step, the val split decoded and scored into
@@ -378,7 +380,10 @@ def test_unported_training_options_raise(extra, voc_root, capsys,
         assert not os.path.exists(os.path.join(save_dir, "model_last.pth"))
         return
     assert len(losses) == 1 and np.isfinite(losses[0])
-    assert ("device_cache: 6 images" in out) == (extra == ["--device_cache"])
+    assert ("device_cache: 6 images" in out) == (
+        extra in (["--device_cache"], ["--device_cache_shard"]))
+    assert ("(sharded over 1 ranks)" in out) == (
+        extra == ["--device_cache_shard"])
     if extra == ["--debug", "1"]:
         # the step's four renders, and the final eval's detector one per
         # val image (counted as saves: its file names carry the
