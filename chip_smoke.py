@@ -95,6 +95,19 @@ writer and reader. Then it drives the port's paths at full width
   and from each config's QAT checkpoint and artifact: equal detections,
   int8 heads card vs CPU and against act-clamp fake-quant, the int8 and
   fake-quant forwards timed, the artifact's bytes beside the reference's;
+- the profiler trace (trace, utils/profile.py): `cli.main --trace` on
+  config a (batch 32, 3 steps, its final eval) and `cli.test --trace
+  --flip_test`, each trace file's deform kernel events held equal to the
+  launch counters, its 10 device ops with the most time, its kernel
+  count and the device's busy share; profile_model's MACs and
+  parameters of configs a-e, equal on the CPU and on the card;
+- the dense targets (dense_targets): config a with --mse_loss
+  --dense_wh, a step card vs CPU from host batches and from
+  --device_cache, and timed steps from each in turns; multi_pose at
+  512^2 with --mse_loss --dense_hp; ddd and exdet with --mse_loss;
+- the deform-conv ladder and the op inventory (ladder_ops): every rung,
+  InPlace-ABN, ROI-Align and PS-ROI pooling, forward and backward, card
+  vs CPU;
 - the synthetic accuracy regression (synthreg,
   tools_torch/synthetic_regression.py at its --smoke size): FP32, QAT
   and clamp-trained QAT through the CLIs on PNG files it writes, eight
@@ -104,7 +117,10 @@ writer and reader. Then it drives the port's paths at full width
 
 Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
-table ({"kernels": [...]}) and {"ok": true, "device": {...}}.
+table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
+before them gives each phase's wall seconds. `--phases trace,...` runs
+only the named phases that need no other's results, after the build
+(no kernel table, no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
@@ -186,6 +202,7 @@ BATCHES = [2, 32, 64, 128]
 RAGGED_BATCHES = [2, 128]
 BWD_BATCHES = [32, 128]
 TRAIN_BATCH = 32
+TRAIN_TIMED_STEPS = 8  # config a FP32 steps (train), and cache vs host
 RES = 256  # the served and trained input (config a)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # --keep_res kernel cases: VOC's two frame shapes (h, w) at these scales
@@ -222,7 +239,7 @@ ARCHS = [("res_18", 32), ("resdcn_18", 32), ("dlav0_34", 16),
          ("dla_34", 16), ("hourglass", 5)]
 # f32 heads card vs CPU (every stack's), each within this of its max
 ARCH_HEAD_TOL = 2e-3
-ARCH_TIMED_STEPS = 6
+ARCH_TIMED_STEPS = 3
 # the BN whose ReLU feeds each arch's heads (they have no BN of their
 # own): conditioned_init leaves its bias at 0, so the heatmap logits stay
 # off the loss's clamp, and raises the others' by ARCH_BN_SHIFT. Raised
@@ -409,7 +426,7 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
     call_ms = cuda_time_ms(lambda: DC.codesign_deform_conv_fast(x, s, wt),
                            iters)
     plain_ms = graph_time_ms(lambda: DC.codesign_deform_conv_plain(x, s, wt),
-                             10)
+                             4)
     elems = x.numel()
     nbytes = 2 * elems * x.element_size() + s.numel() * 4 + 9 * shape[2] * 4
     t_bytes = nbytes / bw * 1e3
@@ -537,7 +554,7 @@ def phase_kernel_bwd(bw, flops):
                 lambda: DC.codesign_deform_conv_bwd(x, s, wt, g), 50)
             plain_ms = graph_time_ms(
                 lambda: DC.codesign_deform_conv_bwd_plain(x, s, wt, g),
-                3)
+                2)
             elems = x.numel()
             npos = s.numel()
             # what the op must move: x, g, s and w read once, dx (x's
@@ -1096,18 +1113,35 @@ def make_trainer(opt, device, qspec=None, deform_backbone=False):
 
 
 def step_parity(data, state_dict, qspec=None, deform_backbone=False,
-                bf16=False, batch=4):
+                bf16=False, batch=4, extra=()):
     """One train step at `batch` on the card and on the CPU from the same
     weights and batch: the loss, the gradients over all parameters, the
     median tensor and each deform-block tensor (grads_vs), each held at
     STEP_TOL (with bf16 conv operands: the loss at BF16_LOSS_TOL and all
-    gradients together at BF16_GRAD_TOL); the step's kernel launches."""
+    gradients together at BF16_GRAD_TOL); the step's kernel launches.
+    `extra`: more command-line flags; with --device_cache the batch's
+    rows come from an image cache on each device."""
     from codenet_torch.data.loader import DataLoader
     from codenet_torch.engine.trainer import batch_to_device
     from codenet_torch.ops import deform_cuda as DC
-    opt = data.opt(batch, *(["--dtype", "bfloat16"] if bf16 else []))
-    batch = next(iter(DataLoader(data.dataset(opt), batch, shuffle=True,
-                                 num_workers=4, seed=1)))
+    opt = data.opt(batch, *(["--dtype", "bfloat16"] if bf16 else []),
+                   *extra)
+    ds = data.dataset(opt)
+    stacks = {}
+    if opt.device_cache:
+        from codenet_torch.data.device_cache import ImageCache
+        cache = ImageCache.build(ds)
+        ds._image_cache_dims = cache.dims
+        stacks["cpu"] = torch.from_numpy(cache.images.copy())
+        stacks["cuda"] = cache.to_device("cuda")
+    batch = next(iter(DataLoader(ds, batch, shuffle=True, num_workers=4,
+                                 seed=1)))
+
+    def on(dev):
+        b = batch_to_device(batch, dev)
+        if dev in stacks:
+            b["cache_images"] = stacks[dev]
+        return b
     card, cpu = (make_trainer(opt, dev, qspec, deform_backbone)
                  for dev in ("cuda", "cpu"))
     card.model.load_state_dict(state_dict)
@@ -1116,10 +1150,10 @@ def step_parity(data, state_dict, qspec=None, deform_backbone=False,
     cpu.init()
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0
     with cudnn_tf32(bf16):
-        got = card.train_step(batch_to_device(batch, "cuda"))
+        got = card.train_step(on("cuda"))
         torch.cuda.synchronize()
     launches = (DC.LAUNCHES, DC.BWD_LAUNCHES)
-    ref = cpu.train_step(batch_to_device(batch, "cpu"))
+    ref = cpu.train_step(on("cpu"))
     err = grads_vs(card.model, cpu.model)
     out = {"loss_card": float(got["loss"]), "loss_cpu": float(ref["loss"]),
            "loss_rel": abs(float(got["loss"]) - float(ref["loss"]))
@@ -1197,7 +1231,7 @@ def timed_steps_in_turns(paths):
                                     DC.BWD_LAUNCHES - before[1]])
     out = {}
     for name, run in runs.items():
-        steady = float(np.median(run["ms"][1:]))
+        steady = float(np.median(run["ms"][1:] or run["ms"]))
         batch = batch_size_of(paths[name][1][0])
         out[name] = {
             "steps": len(run["ms"]), "batch": batch,
@@ -1211,8 +1245,9 @@ def timed_steps_in_turns(paths):
 
 
 def phase_train(data):
-    """FP32 training: one step card vs CPU at batch 4; then 12 steps at
-    batch 32 on port-sampler batches, the loader timed separately."""
+    """FP32 training: one step card vs CPU at batch 4; then
+    TRAIN_TIMED_STEPS steps at batch 32 on port-sampler batches, the
+    loader timed separately."""
     from codenet_torch.engine.trainer import Trainer
     opt = data.opt(TRAIN_BATCH)
     parity, ok = step_parity(data, conditioned_init(opt))
@@ -1221,8 +1256,9 @@ def phase_train(data):
     if not ok:
         raise SystemExit("train parity check failed")
 
-    batches, loader_ms = loader_batches(data.dataset(opt), TRAIN_BATCH, 12,
-                                        opt.num_workers, opt.seed)
+    batches, loader_ms = loader_batches(data.dataset(opt), TRAIN_BATCH,
+                                        TRAIN_TIMED_STEPS, opt.num_workers,
+                                        opt.seed)
     trainer = Trainer(opt, device="cuda")
     trainer.init()
     run = timed_steps(trainer, batches)
@@ -1240,7 +1276,7 @@ def phase_qat(data, fp32_trainer, batches):
     quantized model, 6 timed steps at batch 32 (ranges finite and moving),
     and a fake-quant CtdetDetector eval of the 8 val frames.
 
-    The parity step does not start from the trained weights: twelve FP32
+    The parity step does not start from the trained weights: the FP32
     steps end at another point in every run (the deform backward sums
     with atomics in no fixed order, and Adam turns that noise into whole
     steps on the parameters whose gradient is nearly 0), and from most
@@ -1607,8 +1643,9 @@ def phase_devcache(data, train_run, host_batches):
     on the card; one --no_color_aug batch through the cache path against
     the host path (same rng: equal targets, the unrounded warp within
     half a level of the host's uint8 pixels); the cache loader timed
-    beside the train phase's host loader; 12 FP32 steps at batch 32 from
-    the cache in turns with 12 on the train phase's host batches (two
+    beside the train phase's host loader; TRAIN_TIMED_STEPS FP32 steps at
+    batch 32 from the cache in turns with as many on the train phase's
+    host batches (two
     trainers from one init), and the model input of one batch of each
     (colour aug and normalise; the cache's gather and warp too); then
     `cli.main --device_cache` for one short epoch and its final eval.
@@ -1655,15 +1692,15 @@ def phase_devcache(data, train_run, host_batches):
         fail.append("cache batch vs host batch")
 
     batches, out["loader_ms_per_batch"] = loader_batches(
-        ds, TRAIN_BATCH, 12, opt.num_workers, opt.seed)
+        ds, TRAIN_BATCH, TRAIN_TIMED_STEPS, opt.num_workers, opt.seed)
     out["host_loader_ms_per_batch"] = train_run["loader_ms_per_batch"]
     trainer = Trainer(opt, device="cuda")
     trainer.init()
     host_trainer = Trainer(data.opt(TRAIN_BATCH), device="cuda")
     host_trainer.init()
     runs = timed_steps_in_turns({
-        "cache": (trainer, batches[:12], stack),
-        "host": (host_trainer, host_batches[:12], None)})
+        "cache": (trainer, batches, stack),
+        "host": (host_trainer, host_batches, None)})
     out["steps_in_turns"] = runs
     out["train_phase_ms_per_step_steady_median"] = \
         train_run["ms_per_step_steady_median"]
@@ -1989,7 +2026,7 @@ def with_tf32(trainer):
 def phase_bf16_train(data, batches):
     """Training with bf16 conv operands: one FP32-recipe step card vs CPU
     at batch 4 from conditioned_init (loss BF16_LOSS_TOL, gradients
-    BF16_GRAD_TOL); 8 steps at batch 32, bf16 and f32 in turns, with the
+    BF16_GRAD_TOL); 6 steps at batch 32, bf16 and f32 in turns, with the
     backward launches by dtype; 3 QAT steps in bf16 and 3 in f32 from
     the train phase's FP32 checkpoint, in turns: losses within
     QAT_BF16_LOSS_TOL, every EMA range within QAT_BF16_RANGE_TOL.
@@ -2025,15 +2062,15 @@ def phase_bf16_train(data, batches):
     with recording(DC, "_launch_bwd",
                    lambda x, s, w, g: dtypes.append(str(x.dtype))):
         runs = timed_steps_in_turns({
-            "bf16": (with_tf32(steps["bf16"]), batches[:8], None),
-            "f32": (steps["f32"], batches[:8], None)})
+            "bf16": (with_tf32(steps["bf16"]), batches[:6], None),
+            "f32": (steps["f32"], batches[:6], None)})
     out["steps_in_turns"] = runs
     out["bwd_launch_dtypes"] = {d: dtypes.count(d) for d in set(dtypes)}
     for run in runs.values():
         if not np.all(np.isfinite(run["losses"])) or any(
                 st != [3, 3] for st in run["launches_per_step"]):
             fail.append("steps")
-    if out["bwd_launch_dtypes"].get("torch.bfloat16", 0) != 3 * 8:
+    if out["bwd_launch_dtypes"].get("torch.bfloat16", 0) != 3 * 6:
         fail.append("bf16 backward launches")
 
     qat = trainers(QuantSpec(), str(ROOT / "exp" / "chip_smoke"
@@ -2233,7 +2270,7 @@ def phase_multi_pose(data):
     (DECODE_TOL); 8 flip-test requests with their stage timers and one
     request at the five test scales with --nms (soft_nms_39); one FP32
     train step card vs CPU at batch 4 from conditioned_init (STEP_TOL);
-    6 timed steps at batch 32 on sampler batches (the loader timed
+    4 timed steps at batch 32 on sampler batches (the loader timed
     apart); then `cli.main multi_pose` -> `cli.quant_main` -> `cli.test
     --resume-quantize --flip_test`, scored by the port's keypoint COCO
     evaluator (10 stats). Returns (forward, backward) launches of the
@@ -2293,7 +2330,7 @@ def phase_multi_pose(data):
             or rows.shape != (scales * opt.K, 39):
         fail.append("served")
 
-    run = _train_and_time(data, data.opt(TRAIN_BATCH), 6, fail, out,
+    run = _train_and_time(data, data.opt(TRAIN_BATCH), 4, fail, out,
                           parity_batch=4)
     launches = [served + run["launches_fwd"], run["launches_bwd"]]
 
@@ -2406,7 +2443,7 @@ def phase_ddd(data, rows, bwd_rows):
     vs CPU (TASK_HEAD_TOL, 3 launches) and ddd_decode card vs CPU on one
     request's heads (the rows of score > 0, DECODE_TOL); 8 requests, each
     with its own calib, with their stage timers; one FP32 step card vs
-    CPU at TASK_STEP_BATCH and 6 timed steps at KITTI_TRAIN_BATCH; then
+    CPU at TASK_STEP_BATCH and 4 timed steps at KITTI_TRAIN_BATCH; then
     `cli.main ddd` -> `cli.quant_main ddd` -> `cli.test ddd
     --resume-quantize`, prefetched and --not_prefetch_test, each printing
     the KITTI AP table (the two equal). Returns (forward, backward)
@@ -2466,7 +2503,7 @@ def phase_ddd(data, rows, bwd_rows):
             or not np.array_equal(det.this_calib, calibs[-1]):
         fail.append("served")
 
-    run = _train_and_time(data, data.opt(KITTI_TRAIN_BATCH), 6, fail, out)
+    run = _train_and_time(data, data.opt(KITTI_TRAIN_BATCH), 4, fail, out)
     launches = [served + run["launches_fwd"], run["launches_bwd"]]
 
     common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
@@ -2506,7 +2543,7 @@ def phase_exdet(data):
     on the card, timed, with its peak device memory, and on the CPU: the
     kept scores within LATTICE_SCORE_TOL, the rows above the last kept
     score equal in count and within DECODE_TOL; 8 flip-test requests with their stage
-    timers; one FP32 step card vs CPU at TASK_STEP_BATCH and 4 timed steps
+    timers; one FP32 step card vs CPU at TASK_STEP_BATCH and 3 timed steps
     at batch 32; then `cli.main exdet` -> `cli.quant_main exdet` ->
     `cli.test exdet --flip_test --resume-quantize`, scored by the port's
     COCO evaluator (12 bbox stats). Returns (forward, backward) launches
@@ -2589,7 +2626,7 @@ def phase_exdet(data):
     if served != 3 * len(frames):
         fail.append("served")
 
-    run = _train_and_time(data, data.opt(TRAIN_BATCH), 4, fail, out)
+    run = _train_and_time(data, data.opt(TRAIN_BATCH), 3, fail, out)
     launches = [served + run["launches_fwd"], run["launches_bwd"]]
 
     common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
@@ -3055,7 +3092,7 @@ def phase_host_io():
                          "read_png against cv2.imread")
 
 
-def synthreg_steps(data_root, res, steps=6):
+def synthreg_steps(data_root, res, steps=4):
     """The regression's train step at its size (SYNTH_TRAIN_BATCH, `res`^2,
     its one loader worker): `steps` FP32 steps from the port's init and
     `steps` QAT steps from its FP32 checkpoint, timed with CUDA events
@@ -3153,7 +3190,7 @@ AE_CONFIGS = {"b": (RES, False, True), "c": (COCO_RES, False, False),
 # the 2x network's deconv maps at 512^2 (configs d and e)
 W2_SHAPE = (16, 16, 2153)
 W2_SHAPES = [W2_SHAPE, (32, 32, 256), (64, 64, 128)]
-AE_TIMED_STEPS = 6
+AE_TIMED_STEPS = 3
 # the driver's smoke: its PNG set (tools_torch/synthetic_data.py) and the
 # epochs of its stages (an epoch is one step: 32 train frames at batch 32;
 # QAT resumes at epoch 2)
@@ -3366,7 +3403,7 @@ def phase_configs_ae():
 # -- data parallelism (ddp) ------------------------------------------------
 
 DDP_STEPS = 3          # FP32 and QAT steps of part (b), held to one process
-DDP_TIMED_STEPS = 6    # FP32 and QAT steps of part (a), timed
+DDP_TIMED_STEPS = 4    # FP32 and QAT steps of part (a), timed
 DDP_QAT = ("--wt-percentile", "--act_clamp")
 
 
@@ -3700,6 +3737,290 @@ def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
             sum(r["launches"][1] for r in a + b))
 
 
+# -- the profiler trace, the dense targets, the ladder and the ops ---------
+
+TRACE_STEPS = 3        # traced cli.main steps of config a at TRAIN_BATCH
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+DENSE_TIMED_STEPS = 6  # config a --mse_loss --dense_wh, host and cache
+POSE_DENSE_STEPS = 4   # multi_pose --mse_loss --dense_hp at 512^2
+DENSE_TASK_BATCH = 4   # ddd and exdet with --mse_loss, one step each
+LADDER_TOL = 1e-4
+
+
+def trace_summary(path):
+    """A profiler trace file (utils/profile.py::trace): its kernel events,
+    those of each deform kernel, the 10 device ops with the most total
+    time, and the device's busy share of the span from its first device
+    event to its last (the union of kernel, copy and memset intervals
+    over that span)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in dev)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = spans[-1][1] - spans[0][0] if spans else 0.0
+    names = [e["name"] for e in dev if e["cat"] == "kernel"]
+    return {"file": Path(path).name, "kernels": len(names),
+            "fwd_kernels": sum("codesign_deform_fwd_kernel" in n
+                               for n in names),
+            "bwd_kernels": sum("codesign_deform_bwd_kernel" in n
+                               for n in names),
+            "device_events": len(dev), "busy_us": busy, "span_us": window,
+            "busy_share": busy / window if window else 0.0,
+            "top10_device_us": [[n[:100], us] for n, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def phase_trace(data):
+    """--trace on the card (utils/profile.py): `cli.main --trace` on config
+    a at batch 32, TRACE_STEPS steps (its final eval of the 8 val frames
+    traced too, as in the JAX package), then `cli.test --trace
+    --flip_test` over the 8 val frames, each in this process so that the
+    launch counters see the traced launches. Each trace file's deform
+    kernel events must equal the counters over its run; per file the 10
+    device ops with the most time, the kernel count and the device's
+    busy share (trace_summary). Then profile_model's MACs and parameters
+    of configs a-e at their input sizes, on the CPU and on the card
+    (equal). Returns the (forward, backward) launches of the CLIs."""
+    from codenet_torch.cli import main as cli_main
+    from codenet_torch.cli import test as cli_test
+    from codenet_torch.models import create_model
+    from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.utils.profile import profile_model
+    out, fail, launches = {"phase": "trace"}, [], [0, 0]
+    exp = ROOT / "exp" / "ctdet" / "chip_smoke_trace"
+    shutil.rmtree(exp, ignore_errors=True)
+    trace_dir = exp / "debug" / "trace"
+    n_val = len(data.dataset(data.opt(1), "val"))
+    # one step an epoch: the 64 train frames make two batches of 32
+    runs = [("main", cli_main.main, TRAIN_BATCH,
+             ["--num_epochs", str(TRACE_STEPS), "--num_iters", "1",
+              "--val_intervals", "-1", "--print_iter", "1"],
+             (3 * TRACE_STEPS + 3 * n_val, 3 * TRACE_STEPS), 2),
+            ("test_flip", cli_test.main, 1,
+             ["--flip_test", "--load_model", str(exp / "model_last.pth")],
+             (3 * n_val, 0), 1)]
+    for name, fn, batch, args, want, files in runs:
+        before = set(trace_dir.glob("*.pt.trace.json"))
+        DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+        text, seconds = _cli_log(fn, data.args(
+            batch, "--trace", "--exp_id", "chip_smoke_trace", *args))
+        got = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        launches = [a + b for a, b in zip(launches, got)]
+        new = sorted(set(trace_dir.glob("*.pt.trace.json")) - before)
+        summaries = [trace_summary(f) for f in new]
+        traced = (sum(t["fwd_kernels"] for t in summaries),
+                  sum(t["bwd_kernels"] for t in summaries))
+        ap = _lines_with(text, "Mean AP")
+        out[name] = {"seconds": seconds, "launches": list(got),
+                     "traced": list(traced), "files": summaries,
+                     "mean_ap_line": ap[-1] if ap else None}
+        if (got != want or traced != got or len(new) != files or not ap
+                or not all(t["kernels"] > 0 for t in summaries)):
+            fail.append(name)
+
+    opt = data.opt(1)
+    configs = {"a": (RES, False, False), **AE_CONFIGS}
+    out["profile_model"] = {}
+    for name, (res, w2, maxpool) in configs.items():
+        counts = []
+        for dev in ("cpu", "cuda"):
+            model = create_model(opt.arch, opt.heads, opt.head_conv, w2=w2,
+                                 maxpool=maxpool, device=dev)
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                macs, params = profile_model(model, (1, res, res, 3))
+            counts.append({"macs": macs, "params": params,
+                           "line": log.getvalue().strip()})
+            del model
+        out["profile_model"][name] = {"res": res, "w2": w2,
+                                      "maxpool": maxpool, "cpu": counts[0],
+                                      "card": counts[1]}
+        if counts[0] != counts[1] or not counts[0]["macs"] > 0:
+            fail.append("profile_model " + name)
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("trace check failed: {}".format(fail))
+    return launches
+
+
+def phase_dense_targets(data, pose, kitti, exdet):
+    """Training on CenterNet's dense targets: config a FP32 with
+    --mse_loss --dense_wh (MSRA heatmaps of std --hm_gauss, a dense box
+    size map in place of wh), one step card vs CPU at batch 4 from
+    conditioned_init from host batches and from --device_cache (STEP_TOL,
+    as step_parity holds), then DENSE_TIMED_STEPS steps at batch 32 from
+    each in turns, each loader timed apart; multi_pose at 512^2 with
+    --mse_loss --dense_hp, POSE_DENSE_STEPS steps at batch 32; ddd and
+    exdet with --mse_loss, one step each at DENSE_TASK_BATCH (their MSRA
+    gaussians take the object's radius as std, and an object of radius 0
+    draws a NaN centre, as in the JAX package: the loss must be finite
+    exactly where the targets are). Returns the (forward, backward)
+    launches of the training paths."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.engine.trainer import Trainer
+    out, fail, launches = {"phase": "dense_targets"}, [], [0, 0]
+    flags = ("--mse_loss", "--dense_wh")
+    state = conditioned_init(data.opt(TRAIN_BATCH))
+    for name, extra in (("host", flags), ("cache",
+                                          flags + ("--device_cache",))):
+        parity, ok = step_parity(data, state, extra=extra)
+        out["parity_" + name] = {"batch": 4, **parity, "tol": STEP_TOL}
+        launches = [a + b for a, b in zip(launches,
+                                          parity["launches_fwd_bwd"])]
+        if not ok:
+            fail.append("parity " + name)
+
+    paths = {}
+    for name, extra in (("host", flags), ("cache",
+                                          flags + ("--device_cache",))):
+        opt = data.opt(TRAIN_BATCH, *extra)
+        ds = data.dataset(opt)
+        stack = None
+        if opt.device_cache:
+            cache = ImageCache.build(ds)
+            ds._image_cache_dims = cache.dims
+            stack = cache.to_device("cuda")
+        batches, out["loader_ms_per_batch_" + name] = loader_batches(
+            ds, TRAIN_BATCH, DENSE_TIMED_STEPS, opt.num_workers, opt.seed)
+        trainer = Trainer(opt, device="cuda")
+        trainer.init()
+        paths[name] = (trainer, batches, stack)
+    out["steps_in_turns"] = timed_steps_in_turns(paths)
+
+    def check(run, name, finite=True):
+        if (np.all(np.isfinite(run["losses"])) != finite or any(
+                st != [3, 3] for st in run["launches_per_step"])):
+            fail.append(name)
+        launches[0] += run["launches_fwd"]
+        launches[1] += run["launches_bwd"]
+    for name, run in out["steps_in_turns"].items():
+        check(run, name)
+    del paths
+
+    popt = pose.opt(TRAIN_BATCH, "--mse_loss", "--dense_hp")
+    batches, loader_ms = loader_batches(pose.dataset(popt), TRAIN_BATCH,
+                                        POSE_DENSE_STEPS, popt.num_workers,
+                                        popt.seed)
+    trainer = Trainer(popt, device="cuda")
+    trainer.init()
+    run = timed_steps(trainer, batches)
+    out["multi_pose"] = dict(run, res=COCO_RES, loader_ms_per_batch=loader_ms,
+                             dense_hps=list(batches[0]["dense_hps"].shape))
+    check(run, "multi_pose")
+    del batches, trainer
+
+    for name, task in (("ddd", kitti), ("exdet", exdet)):
+        topt = task.opt(DENSE_TASK_BATCH, "--mse_loss")
+        batches, loader_ms = loader_batches(
+            task.dataset(topt), DENSE_TASK_BATCH, 1, topt.num_workers,
+            topt.seed)
+        finite = all(np.isfinite(v).all() for k, v in batches[0].items()
+                     if k != "meta" and np.asarray(v).dtype.kind == "f")
+        trainer = Trainer(topt, device="cuda")
+        trainer.init()
+        run = timed_steps(trainer, batches)
+        out[name] = dict(run, loader_ms_per_batch=loader_ms,
+                         targets_finite=bool(finite))
+        check(run, name, finite)
+        del batches, trainer
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("dense_targets check failed: {}".format(fail))
+    return launches
+
+
+def phase_ladder_ops():
+    """The deform-conv ladder (models/deform_modules.py: every rung, its
+    predictors moved off their zero init) and the op inventory
+    (InPlace-ABN, ROI-Align, deformable PS-ROI pooling), forward and the
+    gradients of every input and parameter, card against CPU at a small
+    f32 shape, each within LADDER_TOL of its max. None launches a deform
+    kernel: the rungs are full convs on the plain general op, the ops
+    plain PyTorch (XLA ops in the JAX package)."""
+    from codenet_torch.models import deform_modules as DMOD
+    from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops.abn import inplace_abn
+    from codenet_torch.ops.deform_pool import deform_psroi_pooling
+    from codenet_torch.ops.roi_align import roi_align
+    out, fail = {"phase": "ladder_ops", "tol": LADDER_TOL}, []
+    r = np.random.RandomState(SEED + 15)
+    gen = torch.Generator().manual_seed(SEED + 15)
+
+    def card_vs_cpu(name, fn, ins, module=None):
+        errs = {}
+        res = []
+        for dev in ("cuda", "cpu"):
+            t = [torch.from_numpy(a).to(dev).requires_grad_() for a in ins]
+            mod = module.to(dev) if module is not None else None
+            if mod is not None:
+                mod.zero_grad()
+            y = fn(mod, *t) if mod is not None else fn(*t)
+            w = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+            (y * w).sum().backward()
+            grads = {"out": y.detach().cpu()}
+            grads.update({"in{}".format(i): a.grad.cpu()
+                          for i, a in enumerate(t)})
+            if mod is not None:
+                grads.update({k: p.grad.cpu()
+                              for k, p in mod.named_parameters()})
+            res.append(grads)
+        for k, ref in res[1].items():
+            scale = max(float(ref.abs().max()), 1e-12)
+            errs[k] = float((res[0][k] - ref).abs().max()) / scale
+        out[name] = {"shape": [list(a.shape) for a in ins],
+                     "max_rel_err": max(errs.values())}
+        if not max(errs.values()) <= LADDER_TOL:
+            fail.append(name)
+
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    x = r.randn(2, 32, 32, 32).astype(np.float32)
+    for cls in DMOD.LADDER:
+        mod = cls(32, 24)
+        mod.reset_parameters(gen)
+        with torch.no_grad():
+            for key, p in mod.named_parameters():
+                if key.startswith("conv_"):
+                    p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+        card_vs_cpu(cls.__name__, lambda m, t: m(t), [x], mod)
+    a = r.randn(8, 32, 32, 64).astype(np.float32)
+    card_vs_cpu("inplace_abn", lambda t: inplace_abn(
+        t, torch.linspace(-1.5, 1.5, 64, device=t.device),
+        torch.linspace(-0.5, 0.5, 64, device=t.device),
+        t.detach().mean((0, 1, 2)), t.detach().var((0, 1, 2), False)), [a])
+    data = r.randn(2, 32, 32, 49 * 2).astype(np.float32)
+    rois = np.concatenate([r.randint(0, 2, (16, 1)),
+                           r.uniform(-32, 400, (16, 2)),
+                           r.uniform(0, 560, (16, 2))], 1).astype(np.float32)
+    rois[:, 3:] = np.maximum(rois[:, 3:], rois[:, 1:3] + 8)
+    card_vs_cpu("roi_align", lambda t: roi_align(
+        t, torch.from_numpy(rois).to(t.device), 7, 7, 1.0 / 16, 0), [data])
+    trans = (r.randn(16, 7, 7, 4) * 0.1).astype(np.float32)
+    card_vs_cpu("deform_psroi_pooling", lambda t, tr: deform_psroi_pooling(
+        t, torch.from_numpy(rois).to(t.device), tr, output_dim=2,
+        pooled_size=7, group_size=7, spatial_scale=1.0 / 16), [data, trans])
+    out["deform_launches"] = [DC.LAUNCHES - before[0],
+                              DC.BWD_LAUNCHES - before[1]]
+    if out["deform_launches"] != [0, 0]:
+        fail.append("deform launches")
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("ladder_ops check failed: {}".format(fail))
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -3734,10 +4055,31 @@ def path_ms(rows, name, n, dtype, backbone_calls=None, shapes=MODEL_SHAPES):
             "launches_" + name: sum(k for _, k in picked)}
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """fn(*args), its wall seconds kept in PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
+# the phases `--phases` may pick (those that need no earlier phase's
+# results)
+STANDALONE = ("trace", "dense_targets", "ladder_ops")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
                         help="also write every printed line to this file")
+    parser.add_argument("--phases", default="",
+                        help="run only these of {} after the build "
+                        "(comma-separated; no kernels or ok line)".format(
+                            ", ".join(STANDALONE)))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is visible")
@@ -3747,35 +4089,60 @@ def main(argv=None):
     t0 = time.perf_counter()
     smi = phase_env()
     bw, flops = card_peaks(torch.cuda.get_device_name(0))
-    phase_build()
-    phase_host_io()
-    rows = phase_kernels(bw, flops)
-    bwd_rows = phase_kernel_bwd(bw, flops)
-    keep_res_rows, keep_res_requests = phase_kernel_keep_res(bw, flops)
-    model = build_served_model()
-    phase_model(model)
-    serve_launches = phase_detector(model)
+    timed("build", phase_build)
     data = SmokeData()
-    fp32, batches, train_run = phase_train(data)
-    qat_run, qat_eval_launches, qat_model = phase_qat(data, fp32, batches)
-    cli_bf16 = phase_cli(data)
-    int8_launches, int8_cli_launches, int8_bf16 = phase_int8(
-        data, qat_model, bw, flops)
-    cache_fwd, cache_bwd = phase_devcache(data, train_run, batches)
-    ddp = phase_ddp(data)
-    eval_paths_launches = phase_eval_paths(data, model)
-    multiscale_launches = phase_multiscale(model, synthetic_frames(8)[0])
-    bf16_launches, _ = phase_bf16(model, data)
-    bf16_train, _ = phase_bf16_train(data, batches)
-    backbone = phase_deform_backbone(data)
-    coco = phase_coco_ctdet(CocoSmokeData("ctdet"))
-    pose = phase_multi_pose(CocoSmokeData("multi_pose"))
-    ddd = phase_ddd(KittiSmokeData(), rows, bwd_rows)
-    exdet = phase_exdet(CocoSmokeData("exdet"))
-    int8_tasks = phase_int8_tasks()
-    configs = phase_configs_ae()
-    phase_backbones(CocoSmokeData("ctdet"))
-    synth = phase_synthreg()
+    pose_data, kitti_data = CocoSmokeData("multi_pose"), KittiSmokeData()
+    exdet_data = CocoSmokeData("exdet")
+    only = [p for p in args.phases.split(",") if p]
+    if only:
+        unknown = set(only) - set(STANDALONE)
+        if unknown:
+            sys.exit("unknown --phases {}".format(sorted(unknown)))
+        run = {"trace": lambda: phase_trace(data),
+               "dense_targets": lambda: phase_dense_targets(
+                   data, pose_data, kitti_data, exdet_data),
+               "ladder_ops": phase_ladder_ops}
+        for name in only:
+            timed(name, run[name])
+        emit({"phase": "done", "seconds": time.perf_counter() - t0,
+              "phase_seconds": PHASE_SECONDS, "card": smi})
+        write_out(args.out)
+        return
+    timed("host_io", phase_host_io)
+    rows = timed("kernels", phase_kernels, bw, flops)
+    bwd_rows = timed("kernel_bwd", phase_kernel_bwd, bw, flops)
+    keep_res_rows, keep_res_requests = timed(
+        "kernel_keep_res", phase_kernel_keep_res, bw, flops)
+    model = build_served_model()
+    timed("model", phase_model, model)
+    serve_launches = timed("detector", phase_detector, model)
+    trace = timed("trace", phase_trace, data)
+    dense = timed("dense_targets", phase_dense_targets, data, pose_data,
+                  kitti_data, exdet_data)
+    timed("ladder_ops", phase_ladder_ops)
+    fp32, batches, train_run = timed("train", phase_train, data)
+    qat_run, qat_eval_launches, qat_model = timed(
+        "qat", phase_qat, data, fp32, batches)
+    cli_bf16 = timed("cli", phase_cli, data)
+    int8_launches, int8_cli_launches, int8_bf16 = timed(
+        "int8", phase_int8, data, qat_model, bw, flops)
+    cache_fwd, cache_bwd = timed("devcache", phase_devcache, data,
+                                 train_run, batches)
+    ddp = timed("ddp", phase_ddp, data)
+    eval_paths_launches = timed("eval_paths", phase_eval_paths, data, model)
+    multiscale_launches = timed("multiscale", phase_multiscale, model,
+                                synthetic_frames(8)[0])
+    bf16_launches, _ = timed("bf16", phase_bf16, model, data)
+    bf16_train, _ = timed("bf16_train", phase_bf16_train, data, batches)
+    backbone = timed("deform_backbone", phase_deform_backbone, data)
+    coco = timed("coco_ctdet", phase_coco_ctdet, CocoSmokeData("ctdet"))
+    pose = timed("multi_pose", phase_multi_pose, pose_data)
+    ddd = timed("ddd", phase_ddd, kitti_data, rows, bwd_rows)
+    exdet = timed("exdet", phase_exdet, exdet_data)
+    int8_tasks = timed("int8_tasks", phase_int8_tasks)
+    configs = timed("configs_ae", phase_configs_ae)
+    timed("backbones", phase_backbones, CocoSmokeData("ctdet"))
+    synth = timed("synthreg", phase_synthreg)
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))
     lines = pallas.read_text().splitlines()
@@ -3786,7 +4153,7 @@ def main(argv=None):
         return "{}:{}".format(pallas.relative_to(ROOT), line)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
-          "card": smi})
+          "phase_seconds": PHASE_SECONDS, "card": smi})
     emit(smi)
     fwd_entry = kernel_line_entry(
         "codesign_deform_fwd", "codenet_torch/csrc/deform_fwd.cu",
@@ -3796,7 +4163,8 @@ def main(argv=None):
         + int8_cli_launches + cache_fwd + eval_paths_launches
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
-        + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0],
+        + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0]
+        + trace[0] + dense[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -3831,7 +4199,8 @@ def main(argv=None):
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
-        + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1], bwd_rows,
+        + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1] + trace[1]
+        + dense[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone
@@ -3860,9 +4229,14 @@ def main(argv=None):
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text("\n".join(_lines) + "\n")
+    write_out(args.out)
+
+
+def write_out(path):
+    """Every printed line into `path` (--out), if given."""
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text("\n".join(_lines) + "\n")
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ Each rank trains on its rows of every global batch with global-batch BN
 (parallel/mesh.py); rank 0 logs, writes the checkpoints and runs the val
 passes and the final eval, whose detections are those of a one-process
 run from the same weights.
+``--trace`` writes a profiler trace of the epochs into
+exp/<task>/<exp_id>/debug/trace/ (one file per rank; utils/profile.py);
 ``--test`` only decodes and scores the val split; ``--debug N`` renders
 each batch's first image into exp/<task>/<exp_id>/debug/;
 ``--eval_oracle_*`` replaces heads by their ground truth in the val loss.
@@ -51,22 +53,18 @@ import torch
 from .. import config as cfg
 from ..data.datasets import get_dataset
 from ..data.loader import DataLoader
-from ..data.samplers import check_sampler_opt
 from ..engine import checkpoint
 from ..engine.trainer import Trainer
 from ..parallel import (all_max, join_from_env, launch,
                         launched_by_torchrun, leave, process_batch_slice,
                         world_for_batch)
 from ..utils.logger import Logger
+from ..utils.profile import maybe_trace
 
 
 def run_training(opt, qspec=None, dp=None):
     """Train (FP32, or QAT with `qspec`) in this process: alone, or as
     rank dp.rank of a data-parallel group."""
-    if opt.trace:
-        raise NotImplementedError(
-            "--trace is queued in ROADMAP.md (item 23)")
-    check_sampler_opt(opt)
     Dataset = get_dataset(opt.dataset, opt.task)
     opt = cfg.update_dataset_info_and_set_heads(
         opt, cfg.DATASET_SPECS[opt.dataset])
@@ -136,40 +134,43 @@ def run_training(opt, qspec=None, dp=None):
 
     best = 1e10
     os.makedirs(opt.save_dir, exist_ok=True)
-    for epoch in range(start_epoch + 1, opt.num_epochs + 1):
-        # --save_all keeps every epoch as model_<epoch> (reference main.py:69)
-        mark = str(epoch) if opt.save_all else "last"
-        log_dict = trainer.train(epoch, train_loader)
-        logger.write("epoch: {} |".format(epoch))
-        for k, v in log_dict.items():
-            logger.scalar_summary("train_{}".format(k), v, epoch)
-            logger.write("{} {:8f} | ".format(k, v))
-        if opt.val_intervals > 0 and epoch % opt.val_intervals == 0:
-            save("model_{}.pth".format(mark), epoch)
-            improved = False
-            if main_rank:  # the val pass runs on rank 0 alone
-                val_dict, _ = trainer.val(epoch, val_loader)
-                for k, v in val_dict.items():
-                    logger.scalar_summary("val_{}".format(k), v, epoch)
-                    logger.write("{} {:8f} | ".format(k, v))
-                improved = val_dict[opt.metric] < best
+    # --trace: a profiler trace of the epochs, one file per rank
+    with maybe_trace(opt, trainer.device, dp.rank if dp else None):
+        for epoch in range(start_epoch + 1, opt.num_epochs + 1):
+            # --save_all keeps every epoch as model_<epoch> (reference
+            # main.py:69)
+            mark = str(epoch) if opt.save_all else "last"
+            log_dict = trainer.train(epoch, train_loader)
+            logger.write("epoch: {} |".format(epoch))
+            for k, v in log_dict.items():
+                logger.scalar_summary("train_{}".format(k), v, epoch)
+                logger.write("{} {:8f} | ".format(k, v))
+            if opt.val_intervals > 0 and epoch % opt.val_intervals == 0:
+                save("model_{}.pth".format(mark), epoch)
+                improved = False
+                if main_rank:  # the val pass runs on rank 0 alone
+                    val_dict, _ = trainer.val(epoch, val_loader)
+                    for k, v in val_dict.items():
+                        logger.scalar_summary("val_{}".format(k), v, epoch)
+                        logger.write("{} {:8f} | ".format(k, v))
+                    improved = val_dict[opt.metric] < best
+                    if improved:
+                        best = val_dict[opt.metric]
+                if dp is not None:  # rank 0's verdict, on every rank
+                    improved = bool(all_max(torch.tensor(
+                        [float(improved)], device=trainer.device), dp)[0])
+                # model_best only on improvement (reference main.py:83-86)
                 if improved:
-                    best = val_dict[opt.metric]
-            if dp is not None:  # rank 0's verdict, on every rank
-                improved = bool(all_max(torch.tensor(
-                    [float(improved)], device=trainer.device), dp)[0])
-            # model_best only on improvement (reference main.py:83-86)
-            if improved:
-                save("model_best.pth", epoch, with_optimizer=False)
-        elif (epoch % max(1, opt.save_intervals) == 0
-              or epoch == opt.num_epochs or opt.save_all):
-            save("model_{}.pth".format(mark), epoch)
-        logger.write("\n")
-        if epoch in opt.lr_step:
-            save("model_{}.pth".format(epoch), epoch)
-            lr = opt.lr * (0.1 ** (opt.lr_step.index(epoch) + 1))
-            print("Drop LR to", lr)
-            trainer.set_lr(lr)
+                    save("model_best.pth", epoch, with_optimizer=False)
+            elif (epoch % max(1, opt.save_intervals) == 0
+                  or epoch == opt.num_epochs or opt.save_all):
+                save("model_{}.pth".format(mark), epoch)
+            logger.write("\n")
+            if epoch in opt.lr_step:
+                save("model_{}.pth".format(epoch), epoch)
+                lr = opt.lr * (0.1 ** (opt.lr_step.index(epoch) + 1))
+                print("Drop LR to", lr)
+                trainer.set_lr(lr)
 
     # the final eval runs for ctdet only, as in the JAX package, also
     # after a --resume at the last epoch; unlike there, an eval that

@@ -18,7 +18,8 @@ per-stage timers, and calls the dataset's in-process evaluator.
 ``--keep_res`` evaluates at each frame's own size. ``--batch_eval N``
 batches single-scale fix_res ctdet eval, its letterbox warp on the host,
 on the device (``--device_warp``) or from a device-resident copy of the
-split (``--device_cache``).
+split (``--device_cache``). ``--trace`` writes a profiler trace of the
+eval loop into exp/<task>/<exp_id>/debug/trace/ (utils/profile.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from .. import config as cfg
 from ..data.datasets import get_dataset
 from ..engine.detector import detector_factory
 from ..utils.meters import AverageMeter
+from ..utils.profile import maybe_trace
 
 _TIMERS = ["tot", "load", "pre", "net", "dec", "post", "merge"]
 
@@ -96,19 +98,20 @@ def prefetch_test(opt):
     results = {}
     avg_time_stats = {t_: AverageMeter() for t_ in _TIMERS}
     ind = 0
-    while True:
-        item = q.get()
-        if item is None:
-            break
-        if isinstance(item, Exception):
-            raise item
-        img_id, pre_processed = item
-        ret = detector.run(pre_processed)
-        results[img_id] = ret["results"]
-        for t_ in avg_time_stats:
-            avg_time_stats[t_].update(ret[t_])
-        _log(ind, len(dataset), avg_time_stats)
-        ind += 1
+    with maybe_trace(opt, detector.device):
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, Exception):
+                raise item
+            img_id, pre_processed = item
+            ret = detector.run(pre_processed)
+            results[img_id] = ret["results"]
+            for t_ in avg_time_stats:
+                avg_time_stats[t_].update(ret[t_])
+            _log(ind, len(dataset), avg_time_stats)
+            ind += 1
     t.join()
     os.makedirs(opt.save_dir, exist_ok=True)
     return dataset.run_eval(results, opt.save_dir)
@@ -121,14 +124,15 @@ def test(opt):
 
     results = {}
     avg_time_stats = {t_: AverageMeter() for t_ in _TIMERS}
-    for ind in range(len(dataset)):
-        img_id = dataset.images[ind]
-        ret = detector.run(dataset.load_image(ind),
-                           _request_meta(dataset, opt, ind))
-        results[img_id] = ret["results"]
-        for t_ in avg_time_stats:
-            avg_time_stats[t_].update(ret[t_])
-        _log(ind, len(dataset), avg_time_stats)
+    with maybe_trace(opt, detector.device):
+        for ind in range(len(dataset)):
+            img_id = dataset.images[ind]
+            ret = detector.run(dataset.load_image(ind),
+                               _request_meta(dataset, opt, ind))
+            results[img_id] = ret["results"]
+            for t_ in avg_time_stats:
+                avg_time_stats[t_].update(ret[t_])
+            _log(ind, len(dataset), avg_time_stats)
     os.makedirs(opt.save_dir, exist_ok=True)
     return dataset.run_eval(results, opt.save_dir)
 
@@ -282,7 +286,8 @@ def batched_test(opt):
 
     runners = {"host": run_host, "raw": run_raw, "cached": run_cached}
     t_start = time.time()
-    with ThreadPoolExecutor(max_workers=workers) as pool:
+    with maybe_trace(opt, detector.device), \
+            ThreadPoolExecutor(max_workers=workers) as pool:
         # bounded window of outstanding loads (backpressure)
         window = workers + 2 * bs
         pending = deque(pool.submit(load_one, i)

@@ -133,7 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--act_clamp", action="store_true",
                    help="QAT/eval fake-quant clamps activations to the signed\n                        int8 window (deployment-faithful; the reference does not)")
     p.add_argument("--trace", action="store_true",
-                   help="capture a profiler trace of the eval loop")
+                   help="capture a profiler trace of the train epochs "
+                   "or of the eval loop")
     p.add_argument("--device_warp", action="store_true",
                    help="with --batch_eval: run the letterbox warp on "
                         "device instead of cv2 on host")

@@ -18,8 +18,10 @@ The ctdet sampler's input comes in one of three forms:
 
 The ddd, multi_pose and exdet samplers take the device or the host mode;
 their targets are dense on the host in either, as the JAX samplers emit
-them. The ddd sampler has no colour aug (identity aug state), as in the
-reference.
+them. So are ctdet's under --mse_loss or --dense_wh, in every mode (the
+image cache's batches too): the JAX sampler ships the sparse heatmap
+only without both. The ddd sampler has no colour aug (identity aug
+state), as in the reference.
 
 Draws come from `rng` in the JAX sampler's order, so the same per-batch
 RandomState gives the same sample in every mode. ``draw_only=True``
@@ -32,8 +34,11 @@ torch `warp_affine_u8`, not cv2 (the port needs no cv2); images
 come from the dataset's `load_image`, which a caller may override (e.g.
 with in-memory frames).
 
-Not ported: the dense targets of --mse_loss, --dense_wh and --dense_hp;
-they raise.
+The dense targets: --mse_loss draws MSRA gaussians (std --hm_gauss for
+ctdet's and multi_pose's heatmaps, the object's radius for ddd's and
+exdet's); --dense_wh (ctdet) a dense box-size map and its mask in place
+of `wh`; --dense_hp (multi_pose) dense joint offsets and their mask in
+place of `hps`. They draw no random number.
 """
 
 from __future__ import annotations
@@ -43,23 +48,12 @@ import os
 
 import numpy as np
 
-from .affine import (affine_transform, draw_umich_gaussian, gaussian_radius,
+from .affine import (affine_transform, draw_dense_reg, draw_msra_gaussian,
+                     draw_umich_gaussian, gaussian_radius,
                      get_affine_transform, invert_affine, warp_affine_u8)
 from .device_aug import draw_color_aug_params, identity_aug_params
 from .device_cache import flip_compose
 from .image_aug import color_aug
-
-# flag -> its ROADMAP.md item
-_UNPORTED = {"mse_loss": 22, "dense_wh": 22, "dense_hp": 22}
-
-
-def check_sampler_opt(opt):
-    for flag, item in _UNPORTED.items():
-        if getattr(opt, flag, False):
-            raise NotImplementedError(
-                "--{} is queued in ROADMAP.md (item {}); the port's "
-                "samplers ship the focal-loss targets".format(flag, item))
-
 
 def finish_input(sampler, inp_u8, is_train, rng):
     """Input tail. Device mode: 'input_u8' plus the colour-aug state (the
@@ -120,11 +114,17 @@ def get_border(border, size):
     return border // i
 
 
-def splat(heat, ch, ct, radius):
-    """Max-splat a gaussian at `ct` into channel `ch` of the (H, W, C)
-    heatmap `heat`, in place."""
+def gaussian_of(opt):
+    """The heatmap splat: MSRA gaussians under --mse_loss, else CenterNet's
+    (reference sample/*.py: draw_gaussian)."""
+    return draw_msra_gaussian if opt.mse_loss else draw_umich_gaussian
+
+
+def splat(heat, ch, ct, radius, draw=draw_umich_gaussian):
+    """Max-splat a gaussian (`draw`) at `ct` into channel `ch` of the
+    (H, W, C) heatmap `heat`, in place."""
     sl = np.ascontiguousarray(heat[:, :, ch])
-    draw_umich_gaussian(sl, ct, radius)
+    draw(sl, ct, radius)
     heat[:, :, ch] = sl
 
 
@@ -135,7 +135,6 @@ class CTDetSampler:
         """One sample; `rng` (np.random.RandomState) draws the crop, flip
         and colour aug, by default the dataset's own stream. draw_only:
         the draws alone (returns None)."""
-        check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
         anns = self.coco.loadAnns(ids=self.coco.getAnnIds(imgIds=[img_id]))
@@ -206,13 +205,18 @@ class CTDetSampler:
         trans_output = get_affine_transform(c, s, 0, [output_w, output_h])
 
         # the device renders the heatmap from (ct, radius, cls); the host
-        # path draws it here, as the reference does
-        sparse_hm = "input" not in ret
+        # path, --mse_loss and --dense_wh (which reads the heatmap as it
+        # draws) draw it here, as the reference does
+        opt = self.opt
+        sparse_hm = ("input" not in ret and not opt.mse_loss
+                     and not opt.dense_wh)
+        draw = gaussian_of(opt)
         hm = np.zeros((output_h, output_w, num_classes), dtype=np.float32)
         hm_ct = np.zeros((self.max_objs, 2), dtype=np.int32)
         hm_radius = np.zeros((self.max_objs,), dtype=np.int32)
         hm_cls = np.zeros((self.max_objs,), dtype=np.int32)
         wh = np.zeros((self.max_objs, 2), dtype=np.float32)
+        dense_wh = np.zeros((2, output_h, output_w), dtype=np.float32)
         reg = np.zeros((self.max_objs, 2), dtype=np.float32)
         ind = np.zeros((self.max_objs,), dtype=np.int64)
         reg_mask = np.zeros((self.max_objs,), dtype=np.uint8)
@@ -236,6 +240,7 @@ class CTDetSampler:
             if h > 0 and w > 0:
                 radius = gaussian_radius((math.ceil(h), math.ceil(w)))
                 radius = max(0, int(radius))
+                radius = opt.hm_gauss if opt.mse_loss else radius
                 ct = np.array([(bbox[0] + bbox[2]) / 2,
                                (bbox[1] + bbox[3]) / 2], dtype=np.float32)
                 ct_int = ct.astype(np.int32)
@@ -244,13 +249,16 @@ class CTDetSampler:
                     hm_radius[k] = radius
                     hm_cls[k] = cls_id
                 else:
-                    splat(hm, cls_id, ct_int, radius)
+                    splat(hm, cls_id, ct_int, radius, draw)
                 wh[k] = 1.0 * w, 1.0 * h
                 ind[k] = ct_int[1] * output_w + ct_int[0]
                 reg[k] = ct - ct_int
                 reg_mask[k] = 1
                 cat_spec_wh[k, cls_id * 2: cls_id * 2 + 2] = wh[k]
                 cat_spec_mask[k, cls_id * 2: cls_id * 2 + 2] = 1
+                if opt.dense_wh:
+                    draw_dense_reg(dense_wh, hm.max(axis=2), ct_int, wh[k],
+                                   radius)
                 gt_det.append([ct[0] - w / 2, ct[1] - h / 2,
                                ct[0] + w / 2, ct[1] + h / 2, 1, cls_id])
 
@@ -259,7 +267,13 @@ class CTDetSampler:
             ret.update(hm_ct=hm_ct, hm_radius=hm_radius, hm_cls=hm_cls)
         else:
             ret["hm"] = hm
-        if self.opt.cat_spec_wh:
+        if opt.dense_wh:
+            hm_a = hm.max(axis=2, keepdims=True)
+            ret.update(dense_wh=np.ascontiguousarray(
+                dense_wh.transpose(1, 2, 0)),
+                dense_wh_mask=np.concatenate([hm_a, hm_a], axis=2))
+            del ret["wh"]
+        elif opt.cat_spec_wh:
             ret.update(cat_spec_wh=cat_spec_wh, cat_spec_mask=cat_spec_mask)
             del ret["wh"]
         if self.opt.reg_offset:
@@ -279,7 +293,6 @@ class MultiPoseSampler:
     or fixed-size on the host in the JAX sampler's dtypes."""
 
     def get_sample(self, index, rng=None, draw_only=False):
-        check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
         anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
@@ -334,6 +347,10 @@ class MultiPoseSampler:
 
         hm = np.zeros((output_res, output_res, self.num_classes), np.float32)
         hm_hp = np.zeros((output_res, output_res, num_joints), np.float32)
+        dense_kps = np.zeros((num_joints, 2, output_res, output_res),
+                             np.float32)
+        dense_kps_mask = np.zeros((num_joints, output_res, output_res),
+                                  np.float32)
         wh = np.zeros((self.max_objs, 2), np.float32)
         kps = np.zeros((self.max_objs, num_joints * 2), np.float32)
         reg = np.zeros((self.max_objs, 2), np.float32)
@@ -343,6 +360,8 @@ class MultiPoseSampler:
         hp_offset = np.zeros((self.max_objs * num_joints, 2), np.float32)
         hp_ind = np.zeros((self.max_objs * num_joints,), np.int64)
         hp_mask = np.zeros((self.max_objs * num_joints,), np.int64)
+        opt = self.opt
+        draw = gaussian_of(opt)
 
         gt_det = []
         for k in range(num_objs):
@@ -361,8 +380,10 @@ class MultiPoseSampler:
             bbox = np.clip(bbox, 0, output_res - 1)
             h, w = bbox[3] - bbox[1], bbox[2] - bbox[0]
             if (h > 0 and w > 0) or (rot != 0):
-                radius = max(0, int(gaussian_radius((math.ceil(h),
-                                                     math.ceil(w)))))
+                # the joints' radius (hp_radius in the reference) is the
+                # same: --hm_gauss under --mse_loss, else the object's
+                radius = opt.hm_gauss if opt.mse_loss else max(0, int(
+                    gaussian_radius((math.ceil(h), math.ceil(w)))))
                 ct = np.array([(bbox[0] + bbox[2]) / 2,
                                (bbox[1] + bbox[3]) / 2], dtype=np.float32)
                 ct_int = ct.astype(np.int32)
@@ -387,8 +408,15 @@ class MultiPoseSampler:
                             hp_ind[k * num_joints + j] = \
                                 pt_int[1] * output_res + pt_int[0]
                             hp_mask[k * num_joints + j] = 1
-                            splat(hm_hp, j, pt_int, radius)
-                splat(hm, cls_id, ct_int, radius)
+                            if opt.dense_hp:
+                                draw_dense_reg(
+                                    dense_kps[j],
+                                    np.ascontiguousarray(hm[:, :, cls_id]),
+                                    ct_int, pts[j, :2] - ct_int, radius,
+                                    is_offset=True)
+                                draw(dense_kps_mask[j], ct_int, radius)
+                            splat(hm_hp, j, pt_int, radius, draw)
+                splat(hm, cls_id, ct_int, radius, draw)
                 gt_det.append([ct[0] - w / 2, ct[1] - h / 2,
                                ct[0] + w / 2, ct[1] + h / 2, 1]
                               + pts[:, :2].reshape(num_joints * 2).tolist()
@@ -399,6 +427,17 @@ class MultiPoseSampler:
             kps_mask *= 0
         ret.update(hm=hm, reg_mask=reg_mask, ind=ind, wh=wh, hps=kps,
                    hps_mask=kps_mask)
+        if opt.dense_hp:
+            # (J, 2, R, R) -> (R, R, 2J), the mask repeated per axis
+            dkm = np.repeat(dense_kps_mask[:, None], 2, axis=1)
+            ret.update(
+                dense_hps=np.ascontiguousarray(dense_kps.reshape(
+                    num_joints * 2, output_res, output_res)
+                    .transpose(1, 2, 0)),
+                dense_hps_mask=np.ascontiguousarray(dkm.reshape(
+                    num_joints * 2, output_res, output_res)
+                    .transpose(1, 2, 0)))
+            del ret["hps"], ret["hps_mask"]
         if self.opt.reg_offset:
             ret["reg"] = reg
         if self.opt.hm_hp:
@@ -443,7 +482,6 @@ class DddSampler:
         return ret
 
     def get_sample(self, index, rng=None, draw_only=False):
-        check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         if draw_only:
             # the draws need no frame: its shift scales with it
@@ -496,6 +534,7 @@ class DddSampler:
 
         anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
         num_objs = min(len(anns), self.max_objs)
+        draw = gaussian_of(self.opt)
         gt_det = []
         for k in range(num_objs):
             ann = anns[k]
@@ -524,10 +563,10 @@ class DddSampler:
                        int(bbox[0]):int(bbox[2]) + 1, ignore_id] = 0.9999
                 else:
                     for cc in ignore_id:
-                        splat(hm, cc, ct, radius)
+                        splat(hm, cc, ct, radius, draw)
                     hm[ct_int[1], ct_int[0], ignore_id] = 0.9999
                 continue
-            splat(hm, cls_id, ct, radius)
+            splat(hm, cls_id, ct, radius, draw)
 
             wh[k] = 1.0 * w, 1.0 * h
             gt_det.append(
@@ -571,7 +610,6 @@ class ExdetSampler:
     index. Annotations carry 'extreme_points' (instances_extreme_*.json)."""
 
     def get_sample(self, index, rng=None, draw_only=False):
-        check_sampler_opt(self.opt)
         rng = rng if rng is not None else self._data_rng
         img_id = self.images[index]
         if draw_only:
@@ -624,6 +662,7 @@ class ExdetSampler:
 
         anns = self.coco.loadAnns(self.coco.getAnnIds(imgIds=[img_id]))
         num_objs = min(len(anns), self.max_objs)
+        draw = gaussian_of(self.opt)
         for k in range(num_objs):
             ann = anns[k]
             pts = np.array(ann["extreme_points"],
@@ -642,12 +681,12 @@ class ExdetSampler:
                     (math.ceil(h), math.ceil(w)))))
                 pt_int = pts.astype(np.int32)
                 for pi, p in enumerate(parts):
-                    splat(hms[p], hm_id, pt_int[pi], radius)
+                    splat(hms[p], hm_id, pt_int[pi], radius, draw)
                     regs[p][k] = pts[pi] - pt_int[pi]
                     inds[p][k] = pt_int[pi, 1] * output_res + pt_int[pi, 0]
                 ct = [int((pts[3, 0] + pts[1, 0]) / 2),
                       int((pts[0, 1] + pts[2, 1]) / 2)]
-                splat(hm_c, cls_id, ct, radius)
+                splat(hm_c, cls_id, ct, radius, draw)
                 reg_mask[k] = 1
 
         ret.update({"hm_" + p: hms[p] for p in parts}, hm_c=hm_c)

@@ -131,17 +131,8 @@ def device_from_opt(opt):
     return "cpu" if opt.gpus[0] < 0 else "cuda"
 
 
-def check_unported_eval_flags(opt):
-    """--trace is not ported (ROADMAP.md item 23): raise rather than run
-    as if it were not set."""
-    if getattr(opt, "trace", False):
-        raise NotImplementedError(
-            "--trace is queued in ROADMAP.md (item 23)")
-
-
 class BaseDetector:
     def __init__(self, opt, state_dict=None, device=None):
-        check_unported_eval_flags(opt)
         self.opt = opt
         if opt.w4a8_artifact and not (opt.resume_quantize
                                       and opt.int8_infer):

@@ -529,3 +529,36 @@ def _from_jax_by_name(variables):
         sd[key] = torch.from_numpy(np.array(
             _FROM_FLAX[kind](np.asarray(tree[leaf], np.float32))))
     return sd
+
+
+# -- the deform-conv ladder (models/deform_modules.py) ----------------------
+
+def deform_module_from_jax(params):
+    """A ladder rung's flax ``params`` -> the port module's
+    ``state_dict``: each predictor conv's ``kernel`` / ``bias`` ->
+    ``<name>.weight`` (OIHW) / ``<name>.bias``, the deform ``weight``
+    (HWIO) -> ``weight`` (OIHW), the DCN ``bias`` as it is."""
+    sd = {}
+    for path, value in _leaves(params):
+        value = np.asarray(value, np.float32)
+        if path == ("weight",) or path[-1] == "kernel":
+            value = hwio_to_oihw(value)
+        name = ".".join(path[:-1] + ("weight",)) if path[-1] == "kernel" \
+            else ".".join(path)
+        sd[name] = torch.from_numpy(np.array(value))
+    return sd
+
+
+def deform_module_to_jax(state_dict):
+    """The inverse of `deform_module_from_jax`."""
+    params = {}
+    for key, value in state_dict.items():
+        value = value.detach().float().cpu().numpy()
+        module, _, leaf = key.rpartition(".")
+        if not module:
+            params[key] = oihw_to_hwio(value) if key == "weight" else value
+            continue
+        params.setdefault(module, {})[
+            "kernel" if leaf == "weight" else leaf] = \
+            oihw_to_hwio(value) if leaf == "weight" else value
+    return params

@@ -178,8 +178,8 @@ def make_oracle_val_step(model, loss_fn, loss_opts, opt, mean, std):
             if opt.eval_oracle_hmhp and "hm_hp" in output:
                 output["hm_hp"] = logits(batch["hm_hp"])
             if opt.eval_oracle_kps and "hps" in output:
-                output["hps"] = put(gen_oracle_map(host(batch["hps"]), ind,
-                                                   w, h))
+                output["hps"] = batch["dense_hps"] if opt.dense_hp else \
+                    put(gen_oracle_map(host(batch["hps"]), ind, w, h))
             if opt.eval_oracle_hp_offset and "hp_offset" in output:
                 output["hp_offset"] = put(gen_oracle_map(
                     host(batch["hp_offset"]), host(batch["hp_ind"]), w, h))

@@ -114,7 +114,9 @@ def mse_loss(pred, gt, dp=None):
 
 
 def dense_wh_l1_loss(output, dense_wh, dense_wh_mask, dp=None):
-    """Dense wh regression (reference trains/ctdet.py:51-56)."""
+    """Dense regression under a weighting mask: ctdet's --dense_wh
+    (reference trains/ctdet.py:51-56) and multi_pose's --dense_hp
+    (trains/multi_pose.py:33-37)."""
     m = dense_wh_mask
     return torch.abs(output * m - dense_wh * m).sum() / (
         batch_count(m.sum(), dp) + 1e-4)
@@ -237,9 +239,12 @@ def ddd_loss(outputs, batch, opt):
 
 
 def multi_pose_loss(outputs, batch, opt):
-    """MultiPoseLoss (reference trains/multi_pose.py:16-85). The dense
-    joint targets of --dense_hp are not ported (the sampler refuses the
-    flag)."""
+    """MultiPoseLoss (reference trains/multi_pose.py:16-85). With
+    --dense_hp the joint offsets are a dense L1 over the gaussian-weighted
+    mask of every object's centre (`dense_hps`, `dense_hps_mask`), its
+    normaliser the global mask sum. --mse_loss changes only the
+    sampler's heatmaps (MSRA gaussians): the heatmap losses stay focal,
+    as in the JAX package (ROADMAP.md section 3)."""
     dp = getattr(opt, "dp", None)
     hm_loss = wh_loss = off_loss = 0.0
     hp_loss = hm_hp_loss = hp_offset_loss = 0.0
@@ -247,9 +252,14 @@ def multi_pose_loss(outputs, batch, opt):
     for output in outputs:
         hm_loss += neg_loss(sigmoid_clamped(output["hm"]),
                             batch["hm"], dp=dp) / num_stacks
-        hp_loss += reg_weighted_l1_loss(output["hps"], batch["hps_mask"],
-                                        batch["ind"],
-                                        batch["hps"], dp=dp) / num_stacks
+        if opt.dense_hp:
+            hp_loss += dense_wh_l1_loss(output["hps"], batch["dense_hps"],
+                                        batch["dense_hps_mask"],
+                                        dp=dp) / num_stacks
+        else:
+            hp_loss += reg_weighted_l1_loss(
+                output["hps"], batch["hps_mask"], batch["ind"],
+                batch["hps"], dp=dp) / num_stacks
         if opt.wh_weight > 0 and opt.reg_bbox:
             wh_loss += reg_l1_loss(output["wh"], batch["reg_mask"],
                                    batch["ind"], batch["wh"],

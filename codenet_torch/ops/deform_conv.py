@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profile import counted_op
+
 # Per-tap (dy, dx) anchors of a 3x3 kernel, row-major — the reference's
 # anchor_offset constant (modules/dcn_deform_conv.py:319-321) as (9, 2).
 ANCHOR_OFFSETS = np.array(
@@ -113,6 +115,22 @@ def _contract(cols, weight, groups):
     return out.reshape(n, ho, wo, cout)
 
 
+def deform_conv_flops(out_shape, weight_shape, masked_channels=0):
+    """FLOPs of a deform conv as `utils.profile.count_flops` counts it:
+    two a multiply-add of the tap-weight contraction (taps x channels of
+    a group x output positions x Cout x 2, what FlopCounterMode counts
+    for a conv of the same shape), plus one for each sample the DCNv2
+    mask scales (taps x output positions x `masked_channels`, the input
+    channels). The bilinear sampling counts nothing, as no elementwise op
+    does.
+
+    out_shape: (N, Ho, Wo, Cout); weight_shape: HWIO (kh, kw, Cin/groups,
+    Cout)."""
+    n, ho, wo, cout = out_shape
+    kh, kw, cpg, _ = weight_shape
+    return n * ho * wo * kh * kw * (2 * cpg * cout + masked_channels)
+
+
 def deform_conv2d(x, offset, weight, stride=1, padding=1, dilation=1,
                   groups=1, deformable_groups=1, mask=None):
     """General deformable convolution (DCNv1, and DCNv2 with `mask`), the
@@ -129,18 +147,22 @@ def deform_conv2d(x, offset, weight, stride=1, padding=1, dilation=1,
     dg = deformable_groups
     if oc != dg * 2 * k:
         raise ValueError("offset channels {} != {}".format(oc, dg * 2 * k))
-    offs = offset.reshape(n, ho, wo, dg, k, 2)
-    cpdg = x.shape[-1] // dg
-    cols = []
-    for g in range(dg):
-        xg = x[..., g * cpdg:(g + 1) * cpdg] if dg > 1 else x
-        col = deform_sample(xg, offs[:, :, :, g], (kh, kw), stride, padding,
-                            dilation)
-        if mask is not None:
-            col = col * mask.reshape(n, ho, wo, dg, k)[:, :, :, g, :, None]
-        cols.append(col)
-    cols = cols[0] if dg == 1 else torch.cat(cols, dim=-1)
-    return _contract(cols, weight.to(cols.dtype), groups)
+    flops = deform_conv_flops((n, ho, wo, weight.shape[3]), weight.shape,
+                              0 if mask is None else x.shape[-1])
+    with counted_op(flops):
+        offs = offset.reshape(n, ho, wo, dg, k, 2)
+        cpdg = x.shape[-1] // dg
+        cols = []
+        for g in range(dg):
+            xg = x[..., g * cpdg:(g + 1) * cpdg] if dg > 1 else x
+            col = deform_sample(xg, offs[:, :, :, g], (kh, kw), stride,
+                                padding, dilation)
+            if mask is not None:
+                col = col * mask.reshape(n, ho, wo, dg, k)[:, :, :, g, :,
+                                                           None]
+            cols.append(col)
+        cols = cols[0] if dg == 1 else torch.cat(cols, dim=-1)
+        return _contract(cols, weight.to(cols.dtype), groups)
 
 
 def codesign_deform_conv(x, s, weight, stride=1, padding=1, dilation=1,
@@ -156,10 +178,13 @@ def codesign_deform_conv(x, s, weight, stride=1, padding=1, dilation=1,
     c = x.shape[-1]
     if groups is None:
         groups = c
-    anchor = torch.as_tensor(ANCHOR_OFFSETS, device=x.device)  # (9, 2)
-    tap_offsets = anchor[None, None, None] * (s[..., None] - 1.0)
-    cols = deform_sample(x, tap_offsets, (3, 3), stride, padding, dilation)
-    return _contract(cols, weight.to(cols.dtype), groups)
+    with counted_op(deform_conv_flops(s.shape[:3] + (weight.shape[3],),
+                                      weight.shape)):
+        anchor = torch.as_tensor(ANCHOR_OFFSETS, device=x.device)  # (9, 2)
+        tap_offsets = anchor[None, None, None] * (s[..., None] - 1.0)
+        cols = deform_sample(x, tap_offsets, (3, 3), stride, padding,
+                             dilation)
+        return _contract(cols, weight.to(cols.dtype), groups)
 
 
 def deform_conv2d_naive(x, offset, weight, stride=1, padding=1, dilation=1,

@@ -35,7 +35,8 @@ from pathlib import Path
 
 import torch
 
-from .deform_conv import ANCHOR_OFFSETS
+from ..utils.profile import counted_op
+from .deform_conv import ANCHOR_OFFSETS, deform_conv_flops
 
 S_LO, S_HI = -7.0, 8.0
 TAPS = tuple((int(dy), int(dx)) for dy, dx in ANCHOR_OFFSETS)
@@ -501,13 +502,20 @@ def _route(x):
     return x.device.type == "cpu"
 
 
+def _flops(x, weight):
+    """The forward's FLOPs as `utils.profile.count_flops` counts them."""
+    return deform_conv_flops(x.shape, weight.shape)
+
+
 def codesign_deform_conv_bwd(x, s, weight, g):
     """(dx, ds, dw) of `codesign_deform_conv_fast` for cotangent g: the
-    plain backward on the CPU, the backward kernel on a card."""
-    if _route(x):
-        return codesign_deform_conv_bwd_plain(x, s, weight, g)
-    _check(x, s, weight)
-    return _launch_bwd(x, s, weight, g)
+    plain backward on the CPU, the backward kernel on a card. It counts
+    twice the forward's FLOPs (dx and dw), as a conv's backward counts."""
+    with counted_op(2 * _flops(x, weight)):
+        if _route(x):
+            return codesign_deform_conv_bwd_plain(x, s, weight, g)
+        _check(x, s, weight)
+        return _launch_bwd(x, s, weight, g)
 
 
 class _CodesignDeformConv(torch.autograd.Function):
@@ -531,4 +539,5 @@ def codesign_deform_conv_fast(x, s, weight):
     x: (N, H, W, C) f32 or bf16; s: (N, H, W, 1) f32; weight: HWIO
     (3, 3, 1, C). CPU tensors take the plain versions; CUDA tensors launch
     the kernels or raise."""
-    return _CodesignDeformConv.apply(x, s, weight)
+    with counted_op(_flops(x, weight)):
+        return _CodesignDeformConv.apply(x, s, weight)

@@ -9,6 +9,8 @@ import no JAX, so they run where the card is:
 not have.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -866,3 +868,145 @@ def test_kernels_launch_on_each_ranks_card(cuda_device, tmp_path):
         assert r["device"] == "cuda:{}".format(k)
         assert r["launches"] == [1, 1]
         assert max(r["rel_errs"]) <= 1e-4, r["rel_errs"]
+
+
+# -- the profiler trace, the dense targets, the ladder and the ops ----------
+
+def _trace_kernel_counts(trace_dir):
+    """(forward, backward) deform kernel events in every trace file."""
+    import glob
+    import json
+    fwd = bwd = 0
+    for path in glob.glob(os.path.join(trace_dir, "*.pt.trace.json")):
+        with open(path) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e.get("cat") != "kernel":
+                    continue
+                fwd += "codesign_deform_fwd_kernel" in e.get("name", "")
+                bwd += "codesign_deform_bwd_kernel" in e.get("name", "")
+    return fwd, bwd
+
+
+@pytest.mark.cuda
+def test_trace_on_card_names_both_kernels(cuda_device, tmp_path):
+    """A traced train step and forward of a 64² model on the card: the
+    trace holds each deform kernel as often as the launch counters say,
+    and count_flops is the same on the card as on the CPU."""
+    from codenet_torch.models import create_model
+    from codenet_torch.utils import profile as P
+    gen = torch.Generator().manual_seed(90)
+    cpu = create_model("shufflenetv2", HEADS, 64, device="cpu",
+                       generator=gen)
+    card = create_model("shufflenetv2", HEADS, 64, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 64, 64, 3, generator=gen)
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    with P.trace(str(tmp_path), cuda_device):
+        card.train()
+        card(x.to(cuda_device))["hm"].sum().backward()
+        card.eval()
+        with torch.no_grad():
+            card(x.to(cuda_device))
+    launched = (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1])
+    assert launched == (6, 3)
+    assert _trace_kernel_counts(str(tmp_path)) == launched
+    with torch.no_grad():
+        assert P.count_flops(card, x.to(cuda_device)) == \
+            P.count_flops(cpu, x)
+
+
+@pytest.mark.cuda
+def test_cache_batch_carries_dense_targets_on_card(cuda_device, tmp_path):
+    """--device_cache --mse_loss --dense_wh: the cache batch carries the
+    host-drawn dense hm and dense wh, equal to the host batch's targets,
+    and a train step from it on the card has a finite loss."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools_torch"))
+    from synthetic_data import make_voc_dataset
+    from codenet_torch import config as cfg
+    from codenet_torch.data.datasets import get_dataset
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.data.loader import DataLoader
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    make_voc_dataset(str(tmp_path), num_images=4, img_w=160, img_h=120)
+
+    def opt(*extra):
+        return cfg.update_dataset_info_and_set_heads(cfg.parse(
+            ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+             "--input_res", "64", "--batch_size", "2", "--data_dir",
+             str(tmp_path), "--mse_loss", "--dense_wh"] + list(extra)),
+            cfg.DATASET_SPECS["pascal"])
+    host = get_dataset("pascal", "ctdet")(opt(), "train")
+    ds = get_dataset("pascal", "ctdet")(opt("--device_cache"), "train")
+    cache = ImageCache.build(ds)
+    ds._image_cache_dims = cache.dims
+    a = next(iter(DataLoader(host, 2, shuffle=True, num_workers=1, seed=3)))
+    b = next(iter(DataLoader(ds, 2, shuffle=True, num_workers=1, seed=3)))
+    assert "hm_ct" not in b and "dense_wh" in b
+    for k in ("hm", "dense_wh", "dense_wh_mask", "ind", "reg_mask", "reg"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    trainer = Trainer(opt("--device_cache"), device=cuda_device)
+    trainer.init()
+    batch = batch_to_device(b, cuda_device)
+    batch["cache_images"] = cache.to_device(cuda_device)
+    stats = trainer.train_step(batch)
+    assert all(bool(torch.isfinite(torch.as_tensor(v))) for v in
+               stats.values())
+
+
+def _card_vs_cpu(fn, ins, device, tol=1e-4):
+    """fn's output and every input's gradient on the card against the
+    CPU, within tol of each one's max."""
+    res = []
+    for dev in (device, "cpu"):
+        t = [torch.from_numpy(a).to(dev).requires_grad_() for a in ins]
+        y = fn(*t)
+        (y * torch.linspace(-1, 1, y.numel(), device=dev)
+         .reshape(y.shape)).sum().backward()
+        res.append([y.detach().cpu()] + [a.grad.cpu() for a in t])
+    for got, ref in zip(*res):
+        scale = max(float(ref.abs().max()), 1e-12)
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_ladder_and_ops_on_card_match_cpu(cuda_device):
+    """Every deform-conv rung (perturbed predictors) and InPlace-ABN,
+    ROI-Align and PS-ROI pooling, forward and backward, card against CPU
+    (1e-4 of each max); none launches a deform kernel."""
+    from codenet_torch.models import deform_modules as DMOD
+    from codenet_torch.ops.abn import inplace_abn
+    from codenet_torch.ops.deform_pool import deform_psroi_pooling
+    from codenet_torch.ops.roi_align import roi_align
+    r = np.random.RandomState(91)
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    x = r.randn(2, 6, 12, 12).astype(np.float32)
+    for cls in DMOD.LADDER:
+        mod = cls(6, 5)
+        mod.reset_parameters(torch.Generator().manual_seed(92))
+        with torch.no_grad():
+            for name, p in mod.named_parameters():
+                if name.startswith("conv_"):
+                    p.add_(torch.randn(p.shape) * 0.3)
+        card = cls(6, 5).to(cuda_device)
+        card.load_state_dict(mod.state_dict())
+        _card_vs_cpu(lambda t: (card if t.is_cuda else mod)(t), [x],
+                     cuda_device)
+    a = r.randn(4, 6, 6, 5).astype(np.float32)
+    _card_vs_cpu(lambda t: inplace_abn(
+        t, torch.ones(5, device=t.device), torch.zeros(5, device=t.device),
+        t.detach().mean((0, 1, 2)), t.detach().var((0, 1, 2), False)),
+        [a], cuda_device)
+    data = r.randn(2, 16, 20, 8).astype(np.float32)
+    rois = np.array([[0, 4.0, 6.0, 50.0, 40.0], [1, -6.0, 2.0, 30.0, 70.0]],
+                    np.float32)
+    _card_vs_cpu(lambda t: roi_align(
+        t, torch.from_numpy(rois).to(t.device), 4, 3, 0.25, 0), [data],
+        cuda_device)
+    trans = (r.randn(2, 2, 2, 4) * 0.3).astype(np.float32)
+    _card_vs_cpu(lambda t, tr: deform_psroi_pooling(
+        t, torch.from_numpy(rois).to(t.device), tr, output_dim=2,
+        pooled_size=4, group_size=2, part_size=2, spatial_scale=0.25),
+        [data, trans], cuda_device)
+    assert (DC.LAUNCHES, DC.BWD_LAUNCHES) == before

@@ -1,9 +1,11 @@
 """Three repaired divergences of the port from the JAX package.
 
-- F1: `cli.test` and `BaseDetector` raise on --trace (not ported), as
-  `cli.main` does, instead of running as if the flag were not set; since
-  --debug's renders are ported, --debug >= 1 draws each request's
-  detections into opt.debug_dir, as the JAX detector does;
+- F1: `cli.test` and `BaseDetector` raised on --trace while it was not
+  ported, instead of running as if the flag were not set; now `cli.test
+  --trace` writes a profiler trace of its eval loop into
+  <debug_dir>/trace, as the JAX package does; since --debug's renders
+  are ported, --debug >= 1 draws each request's detections into
+  opt.debug_dir, as the JAX detector does;
 - F2: `cli.main` runs ctdet's final eval whenever num_epochs > 0, as the
   JAX package does, also after a --resume from a checkpoint already at
   the last epoch (no epoch left to train);
@@ -100,7 +102,8 @@ def _voc_args(root, *extra):
                          ids=["debug", "trace"])
 def test_cli_test_and_detector_refuse_unported_flags(data_root, flag,
                                                      monkeypatch):
-    """--trace raises in cli.test and the detector (ROADMAP.md item 23);
+    """--trace: cli.test writes one profiler trace of its eval loop into
+    <debug_dir>/trace, a JSON trace that names the model's convolutions;
     --debug 1 runs both and renders one det_<ms>_out.png a request (the
     renders are counted as saves: two requests in one millisecond write
     one file name)."""
@@ -111,11 +114,16 @@ def test_cli_test_and_detector_refuse_unported_flags(data_root, flag,
                              *flag)),
         tcfg.DATASET_SPECS["pascal"])
     if flag == ["--trace"]:
-        with pytest.raises(NotImplementedError, match="--trace.*item 23"):
-            test_main(_voc_args(data_root, "--exp_id", "torch_faults_f1",
-                                *flag))
-        with pytest.raises(NotImplementedError, match="--trace"):
-            TDET.CtdetDetector(opt, device="cpu")
+        trace_dir = os.path.join(opt.debug_dir, "trace")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        test_main(_voc_args(data_root, "--exp_id", "torch_faults_f1",
+                            *flag))
+        (name,) = os.listdir(trace_dir)
+        assert name.endswith(".pt.trace.json")
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("name") == "aten::convolution" for e in events)
+        TDET.CtdetDetector(opt, device="cpu")
         return
     from codenet_torch.utils.debugger import Debugger
     saves = []

@@ -286,12 +286,19 @@ def test_sampler_matches_jax(coco_root, monkeypatch, extra):
     assert joints > 0
 
 
-def test_unported_sampler_options_raise(coco_root):
+def test_unported_sampler_options_raise(coco_root, capsys):
+    """--dense_hp trains (one step, a finite loss with its dense joint
+    term); --device_cache still refuses multi_pose."""
     from codenet_torch.cli.main import main
-    with pytest.raises(NotImplementedError, match="dense_hp"):
-        main(["multi_pose", "--dataset", "coco_hp", "--arch",
-              "shufflenetv2", "--gpus", "-1", "--dense_hp", "--data_dir",
-              "/nonexistent"])
+    main(["multi_pose", "--dataset", "coco_hp", "--arch", "shufflenetv2",
+          "--input_res", "64", "--gpus", "-1", "--dense_hp", "--data_dir",
+          coco_root, "--exp_id", "torch_mp_dense_hp", "--batch_size", "2",
+          "--num_epochs", "1", "--num_iters", "1", "--val_intervals", "-1",
+          "--num_workers", "1", "--print_iter", "1"])
+    out = capsys.readouterr().out
+    losses = [float(ln.split(" hp_loss ")[1].split()[0])
+              for ln in out.splitlines() if ln.startswith("train epoch")]
+    assert len(losses) == 1 and np.isfinite(losses[0]) and losses[0] > 0
     # as in the JAX package: the image cache serves ctdet only
     with pytest.raises(SystemExit, match="ctdet"):
         main(["multi_pose", "--dataset", "coco_hp", "--arch",
@@ -448,13 +455,14 @@ def _detectors(weights, extra):
 
 
 @pytest.mark.parametrize("extra", [[], ["--test_scales", "0.5,1,1.5",
-                                        "--nms"]],
-                         ids=["flip_test", "multiscale_nms"])
+                                        "--nms"], ["--mse_loss"]],
+                         ids=["flip_test", "multiscale_nms", "mse_loss"])
 def test_detector_run_matches_jax(pose_weights, extra):
     """One flip-test request through `run`, the port fed the JAX
     pre-processed images: the merged (K, 39) rows (box, score, joints in
     image pixels) within 2e-3; with three scales and --nms, merged by
-    soft_nms_39."""
+    soft_nms_39; after --mse_loss training (hm_hp read without its
+    sigmoid, as the JAX detector reads it)."""
     jdet, tdet = _detectors(pose_weights, extra)
     frame = rng(71).randint(0, 256, (96, 128, 3)).astype(np.uint8)
     images, meta = {}, {}

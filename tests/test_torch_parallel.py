@@ -142,7 +142,9 @@ def test_losses_match_one_process(units, task, positives):
     heads are its rows. 'rank1': rank 0 holds no positive (the focal
     loss's num_pos == 0 branch is taken on the global count, and ddd's
     rotation residual on its global selection); 'none': no image has
-    one."""
+    one. The _dense cases: ctdet's MSE heatmap and dense wh
+    (--mse_loss --dense_wh), multi_pose's dense joint offsets
+    (--dense_hp), each normalised by the global mask sum."""
     ranks, ref = units
     key = "loss_{}_{}".format(task, positives)
     a, b, r = ranks[0][key], ranks[1][key], ref[key]

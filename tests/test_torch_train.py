@@ -314,7 +314,8 @@ def test_cli_main_trains_saves_and_drops_lr(voc_root, capsys):
 PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
                            ["--dtype", "bfloat16"], ["--debug", "1"],
                            ["--eval_oracle_hm"], ["--test"],
-                           ["--device_cache_shard"])
+                           ["--device_cache_shard"], ["--mse_loss"],
+                           ["--dense_wh"], ["--trace"])
 
 
 def _scalars(exp_id):
@@ -341,7 +342,8 @@ def test_unported_training_options_raise(extra, voc_root, capsys,
     file names) and the final eval's; with --eval_oracle_hm a val epoch whose heatmap loss,
     the ground truth's own, is below the trained model's; with --test
     the val-only run: no step, the val split decoded and scored into
-    results.json."""
+    results.json; with --trace a profiler trace of the epochs and one of
+    the final eval in <debug_dir>/trace."""
     from codenet_torch.cli.main import main
     exp_id = "torch_unported_" + extra[0].strip("-")
     args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
@@ -397,3 +399,7 @@ def test_unported_training_options_raise(extra, voc_root, capsys,
     if extra == ["--eval_oracle_hm"]:
         scalars = _scalars(exp_id)
         assert scalars["val_hm_loss"] < 0.5 * scalars["train_hm_loss"]
+    if extra == ["--trace"]:
+        traces = os.listdir(os.path.join(save_dir, "debug", "trace"))
+        assert len(traces) == 2 and all(
+            n.endswith(".pt.trace.json") for n in traces), traces

@@ -30,13 +30,17 @@ STEPS = 3
 HEADS_KEEP = (".4",)  # the BN before each head's last conv keeps its bias
 BN_SHIFT = 3.0
 
-# task -> (dataset, the command line's extra flags)
-TASKS = {"ctdet": ("pascal", []), "multi_pose": ("coco_hp", []),
-         "ddd": ("kitti", []), "exdet": ("coco", [])}
+# case -> (task, dataset, the command line's extra flags); the _dense
+# cases train on the dense targets (--mse_loss --dense_wh, --dense_hp)
+TASKS = {"ctdet": ("ctdet", "pascal", []),
+         "multi_pose": ("multi_pose", "coco_hp", []),
+         "ddd": ("ddd", "kitti", []), "exdet": ("exdet", "coco", []),
+         "ctdet_dense": ("ctdet", "pascal", ["--mse_loss", "--dense_wh"]),
+         "multi_pose_dense": ("multi_pose", "coco_hp", ["--dense_hp"])}
 
 
-def task_opt(task="ctdet", extra=(), batch=GLOBAL_BATCH):
-    dataset, flags = TASKS[task]
+def task_opt(case="ctdet", extra=(), batch=GLOBAL_BATCH):
+    task, dataset, flags = TASKS[case]
     args = [task, "--dataset", dataset, "--arch", "shufflenetv2",
             "--input_res", str(RES), "--batch_size", str(batch), "--gpus",
             "-1"] + flags + list(extra)
@@ -73,12 +77,13 @@ def act_case():
     return [r.randn(GLOBAL_BATCH, 3, 9, 9) * (1.0 + k) for k in range(2)]
 
 
-def loss_case(task, positives):
-    """(outputs, batch) of `task` at 8x8, 6 objects an image; positives:
+def loss_case(case, positives):
+    """(outputs, batch) of `case` at 8x8, 6 objects an image; positives:
     'all' (every image has objects), 'rank1' (only the last two images:
     rank 0 holds none) or 'none'."""
-    opt = task_opt(task)
-    r = np.random.RandomState(sum(map(ord, task + positives)))
+    opt = task_opt(case)
+    task = opt.task
+    r = np.random.RandomState(sum(map(ord, case + positives)))
     n, h, w, m = GLOBAL_BATCH, 8, 8, 6
     outs = {k: r.randn(n, h, w, c) for k, c in opt.heads.items()}
     has = np.ones(n, bool)
@@ -100,14 +105,22 @@ def loss_case(task, positives):
     ind = r.randint(0, h * w, (n, m)).astype(np.int64)
     batch = {"ind": ind, "reg_mask": mask(m),
              "wh": r.uniform(1, 9, (n, m, 2)), "reg": r.rand(n, m, 2)}
+    def dense(c):  # a dense target and its mask, zero without objects
+        k = r.rand(n, h, w, c) * (r.rand(n, h, w, 1) < 0.5)
+        k[~has] = 0
+        return r.uniform(-4, 9, (n, h, w, c)), k
     if task == "ctdet":
         batch["hm"] = heat(opt.num_classes)
+        if opt.dense_wh:
+            batch["dense_wh"], batch["dense_wh_mask"] = dense(2)
     elif task == "multi_pose":
         batch.update(hm=heat(1), hm_hp=heat(17), hps=r.randn(n, m, 34),
                      hps_mask=mask(m, 34),
                      hp_offset=r.rand(n, m * 17, 2),
                      hp_ind=r.randint(0, h * w, (n, m * 17)),
                      hp_mask=mask(m * 17).astype(np.int64))
+        if opt.dense_hp:
+            batch["dense_hps"], batch["dense_hps_mask"] = dense(34)
     elif task == "ddd":
         rotbin = r.randint(0, 2, (n, m, 2)).astype(np.int64)
         rotbin[~has] = 0
@@ -156,16 +169,16 @@ def unit_results(dp):
         out["act_pct" if pct else "act"] = {
             "x_min": act.x_min.clone(), "x_max": act.x_max.clone(),
             "y": ys[-1]}
-    for task in TASKS:
+    for case in TASKS:
         for positives in ("all", "rank1", "none"):
-            opt, outs, batch = loss_case(task, positives)
+            opt, outs, batch = loss_case(case, positives)
             touts = {k: torch.from_numpy(v[lo:hi]).requires_grad_()
                      for k, v in outs.items()}
-            loss, stats = LOSS_FACTORY[task](
+            loss, stats = LOSS_FACTORY[opt.task](
                 [touts], tensors({k: v[lo:hi] for k, v in batch.items()}),
                 LossOpts(opt, dp))
             loss.backward()
-            out["loss_{}_{}".format(task, positives)] = {
+            out["loss_{}_{}".format(case, positives)] = {
                 "stats": {k: torch.as_tensor(v).detach()
                           for k, v in stats.items()},
                 "grads": {k: t.grad for k, t in touts.items()}}
