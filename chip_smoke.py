@@ -108,6 +108,15 @@ writer and reader. Then it drives the port's paths at full width
 - the deform-conv ladder and the op inventory (ladder_ops): every rung,
   InPlace-ABN, ROI-Align and PS-ROI pooling, forward and backward, card
   vs CPU;
+- the JAX package's default engine (graphs): config a at batch 32 from
+  conditioned_init, an epoch through Trainer.run_epoch's chunked engine
+  (each step a replay of one CUDA graph of the train step) against one
+  through its per-step path, in FP32, QAT and --device_cache (weights
+  and loss meters within 5e-3, steps timed in turns, the replayed
+  launches against a profiler trace); the fused heads against the
+  per-head ones (eval and a train step, 1e-5); K-batch cached eval as
+  one graph against the per-batch loop; the 5-scale merge with the
+  native soft-NMS (csrc/nms.cpp) beside the numpy one;
 - the synthetic accuracy regression (synthreg,
   tools_torch/synthetic_regression.py at its --smoke size): FP32, QAT
   and clamp-trained QAT through the CLIs on PNG files it writes, eight
@@ -119,8 +128,9 @@ Every phase prints one JSON line; a phase that fails ends the script with
 a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
 before them gives each phase's wall seconds. `--phases trace,...` runs
-only the named phases that need no other's results, after the build
-(no kernel table, no ok line).
+only the named phases that need no other's results (trace,
+dense_targets, ladder_ops, graphs), after the build (no kernel table,
+no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
@@ -139,7 +149,9 @@ import contextlib
 import copy
 import dataclasses
 import io
+import itertools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -4021,6 +4033,420 @@ def phase_ladder_ops():
         raise SystemExit("ladder_ops check failed: {}".format(fail))
 
 
+# -- the graphed engine, the fused heads, K-batch eval, native soft-NMS -----
+
+GRAPH_STEPS = 6        # steps of each graphed and per-step epoch (batch 32)
+GRAPH_EPOCH_STEPS = 8  # then a timed epoch of each through the DataLoader
+GRAPH_TIMED_STEPS = 4  # more steps of each engine, in turns, each timed
+GRAPH_TOL = STEP_TOL   # graphed vs per-step epochs: weights and loss meters
+# graphed vs per-step epochs: relative L2 of the parameters' change over
+# the epoch. Sound runs read 1.44-1.55e-2 in FP32 (host and cache
+# batches: each run's deform backward sums with atomics in its own order)
+# and 1.3e-6 to 2.5e-3 in QAT; a graph that skips Adam's update reads
+# about 1 (PERF.md §5)
+GRAPH_UPDATE_TOL = {"fp32": 1e-1, "cache": 1e-1, "qat": 1e-2}
+FUSED_TOL = 1e-5       # fused vs per-head heads on the card (relative)
+KBATCH = (8, 8)        # K batches of B images of the K-batch cached eval
+MERGE_FRAMES = 4       # 5-scale --nms requests, native and numpy soft-NMS
+GRAPH_TRACE_STEPS = 2  # graph replays traced by the profiler
+
+
+def _rel_l2_state(a, b, keys):
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+              for k in keys)
+    den = sum(float((b[k].double() ** 2).sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _loader_stream(ds, opt):
+    """The batches of a shuffled DataLoader over `ds` (its worker
+    threads, its prefetch), one epoch after another: the same stream for
+    every call."""
+    from codenet_torch.data.loader import DataLoader
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True,
+                        num_workers=opt.num_workers, seed=opt.seed)
+    return itertools.chain.from_iterable(loader for _ in itertools.count())
+
+
+def _epoch(trainer, engine, stream, steps):
+    """`steps` train steps of Trainer.run_epoch from `stream`, through the
+    graphed engine or the per-step path; (stats, seconds, launches)."""
+    from codenet_torch.ops import deform_cuda as DC
+    os.environ["CODENET_SCAN_EPOCH"] = "1" if engine == "graphed" else "0"
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        stats = trainer.run_epoch("train", 1, stream, num_iters=steps)
+    finally:
+        os.environ.pop("CODENET_SCAN_EPOCH", None)
+    torch.cuda.synchronize()
+    return (stats, time.perf_counter() - t0,
+            [DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]])
+
+
+def _graph_epochs(data, state, name, qspec, extra, out, fail):
+    """One epoch of GRAPH_STEPS steps of config a at TRAIN_BATCH through
+    Trainer.run_epoch's graphed engine (each step a replay of the
+    captured graph, the first GRAPH_WARMUP eager) and one through its
+    per-step path, both fed by the DataLoader from `state`: weights,
+    parameter updates and loss meters compared. Then an epoch of
+    GRAPH_EPOCH_STEPS steps of each through the loader, timed on the
+    host's clock (loading included, the graph already captured); then
+    GRAPH_TIMED_STEPS more steps of each, in turns, timed with CUDA
+    events (batch copy included); last, with the fp32 run, the
+    profiler's deform kernel events over GRAPH_TRACE_STEPS replays
+    against the launch counters. Returns the (forward, backward)
+    launches."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.engine import trainer as T
+    from codenet_torch.ops import deform_cuda as DC
+    opt = data.opt(TRAIN_BATCH, *extra)
+    ds = data.dataset(opt)
+    stack = None
+    if opt.device_cache:
+        cache = ImageCache.build(ds)
+        ds._image_cache_dims = cache.dims
+        stack = cache.to_device("cuda")
+    timed_batches, _ = loader_batches(ds, TRAIN_BATCH, GRAPH_TIMED_STEPS,
+                                      opt.num_workers, opt.seed + 1)
+    runs, trainers, streams, launches = {}, {}, {}, [0, 0]
+    for engine in ("graphed", "per_step"):
+        trainer = T.Trainer(opt, qspec=qspec, device="cuda")
+        trainer.model.load_state_dict(state, strict=qspec is None)
+        trainer.init()
+        trainer.image_cache = stack
+        start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        streams[engine] = _loader_stream(ds, opt)
+        stats, seconds, got = _epoch(trainer, engine, streams[engine],
+                                     GRAPH_STEPS)
+        launches = [a + b for a, b in zip(launches, got)]
+        graphs = list(trainer._multi_steps.values())
+        runs[engine] = {"epoch_s": seconds, "stats": stats,
+                        "launches": got, "graphs": len(graphs),
+                        "replayed_steps": sum(g.graph.replays
+                                              for g in graphs)}
+        trainers[engine] = (trainer, start)
+    g, p = runs["graphed"], runs["per_step"]
+    state_g = trainers["graphed"][0].model.state_dict()
+    state_p = trainers["per_step"][0].model.state_dict()
+    start = trainers["per_step"][1]
+    params = [k for k, _ in trainers["per_step"][0].model.named_parameters()]
+    res = {"steps": GRAPH_STEPS, "warmup_steps": T.GRAPH_WARMUP,
+           "graphed": g, "per_step": p,
+           "weights_rel_l2": _rel_l2_state(state_g, state_p, params),
+           "updates_rel_l2": _rel_l2_state(
+               {k: state_g[k] - start[k] for k in params},
+               {k: state_p[k] - start[k] for k in params}, params),
+           "meters_rel": {k: abs(g["stats"][k] - v) / max(abs(v), 1e-12)
+                          for k, v in p["stats"].items()}}
+    if qspec is not None:
+        ranges = [k for k in state_p if k.endswith(("x_min", "x_max"))]
+        res["ranges_rel_l2"] = _rel_l2_state(state_g, state_p, ranges)
+
+    # an epoch of each engine through the loader, the graph captured
+    for engine in ("graphed", "per_step"):
+        _, seconds, got = _epoch(trainers[engine][0], engine,
+                                 streams[engine], GRAPH_EPOCH_STEPS)
+        launches = [a + b for a, b in zip(launches, got)]
+        res[engine]["loader_epoch"] = {
+            "steps": GRAPH_EPOCH_STEPS, "s": seconds,
+            "ms_per_step": seconds * 1e3 / GRAPH_EPOCH_STEPS,
+            "launches": got}
+    res["loader_per_step_over_graphed"] = (
+        res["per_step"]["loader_epoch"]["s"]
+        / res["graphed"]["loader_epoch"]["s"])
+
+    # timed steps in turns: the graphed engine's runner against the step
+    sig = T.batch_signature(timed_batches[0], stack)
+    run = trainers["graphed"][0]._multi_steps[sig]
+    step = trainers["per_step"][0].train_step
+    ms = {"graphed": [], "per_step": []}
+    for batch in timed_batches:
+        for engine in ms:
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+            a.record()
+            if engine == "graphed":
+                run(batch)
+            else:
+                dev = T.batch_to_device(batch, "cuda")
+                if stack is not None:
+                    dev["cache_images"] = stack
+                step(dev)
+            b.record()
+            torch.cuda.synchronize()
+            ms[engine].append(a.elapsed_time(b))
+            launches[0] += DC.LAUNCHES - before[0]
+            launches[1] += DC.BWD_LAUNCHES - before[1]
+    for engine, times in ms.items():
+        res[engine]["ms_per_step"] = times
+        res[engine]["ms_per_step_median"] = float(np.median(times))
+    res["per_step_over_graphed"] = (res["per_step"]["ms_per_step_median"]
+                                    / res["graphed"]["ms_per_step_median"])
+
+    if name == "fp32":
+        trace = ROOT / "exp" / "chip_smoke" / "graphs_trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        with torch.profiler.profile(activities=acts) as prof:
+            for batch in timed_batches[:GRAPH_TRACE_STEPS]:
+                run(batch)
+            torch.cuda.synchronize()
+        counted = [DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]]
+        launches = [a + b for a, b in zip(launches, counted)]
+        prof.export_chrome_trace(str(trace))
+        summary = trace_summary(trace)
+        res["trace"] = {"replays": GRAPH_TRACE_STEPS, "counted": counted,
+                        "traced": [summary["fwd_kernels"],
+                                   summary["bwd_kernels"]],
+                        "kernels": summary["kernels"],
+                        "busy_share": summary["busy_share"]}
+        if counted != res["trace"]["traced"] or counted != [
+                3 * GRAPH_TRACE_STEPS] * 2:
+            fail.append(name + " trace")
+    out[name] = res
+    want = [3 * GRAPH_STEPS] * 2
+    timed = [3 * GRAPH_EPOCH_STEPS] * 2
+    if (g["launches"] != want or p["launches"] != want
+            or g["loader_epoch"]["launches"] != timed
+            or p["loader_epoch"]["launches"] != timed
+            or g["replayed_steps"] != GRAPH_STEPS - T.GRAPH_WARMUP
+            or p["replayed_steps"] != 0 or g["graphs"] != 1
+            or not res["weights_rel_l2"] <= GRAPH_TOL
+            or not res["updates_rel_l2"] <= GRAPH_UPDATE_TOL[name]
+            or not max(res["meters_rel"].values()) <= GRAPH_TOL
+            or set(g["stats"]) != set(p["stats"])):
+        fail.append(name)
+    return launches
+
+
+def _heads_fused_vs_per_head(data, state, out, fail):
+    """The fused heads against the per-head heads on the card: the served
+    model's eval heads over one neck at TRAIN_BATCH (FUSED_TOL of each
+    head's max), each form timed; one FP32 train step from `state` with
+    fuse_heads True and False (loss and the heads' gradients at
+    FUSED_TOL, every gradient at STEP_TOL: the deform backward sums with
+    atomics), and the heads' train forward + backward over one neck
+    timed each way."""
+    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.models.fused_heads import (apply_fused_heads,
+                                                  apply_fused_heads_train)
+    from codenet_torch.models.layers import nhwc
+    model = build_served_model()
+    gen = torch.Generator().manual_seed(SEED + 16)
+    x = torch.randn(TRAIN_BATCH, RES, RES, 3, generator=gen).cuda()
+    res = {}
+    with torch.no_grad():
+        neck = model(x, return_neck=True)
+
+        def per_head():
+            return {n: nhwc(getattr(model, n)(neck)).float()
+                    for n, _ in model.heads}
+        ref, got = per_head(), apply_fused_heads(model, neck)
+        res["eval_rel_err"] = {k: float((got[k] - ref[k]).abs().max())
+                               / float(ref[k].abs().max()) for k in ref}
+        res["eval_ms_fused"] = cuda_time_ms(
+            lambda: apply_fused_heads(model, neck), 20)
+        res["eval_ms_per_head"] = cuda_time_ms(per_head, 20)
+    if not max(res["eval_rel_err"].values()) <= FUSED_TOL:
+        fail.append("fused eval heads")
+
+    opt = data.opt(TRAIN_BATCH)
+    batch = loader_batches(data.dataset(opt), TRAIN_BATCH, 1,
+                           opt.num_workers, opt.seed + 1)[0][0]
+    steps = {}
+    for fuse in (True, False):
+        trainer = Trainer(opt, device="cuda", fuse_heads=fuse)
+        trainer.model.load_state_dict(state)
+        trainer.init()
+        stats = trainer.train_step(batch_to_device(batch, "cuda"))
+        steps[fuse] = (trainer.model, float(stats["loss"]))
+    (fused, loss_f), (plain, loss_p) = steps[True], steps[False]
+    err = grads_vs(fused, plain)
+    heads = [n for n, _ in fused.named_parameters()
+             if n.split(".")[0] in dict(fused.heads)]
+    head_grads = _rel_l2_state(
+        {n: p.grad for n, p in fused.named_parameters()},
+        {n: p.grad for n, p in plain.named_parameters()}, heads)
+    res["train"] = {"loss_fused": loss_f, "loss_per_head": loss_p,
+                    "loss_rel": abs(loss_f - loss_p) / abs(loss_p),
+                    "head_grad_rel_l2": head_grads,
+                    "grad_rel_l2": err["grad_rel_l2"],
+                    "grad_tensor_rel_median":
+                        err["grad_tensor_rel_median"]}
+    if not (res["train"]["loss_rel"] <= FUSED_TOL
+            and head_grads <= FUSED_TOL
+            and err["grad_rel_l2"] <= STEP_TOL):
+        fail.append("fused train heads")
+
+    fused.train()
+    tneck = neck.detach().requires_grad_()
+
+    def train_heads(fn):
+        out = fn()
+        sum(v.float().square().mean() for v in out.values()).backward()
+    res["train_ms_fused"] = cuda_time_ms(lambda: train_heads(
+        lambda: apply_fused_heads_train(fused, tneck)), 20)
+    res["train_ms_per_head"] = cuda_time_ms(lambda: train_heads(
+        lambda: {n: nhwc(getattr(fused, n)(tneck)).float()
+                 for n, _ in fused.heads}), 20)
+    out["heads"] = res
+    return model
+
+
+def _kbatch_eval(data, model, out, fail):
+    """K-batch cached eval on the card: KBATCH's K batches of B rows of an
+    image cache of the 64 train frames, one CUDA graph replayed
+    (process_batches_cached) against the loop of process_batch_cached;
+    the detections with score > 0 equal as sets per image (ROADMAP.md
+    §3, Ties); ms per image each way. Returns the forward launches."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.ops import deform_cuda as DC
+    k, b = KBATCH
+    ds = data.dataset(data.opt(1), "train")
+    cache = ImageCache.build(ds)
+    stack = cache.to_device("cuda")
+    det = CtdetDetector(data.opt(1, "--flip_test"),
+                        state_dict=model.state_dict(), device="cuda")
+    geo = [det.pre_process_geometry(int(h), int(w)) for h, w in cache.dims]
+    rows = np.arange(k * b).reshape(k, b) % len(geo)
+    wti = np.stack([[geo[i][0] for i in r] for r in rows])
+    ti = np.stack([[geo[i][1] for i in r] for r in rows])
+
+    def loop():
+        return torch.stack([det.process_batch_cached(stack, rows[i], wti[i],
+                                                     ti[i])
+                            for i in range(k)])
+    before = DC.LAUNCHES
+    graph = det.process_batches_cached(stack, rows, wti, ti).cpu().numpy()
+    ref = loop().cpu().numpy()
+    captured = DC.LAUNCHES - before
+    equal = 0
+    for g_img, r_img in zip(graph.reshape(k * b, -1, 6),
+                            ref.reshape(k * b, -1, 6)):
+        equal += (set(map(tuple, g_img[g_img[:, 4] > 0]))
+                  == set(map(tuple, r_img[r_img[:, 4] > 0])))
+    before = DC.LAUNCHES
+    ms_graph = cuda_time_ms(
+        lambda: det.process_batches_cached(stack, rows, wti, ti), 5)
+    ms_loop = cuda_time_ms(loop, 5)
+    launches = captured + DC.LAUNCHES - before
+    graphs = det._kbatch_graphs
+    out["kbatch"] = {"k": k, "b": b, "images_equal": int(equal),
+                     "images": k * b, "graphs": len(graphs),
+                     "graph_launches": [g.launches
+                                        for g, _, _ in graphs.values()],
+                     "ms_per_image_graph": ms_graph / (k * b),
+                     "ms_per_image_loop": ms_loop / (k * b)}
+    if (equal != k * b or len(graphs) != 1
+            or next(iter(graphs.values()))[0].launches != (3 * k, 0)):
+        fail.append("kbatch")
+    return launches
+
+
+def _merge_native_vs_numpy(model, out, fail):
+    """MERGE_FRAMES per-image flip-test requests at the five test scales
+    with --nms, each answered twice in turns: soft-NMS native
+    (csrc/nms.cpp, built first) and numpy (ops/nms.py::soft_nms_numpy);
+    the merge stage's ms of each, and each request's detections held
+    equal between the two (rows and boxes equal, scores within 1e-6: the
+    gaussian decay's expf and numpy's float32 exp round a last place
+    apart, tests/test_torch_nms.py). Returns the forward launches."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine import detector as DET
+    from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import nms as NMS
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch",
+                   "shufflenetv2", "--input_res", str(RES), "--flip_test",
+                   "--test_scales", TEST_SCALES, "--nms"]),
+        cfg.DATASET_SPECS["pascal"])
+    det = DET.CtdetDetector(opt, state_dict=model.state_dict(),
+                            device="cuda")
+    frames = synthetic_frames(MERGE_FRAMES)[0]
+    t0 = time.perf_counter()
+    NMS.soft_nms(np.zeros((1, 5), np.float32))  # builds csrc/nms.cpp
+    build_s = time.perf_counter() - t0
+    merge = {"native": [], "numpy": []}
+    dets = {"native": [], "numpy": []}
+    score_err, equal = 0.0, 0
+    before = DC.LAUNCHES
+    for f in frames:
+        for name, fn in (("native", NMS.soft_nms),
+                         ("numpy", NMS.soft_nms_numpy)):
+            DET.soft_nms = fn
+            try:
+                ret = det.run(f)
+            finally:
+                DET.soft_nms = NMS.soft_nms
+            merge[name].append(ret["merge"] * 1e3)
+            dets[name].append(ret["results"])
+        a, b = (d[-1] for d in (dets["native"], dets["numpy"]))
+        same = set(a) == set(b) and all(
+            a[j].shape == b[j].shape
+            and np.array_equal(a[j][:, :4], b[j][:, :4]) for j in b)
+        if same:
+            equal += 1
+            score_err = max([score_err] + [
+                float(np.abs(a[j][:, 4] - b[j][:, 4]).max())
+                for j in b if len(b[j])])
+    dets = {k: [int(sum(len(v) for v in r.values())) for r in v]
+            for k, v in dets.items()}
+    out["merge"] = {"scales": TEST_SCALES, "requests": len(frames),
+                    "native_build_s": build_s,
+                    "requests_equal": equal, "score_max_abs_err": score_err,
+                    "ms_native": merge["native"], "ms_numpy": merge["numpy"],
+                    "ms_native_median": float(np.median(merge["native"])),
+                    "ms_numpy_median": float(np.median(merge["numpy"])),
+                    "dets_native": dets["native"],
+                    "dets_numpy": dets["numpy"]}
+    if (not all(dets["native"]) or equal != len(frames)
+            or not score_err <= 1e-6):
+        fail.append("merge")
+    return DC.LAUNCHES - before
+
+
+def phase_graphs(data):
+    """The JAX package's default engine on the card, config a at 256^2,
+    batch 32, from conditioned_init: graphed against per-step epochs in
+    FP32, QAT and --device_cache (_graph_epochs); the fused heads against
+    the per-head ones (_heads_fused_vs_per_head); K-batch cached eval as
+    one graph against the per-batch loop (_kbatch_eval); the 5-scale
+    merge with the native and the numpy soft-NMS (_merge_native_vs_numpy).
+    Returns the (forward, backward) launches."""
+    from codenet_torch.models import create_model
+    from codenet_torch.models.layers import QuantSpec
+    out, fail = {"phase": "graphs", "tol": GRAPH_TOL,
+                 "fused_tol": FUSED_TOL}, []
+    opt = data.opt(TRAIN_BATCH)
+    state = conditioned_init(opt)
+    qspec = QuantSpec()
+    qat = create_model(opt.arch, opt.heads, opt.head_conv, qspec=qspec,
+                       device="cpu")
+    qat.load_state_dict(state, strict=False)
+    launches = [0, 0]
+    for name, q, st, extra in (("fp32", None, state, ()),
+                               ("qat", qspec, qat.state_dict(), ()),
+                               ("cache", None, state, ("--device_cache",))):
+        got = _graph_epochs(data, st, name, q, extra, out, fail)
+        launches = [a + b for a, b in zip(launches, got)]
+    model = _heads_fused_vs_per_head(data, state, out, fail)
+    launches[0] += _kbatch_eval(data, model, out, fail)
+    launches[0] += _merge_native_vs_numpy(model, out, fail)
+    out["launches"] = launches
+    out["failed"] = fail
+    emit(out)
+    if fail:
+        raise SystemExit("graphs check failed: {}".format(fail))
+    return launches
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -4069,7 +4495,7 @@ def timed(name, fn, *args):
 
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
-STANDALONE = ("trace", "dense_targets", "ladder_ops")
+STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs")
 
 
 def main(argv=None):
@@ -4101,7 +4527,8 @@ def main(argv=None):
         run = {"trace": lambda: phase_trace(data),
                "dense_targets": lambda: phase_dense_targets(
                    data, pose_data, kitti_data, exdet_data),
-               "ladder_ops": phase_ladder_ops}
+               "ladder_ops": phase_ladder_ops,
+               "graphs": lambda: phase_graphs(data)}
         for name in only:
             timed(name, run[name])
         emit({"phase": "done", "seconds": time.perf_counter() - t0,
@@ -4120,6 +4547,7 @@ def main(argv=None):
     dense = timed("dense_targets", phase_dense_targets, data, pose_data,
                   kitti_data, exdet_data)
     timed("ladder_ops", phase_ladder_ops)
+    graphs = timed("graphs", phase_graphs, data)
     fp32, batches, train_run = timed("train", phase_train, data)
     qat_run, qat_eval_launches, qat_model = timed(
         "qat", phase_qat, data, fp32, batches)
@@ -4164,7 +4592,7 @@ def main(argv=None):
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
         + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0]
-        + trace[0] + dense[0],
+        + trace[0] + dense[0] + graphs[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -4200,7 +4628,7 @@ def main(argv=None):
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
         + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1] + trace[1]
-        + dense[1], bwd_rows,
+        + dense[1] + graphs[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone

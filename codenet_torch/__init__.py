@@ -10,7 +10,27 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or ``--gpus -1`` on the command line); on ``cuda`` a missing card raises.
 """
 
+import numpy as np
 import torch
+
+_CONSTANTS = {}
+
+
+def device_constant(values, device, dtype=None):
+    """`values` (array-like) as a tensor on `device`, made once per
+    (values, device, dtype) and kept: a step that a CUDA graph captures
+    must copy no host memory to the card, and reads the kept tensor at
+    the address it had at capture."""
+    arr = np.asarray(values)
+    device = torch.device(device)
+    key = (arr.tobytes(), arr.shape, arr.dtype.str, str(device), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(arr, device=device)
+        if dtype is not None:
+            t = t.to(dtype)
+        _CONSTANTS[key] = t
+    return t
 
 
 def resolve_device(device="cuda"):

@@ -17,6 +17,7 @@ import itertools
 import numpy as np
 import torch
 
+from .. import device_constant
 from .affine import warp_affine_batch
 
 # canonical order of the 3 ops; a permutation index selects execution order
@@ -64,18 +65,16 @@ def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std):
     map. Each image applies its three ops in its own permutation's order:
     step k of image b runs op PERMS[perm[b]][k], selected per image."""
     dev = inp_f01.device
-    gray_w = torch.tensor(_BGR_GRAY, dtype=torch.float32, device=dev)
-    mean = torch.as_tensor(np.asarray(mean, np.float32).reshape(3),
-                           device=dev)
-    std = torch.as_tensor(np.asarray(std, np.float32).reshape(3),
-                          device=dev)
+    gray_w = device_constant(np.float32(_BGR_GRAY), dev)
+    mean = device_constant(np.asarray(mean, np.float32).reshape(3), dev)
+    std = device_constant(np.asarray(std, np.float32).reshape(3), dev)
     perm = torch.as_tensor(perm, device=dev).long()
     alphas = torch.as_tensor(alphas, device=dev).float()
     light_add = torch.as_tensor(light_add, device=dev).float()
 
     gs = inp_f01 @ gray_w                                 # (B, H, W)
     gs_mean = gs.mean(dim=(1, 2))                         # (B,)
-    order = torch.tensor(PERMS, device=dev)[perm]         # (B, 3)
+    order = device_constant(PERMS, dev)[perm]             # (B, 3)
     img = inp_f01
     for step in range(3):
         fid = order[:, step]                              # (B,)

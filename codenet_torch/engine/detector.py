@@ -55,14 +55,16 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import device_constant, resolve_device
 from ..data.affine import (get_affine_transform, invert_affine, resize_u8,
                            transform_preds, warp_affine_batch,
                            warp_affine_u8)
 from ..data.image_io import read_png
 from ..models import create_model
 from ..models import decode as D
+from ..models.fused_heads import eval_forward
 from ..models.layers import qspec_from_opt
+from ..ops.deform_cuda import CountedGraph
 from ..ops.nms import soft_nms, soft_nms_39
 from ..utils.post_process import ddd_post_process, multi_pose_post_process
 from . import checkpoint, w4a8
@@ -100,10 +102,10 @@ def eval_input(images, mean, std):
     (x / 255 - mean) / std in f32; float inputs pass through."""
     if images.dtype != torch.uint8:
         return images
-    mean = torch.as_tensor(np.asarray(mean, np.float32).reshape(3),
-                           device=images.device)
-    std = torch.as_tensor(np.asarray(std, np.float32).reshape(3),
-                          device=images.device)
+    mean = device_constant(np.asarray(mean, np.float32).reshape(3),
+                           images.device)
+    std = device_constant(np.asarray(std, np.float32).reshape(3),
+                          images.device)
     return (images.float() / 255.0 - mean) / std
 
 
@@ -168,6 +170,8 @@ class BaseDetector:
         self.max_per_image = 100
         self.num_classes = opt.num_classes
         self.scales = opt.test_scales
+        # the K-batch cached eval's CUDA graphs, by (K, B) and image stack
+        self._kbatch_graphs = {}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -212,10 +216,10 @@ class BaseDetector:
         return images, meta
 
     def _forward(self, images):
-        """The model's heads; of a multi-stack model (hourglass) the last
-        stack's, as the JAX package's fused_heads.eval_forward returns."""
-        out = self.model(images)
-        return out[-1] if isinstance(out, (list, tuple)) else out
+        """The model's heads (models/fused_heads.py::eval_forward, as in
+        the JAX package): fused where the model's heads fuse; of a
+        multi-stack model (hourglass) the last stack's."""
+        return eval_forward(self.model, images, self.qspec)
 
     def _to_device(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(
@@ -385,13 +389,15 @@ class CtdetDetector(BaseDetector):
     def _warped_input(self, frames, warp_tis, rows=None):
         """Letterbox warp on the device (f32, not rounded) of `frames`
         (N, H, W, 3) uint8 (zero-padded raw frames, or the image stack
-        with `rows`), normalised, with the flipped copies after the
-        originals under flip_test."""
-        warped = warp_affine_batch(frames, self._to_device(
-            np.asarray(warp_tis, np.float32)), self.opt.input_h,
-            self.opt.input_w, rows=rows)
-        mean = torch.as_tensor(self.mean.reshape(3), device=self.device)
-        std = torch.as_tensor(self.std.reshape(3), device=self.device)
+        with `rows`) by `warp_tis` (numpy, or a device tensor),
+        normalised, with the flipped copies after the originals under
+        flip_test."""
+        if not torch.is_tensor(warp_tis):
+            warp_tis = self._to_device(np.asarray(warp_tis, np.float32))
+        warped = warp_affine_batch(frames, warp_tis, self.opt.input_h,
+                                   self.opt.input_w, rows=rows)
+        mean = device_constant(self.mean.reshape(3), self.device)
+        std = device_constant(self.std.reshape(3), self.device)
         images = (warped / 255.0 - mean) / std
         if self.opt.flip_test:
             images = torch.cat([images, flip_w(images)], dim=0)
@@ -408,29 +414,73 @@ class CtdetDetector(BaseDetector):
         ti = self._to_device(np.asarray(trans_invs, np.float32))
         return self._decode(hm, wh, reg, ti, 1.0)
 
+    def _cached_dets(self, cache_u8, rows, warp_tis, trans_invs):
+        """Detections (B, K, 6) of rows `rows` of the image stack, every
+        input a device tensor."""
+        images = self._warped_input(cache_u8, warp_tis, rows=rows)
+        hm, wh, reg = self._heads(images)
+        return self._decode(hm, wh, reg, trans_invs, 1.0)
+
     @torch.inference_mode()
     def process_batch_cached(self, cache_u8, img_idx, warp_tis, trans_invs):
         """`process_batch_raw` over rows `img_idx` of the device-resident
         (N, Hc, Wc, 3) stack (data/device_cache.py): per batch the host
         sends only row indices and affines. The gather is the warp's."""
-        images = self._warped_input(
-            cache_u8, warp_tis,
-            rows=self._to_device(np.asarray(img_idx, np.int64)))
-        hm, wh, reg = self._heads(images)
-        ti = self._to_device(np.asarray(trans_invs, np.float32))
-        return self._decode(hm, wh, reg, ti, 1.0)
+        return self._cached_dets(
+            cache_u8, self._to_device(np.asarray(img_idx, np.int64)),
+            self._to_device(np.asarray(warp_tis, np.float32)),
+            self._to_device(np.asarray(trans_invs, np.float32)))
 
     @torch.inference_mode()
     def process_batches_cached(self, cache_u8, img_idx, warp_tis,
                                trans_invs):
         """K cached batches in one call: img_idx (K, B), warp_tis and
         trans_invs (K, B, 2, 3). Returns (K, B, topk, 6) on the device;
-        nothing waits for the card inside (the JAX package scans the K
-        batches in one program)."""
-        return torch.stack([
-            self.process_batch_cached(cache_u8, img_idx[k], warp_tis[k],
-                                      trans_invs[k])
-            for k in range(len(img_idx))])
+        nothing waits for the card inside. On a card the K batches are one
+        CUDA graph, captured once per (K, B) and image stack and replayed
+        (the JAX package scans them in one program, compiled once per K:
+        callers pad the last group to a fixed K); on the CPU a loop of
+        `process_batch_cached`."""
+        if self.device.type != "cuda":
+            return torch.stack([
+                self.process_batch_cached(cache_u8, img_idx[k], warp_tis[k],
+                                          trans_invs[k])
+                for k in range(len(img_idx))])
+        img_idx = np.asarray(img_idx, np.int64)
+        host = {"rows": img_idx,
+                "warp_tis": np.asarray(warp_tis, np.float32),
+                "trans_invs": np.asarray(trans_invs, np.float32)}
+        key = (img_idx.shape, cache_u8.data_ptr(), tuple(cache_u8.shape))
+        if key not in self._kbatch_graphs:
+            self._kbatch_graphs[key] = self._capture_kbatch(cache_u8, host)
+        graph, static, out = self._kbatch_graphs[key]
+        for name, buf in static.items():
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(host[name]))
+                      .pin_memory(), non_blocking=True)
+        graph.replay()
+        return out.clone()
+
+    def _capture_kbatch(self, cache_u8, host):
+        """(graph, static inputs, static output) of the K-batch eval: one
+        batch run eagerly on a side stream first (the kernels' build and
+        plans, cuDNN's handles), then the K batches captured, the image
+        stack read in place."""
+        static = {name: self._to_device(a) for name, a in host.items()}
+
+        def batch(k):
+            return self._cached_dets(cache_u8, static["rows"][k],
+                                     static["warp_tis"][k],
+                                     static["trans_invs"][k])
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            batch(0)
+        current.wait_stream(side)
+        graph = CountedGraph()
+        with graph.capture():
+            out = torch.stack([batch(k) for k in range(len(host["rows"]))])
+        return graph, static, out
 
     def post_process(self, dets, meta, scale=1):
         """Bucket image-space dets by 1-based class (back-projection and

@@ -15,10 +15,27 @@ bias correction, eps outside the square root. With ``--dtype bfloat16``
 the model's convs take bf16 operands (models/layers.py); its heads, the
 loss, the parameters and Adam's state stay f32.
 
-The epoch loop is the JAX package's per-step path, with its hooks:
---debug renders and --test's decoded val results (engine/train_hooks.py)
-and the --eval_oracle_* probes (make_oracle_val_step). Its scan-epoch
-engine and fused train heads are not ported; --spatial_shard raises.
+FP32 and bf16 ShuffleNetV2 steps run the heads fused
+(models/fused_heads.py: one widened pipeline over the neck, the JAX
+train step's path) unless the trainer is built with fuse_heads=False;
+the val step runs them fused always, as in the JAX package.
+
+The epoch loop is the JAX package's: the per-step path, with its hooks
+(--debug renders and --test's decoded val results, engine/train_hooks.py;
+the --eval_oracle_* probes, make_oracle_val_step), and, where no hook
+watches the steps (phase train, no --debug, no --test results,
+print_iter <= 0, CODENET_SCAN_EPOCH "1", the default), the graphed epoch
+engine (`_run_epoch_scan`, the JAX trainer's scan engine): each batch
+takes its step as the loader delivers it, on a card as a replay of one
+CUDA graph of the whole train step, forward to Adam's update
+(`make_multi_train_step`), over static input buffers that the batch is
+copied into; the stats stay on the card and are read every STATS_EVERY
+steps. On the CPU the engine runs the same step body per batch. A batch
+whose keys, shapes or dtypes differ from the epoch's first (a ragged
+tail) runs the per-step path, as the JAX engine runs a stack that will
+not stack. On a card Adam is torch's fused one, capturable, its learning
+rate a device tensor that `set_lr` fills. --spatial_shard raises; with
+`dp` every step takes the per-step path.
 
 Data parallelism (`dp`, a parallel.DataParallel; the JAX trainer's data
 mesh): the trainer is one rank's replica on its device, fed its rows of
@@ -34,6 +51,7 @@ other rows. Val steps run on one rank alone (the CLI runs them on rank
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -42,8 +60,11 @@ import torch
 from .. import resolve_device
 from ..data.device_aug import model_input, resolve_targets
 from ..models import create_model
+from ..models.fused_heads import (apply_fused_heads,
+                                  apply_fused_heads_train, can_fuse_heads)
 from ..models.layers import set_data_parallel
 from ..models.losses import LOSS_FACTORY
+from ..ops.deform_cuda import CountedGraph
 from ..parallel.mesh import all_reduce_grads, all_sum, broadcast_module
 from ..utils.meters import AverageMeter
 from .detector import device_from_opt
@@ -102,13 +123,25 @@ def stacks(out):
 
 def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
                     std, down_ratio=4, num_classes=None, input_hw=None,
-                    dp=None):
+                    dp=None, fuse=True):
     """step(batch on the device) -> stats {name: 0-dim tensor}, after one
     optimizer update. An image cache batch (img_idx) carries the device
     stack as 'cache_images' and is warped to `input_hw`. With `dp` the
     gradients are summed over the ranks before the update, and the stats
     are the sums of the ranks' (each rank's loss is its share of the
-    global one)."""
+    global one). With `fuse` an FP32 or bf16 ShuffleNetV2 runs its heads
+    fused (`apply_fused_heads_train`), the JAX train step's default. The
+    step copies nothing from the host to the device: a CUDA graph can
+    capture it."""
+    fuse = fuse and not quantized and can_fuse_heads(model)
+
+    def stat(v, like):
+        # a loss part that stays the Python 0.0 it starts as is filled on
+        # the device, not copied there
+        if torch.is_tensor(v):
+            return v.detach().to(like.dtype)
+        return torch.full((), float(v), dtype=like.dtype,
+                          device=like.device)
 
     def step(batch):
         model.train(not quantized)
@@ -117,6 +150,9 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
         batch = resolve_targets(batch, inp, down_ratio, num_classes)
         if quantized:
             out = model(inp, update_stats=True)
+        elif fuse:
+            out = apply_fused_heads_train(model, model(inp,
+                                                       return_neck=True))
         else:
             out = model(inp)
         loss, stats = loss_fn(stacks(out), batch, loss_opts)
@@ -124,9 +160,7 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
         loss.backward()
         all_reduce_grads(model.parameters(), dp)
         optimizer.step()
-        stats = {k: torch.as_tensor(v, dtype=loss.dtype,
-                                    device=loss.device).detach()
-                 for k, v in stats.items()}
+        stats = {k: stat(v, loss) for k, v in stats.items()}
         if dp is not None:
             summed = all_sum(torch.stack(list(stats.values())), dp)
             stats = dict(zip(stats, summed))
@@ -192,24 +226,107 @@ def make_oracle_val_step(model, loss_fn, loss_opts, opt, mean, std):
 
 def make_val_step(model, loss_fn, loss_opts, mean, std, down_ratio=4,
                   num_classes=None, input_hw=None):
+    """The val step: the loss parts of an eval-mode forward. A model whose
+    heads fuse runs them fused (`apply_fused_heads`); a multi-stack model
+    keeps its full forward, so the val losses cover every stack (the JAX
+    make_val_step)."""
+    fuse = can_fuse_heads(model)
+
     @torch.no_grad()
     def step(batch):
         model.eval()
         inp = model_input(batch, mean, std, input_hw,
                           batch.get("cache_images"))
         batch = resolve_targets(batch, inp, down_ratio, num_classes)
-        _, stats = loss_fn(stacks(model(inp)), batch, loss_opts)
+        if fuse:
+            out = apply_fused_heads(model, model(inp, return_neck=True))
+        else:
+            out = model(inp)
+        _, stats = loss_fn(stacks(out), batch, loss_opts)
         return {k: torch.as_tensor(v) for k, v in stats.items()}
 
     return step
 
 
+# train steps run eagerly on a side stream before a graph captures one
+# (torch's capture recipe); each is a real step of the epoch, on its batch
+GRAPH_WARMUP = 2
+# an epoch's stats stay on the device and are read every this many steps
+STATS_EVERY = 64
+
+
+def batch_signature(batch, cache=None):
+    """What a graph of a step fixes: the batch's keys, shapes and dtypes,
+    and the image cache it reads (its address), if any."""
+    uses_cache = "img_idx" in batch and cache is not None
+    return (tuple(sorted((k, tuple(np.shape(v)), np.asarray(v).dtype.str)
+                         for k, v in batch.items() if k != "meta")),
+            cache.data_ptr() if uses_cache else None)
+
+
+def make_multi_train_step(step_body, example, device, cache_images=None,
+                          warmup=GRAPH_WARMUP):
+    """The train step `step_body` replayed as one CUDA graph (the JAX
+    make_multi_train_step: one program of the step for a chunk of
+    batches, here one graph of the step for every batch of its
+    signature).
+
+    Returns run(batch) -> (keys, stats): each numpy batch of `example`'s
+    signature is copied into static device buffers (through pinned host
+    memory, non_blocking) and takes one train step; stats is the (K,)
+    tensor of the step's stats on the device, in the order of `keys`.
+    The first `warmup` calls run the step eagerly on a side stream (real
+    steps, which create Adam's state and settle the kernels' plans), the
+    next captures the step and replays it for its own batch, and every
+    later call replays it. A capture or replay error raises. The graph's
+    deform launches count on every replay (ops/deform_cuda.py
+    CountedGraph)."""
+    static = batch_to_device(example, device)
+    inputs = dict(static)
+    if "img_idx" in static:
+        inputs["cache_images"] = cache_images
+    graph = CountedGraph()
+    side = torch.cuda.Stream(device)
+    state = {"warmup": warmup, "out": None, "keys": None}
+
+    def load(batch):
+        for k, buf in static.items():
+            src = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            buf.copy_(src.pin_memory(), non_blocking=True)
+
+    def stacked(stats):
+        state["keys"] = list(stats)
+        return torch.stack(list(stats.values()))
+
+    def run(batch):
+        load(batch)
+        if state["warmup"] > 0:
+            state["warmup"] -= 1
+            current = torch.cuda.current_stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                out = stacked(step_body(inputs))
+            current.wait_stream(side)
+            out.record_stream(current)
+            return state["keys"], out
+        if state["out"] is None:
+            with graph.capture():
+                state["out"] = stacked(step_body(inputs))
+        graph.replay()
+        return state["keys"], state["out"].clone()
+
+    run.graph = graph
+    return run
+
+
 class Trainer:
     """Epoch-loop engine (reference base_trainer.py:23-119) on one device:
     `cuda` unless opt.gpus is -1 or `device` says otherwise; with `dp`,
-    one rank's replica on dp.device."""
+    one rank's replica on dp.device. `fuse_heads` False runs the train
+    step's heads one by one (make_train_step's `fuse`)."""
 
-    def __init__(self, opt, qspec=None, device=None, dp=None):
+    def __init__(self, opt, qspec=None, device=None, dp=None,
+                 fuse_heads=True):
         if getattr(opt, "spatial_shard", 1) > 1:
             raise NotImplementedError(
                 "--spatial_shard (halo-exchanged convs) is queued in "
@@ -217,6 +334,7 @@ class Trainer:
         self.opt = opt
         self.qspec = qspec
         self.dp = dp
+        self.fuse_heads = fuse_heads
         self.device = resolve_device(
             dp.device if dp is not None else
             device or device_from_opt(opt))
@@ -250,6 +368,9 @@ class Trainer:
                 self.model, self.loss_fn, self.loss_opts, self.mean,
                 self.std, opt.down_ratio, opt.num_classes, self.input_hw)
         self._hooks = None
+        # the graphed train steps of the epoch engine, one per
+        # batch signature (the JAX trainer's _multi_steps)
+        self._multi_steps = {}
 
     @property
     def hooks(self):
@@ -266,31 +387,108 @@ class Trainer:
         with `dp`, rank 0's weights and buffers on every rank."""
         broadcast_module(self.model, self.dp)
         self.lr = self.opt.lr
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=self.opt.lr)
+        if self.device.type == "cuda":
+            # capturable: its step counts and bias correction live on the
+            # card, and a graphed step reads the learning rate from there;
+            # fused: a few launches for all the parameters, where the
+            # capturable foreach form takes a dozen foreach ops a step
+            self.optimizer = torch.optim.Adam(
+                self.model.parameters(), capturable=True, fused=True,
+                lr=torch.tensor(self.opt.lr, dtype=torch.float32,
+                                device=self.device))
+        else:
+            self.optimizer = torch.optim.Adam(self.model.parameters(),
+                                              lr=self.opt.lr)
+        self._multi_steps = {}
         self.train_step = make_train_step(
             self.model, self.loss_fn, self.train_loss_opts, self.optimizer,
             self.qspec is not None, self.mean, self.std,
             self.opt.down_ratio, self.opt.num_classes, self.input_hw,
-            self.dp)
+            self.dp, self.fuse_heads)
         return self.model
 
     def set_lr(self, lr):
         """Step-decay hook (reference main.py:91-97)."""
         self.lr = lr
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)  # the graphs read it in place
+            else:
+                group["lr"] = lr
 
     # -- epochs ----------------------------------------------------------
+    def _run_epoch_scan(self, loader, n_iters, meters):
+        """The graphed epoch engine (the JAX trainer's _run_epoch_scan):
+        each batch takes its step as the loader delivers it, on a card as
+        a replay of the graph of its signature (`make_multi_train_step`),
+        on the CPU through the step body; the stats stay on the device
+        and are read every STATS_EVERY steps. A batch whose signature
+        differs from the epoch's first runs the per-step path."""
+        graphs = self.device.type == "cuda"
+        rows = self.cache_shard_rows
+        pending = []  # (keys, stats (K,) on the device, batch size)
+        first = None
+
+        def flush():
+            if not pending:
+                return
+            values = torch.cat([st for _, st, _ in pending]).cpu().numpy()
+            i = 0
+            for keys, _, bs in pending:
+                for k in keys:
+                    meters.setdefault(k, AverageMeter()).update(
+                        float(values[i]), bs)
+                    i += 1
+            pending.clear()
+
+        def per_step(batch):
+            batch = batch_to_device(batch, self.device)
+            if "img_idx" in batch:
+                batch["cache_images"] = self.image_cache
+            stats = self.train_step(batch)
+            return list(stats), torch.stack(list(stats.values()))
+
+        for it, batch in enumerate(loader):
+            if it >= n_iters:
+                break
+            batch = {k: v for k, v in batch.items() if k != "meta"}
+            if rows and "img_idx" in batch:
+                check_shard_routing(batch["img_idx"], 1, rows)
+            sig = batch_signature(batch, self.image_cache)
+            first = sig if first is None else first
+            if graphs and sig == first:
+                run = self._multi_steps.get(sig)
+                if run is None:
+                    run = self._multi_steps[sig] = make_multi_train_step(
+                        self.train_step, batch, self.device,
+                        self.image_cache)
+                keys, stats = run(batch)
+            else:
+                keys, stats = per_step(batch)
+            pending.append((keys, stats, batch_size_of(batch)))
+            if len(pending) >= STATS_EVERY:
+                flush()
+        flush()
+        return {k: m.avg for k, m in meters.items()}
+
     def run_epoch(self, phase, epoch, loader, num_iters=-1, print_iter=0,
                   results=None):
         """One epoch of `phase` steps; the meters' averages. With --debug
         each batch's first image is rendered after its step, and with
-        --test and a `results` dict its decoded predictions go there."""
+        --test and a `results` dict its decoded predictions go there.
+        Where none of these watches the steps, a train epoch runs the
+        graphed engine (`_run_epoch_scan`) under the JAX trainer's
+        conditions."""
         meters = {}
         data_time = AverageMeter()
         batch_time = AverageMeter()
         n_iters = len(loader) if num_iters < 0 else num_iters
+        if (phase == "train" and self.dp is None
+                and not self.opt.debug > 0
+                and not (results is not None and self.opt.test)
+                and print_iter <= 0
+                and os.environ.get("CODENET_SCAN_EPOCH", "1") == "1"):
+            return self._run_epoch_scan(loader, n_iters, meters)
         # stats stay on the device until printed or the epoch ends: a
         # float() per step would sync the host with the card every step
         pending = []
@@ -324,7 +522,7 @@ class Trainer:
                 batch["cache_images"] = self.image_cache
             data_time.update(time.time() - end)
             pending.append((step(batch), bs))
-            if len(pending) > 64:
+            if len(pending) >= STATS_EVERY:
                 flush()
             batch_time.update(time.time() - end)
             end = time.time()

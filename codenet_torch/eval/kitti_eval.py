@@ -20,15 +20,14 @@ ctypes; a failed build raises (there is no other scorer to fall back to).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import sys
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import cxx
 
 CLASSES = {"car": 0, "pedestrian": 1, "cyclist": 2,
            # neighbour classes ignored for the main class (official rules)
@@ -39,47 +38,21 @@ DIFFICULTY = ["easy", "moderate", "hard"]
 _RECORD = 16
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "kitti_eval.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+BUILD_DIR = cxx.BUILD_DIR
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _cxx():
-    for name in ("g++", "c++"):
-        found = shutil.which(name)
-        if found:
-            return found
-    raise RuntimeError("no host C++ compiler (g++ or c++) found: the KITTI "
-                       "scorer is built from csrc/kitti_eval.cpp on first "
-                       "use")
-
-
 def library_path():
-    """Where the scorer built from SOURCE with CXX_FLAGS lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / "libkitti_eval_{}.so".format(digest)
+    """Where the scorer built from SOURCE lives."""
+    return cxx.library_path(SOURCE, "kitti_eval", BUILD_DIR)
 
 
 def build():
-    """Compile the scorer into BUILD_DIR once per source hash; returns the
-    library's path. A private temporary name and an atomic rename keep a
-    concurrent first use from loading a partial file."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = library_path()
-    if out.exists():
-        return out
-    tmp = out.with_name("{}.{}.tmp".format(out.name, os.getpid()))
-    proc = subprocess.run([_cxx()] + CXX_FLAGS + [str(SOURCE), "-o",
-                                                  str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("building {} failed ({}):\n{}{}".format(
-            SOURCE.name, proc.returncode, proc.stdout, proc.stderr))
-    tmp.replace(out)
-    return out
+    """Compile the scorer into BUILD_DIR once per source hash
+    (utils/cxx.py); returns the library's path."""
+    return cxx.build_shared(SOURCE, "kitti_eval", BUILD_DIR)
 
 
 def _get_lib():

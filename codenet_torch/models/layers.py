@@ -414,24 +414,29 @@ def _int8_conv(conv_mod, x, float_weights, qspec, w_bit):
                        conv_mod.padding, conv_mod.groups)
 
 
-def _conv(conv_mod, x, weight, bias, dtype):
-    """`conv_mod`'s convolution of x with `weight` and `bias` (or None).
-    dtype None: in x's type, the bias fused. A compute dtype: the conv of
-    x and weight rounded to it, in f32 (on a card cuDNN runs it on TF32
-    tensor cores where TF32 is allowed: bf16 operands are exact in TF32);
-    with a bias, that result rounded to it and the rounded bias added in
-    f32 (the JAX conv2d and Conv, layers.py:176-188, 430-435, as XLA
-    compiles them)."""
+def conv2d(x, weight, bias, dtype, stride=1, padding=0, dilation=1,
+           groups=1):
+    """The convolution of x with `weight` and `bias` (or None). dtype
+    None: in x's type, the bias fused. A compute dtype: the conv of x and
+    weight rounded to it, in f32 (on a card cuDNN runs it on TF32 tensor
+    cores where TF32 is allowed: bf16 operands are exact in TF32); with a
+    bias, that result rounded to it and the rounded bias added in f32 (the
+    JAX conv2d and Conv, layers.py:176-188, 430-435, as XLA compiles
+    them)."""
     if dtype is None:
-        return F.conv2d(x, weight, bias, conv_mod.stride, conv_mod.padding,
-                        conv_mod.dilation, conv_mod.groups)
+        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
     y = F.conv2d(x.to(dtype).float(), weight.to(dtype).float(), None,
-                 conv_mod.stride, conv_mod.padding, conv_mod.dilation,
-                 conv_mod.groups)
+                 stride, padding, dilation, groups)
     if bias is None:
         return y
     return (y.to(dtype).float()
             + bias.to(dtype).float()[None, :, None, None])
+
+
+def _conv(conv_mod, x, weight, bias, dtype):
+    """`conv_mod`'s convolution of x with `weight` and `bias` (`conv2d`)."""
+    return conv2d(x, weight, bias, dtype, conv_mod.stride, conv_mod.padding,
+                  conv_mod.dilation, conv_mod.groups)
 
 
 def conv_q(conv_mod, x, qspec, w_bit=None, dtype=None):

@@ -28,8 +28,10 @@ a `CodesignDeformBlock` without a mixer replaces ``b1.0`` (stride 2) and
 JAX package cannot run it in int8 (its block-final BatchNorm receives a
 QTensor), so neither does the port.
 
-`forward(images, update_stats=False)` takes (N, H, W, 3) images and
-returns {head: (N, H/4, W/4, C)}, NHWC like the JAX model; inside,
+`forward(images, update_stats=False, return_neck=False)` takes (N, H, W,
+3) images and returns {head: (N, H/4, W/4, C)}, NHWC like the JAX model
+(with `return_neck`, the neck the heads read; models/fused_heads.py runs
+the heads of an FP32 or bf16 model as one pipeline over it); inside,
 activations are channels_last NCHW. BN mode follows the module's
 train/eval mode in FP32; quantized, BN is always folded and frozen and
 `update_stats` alone decides whether the activation ranges move (the JAX
@@ -249,7 +251,10 @@ class PoseShuffleNetV2(nn.Module):
             if isinstance(m, nn.Conv2d) and m not in done:
                 torch_conv_init_(m.weight, generator)
 
-    def forward(self, images, update_stats=False):
+    def forward(self, images, update_stats=False, return_neck=False):
+        """{head: (N, H/4, W/4, C)} of (N, H, W, 3) images; with
+        `return_neck`, the (N, 64, H/4, W/4) channels_last output of the
+        deconv stage instead, which models/fused_heads.py reads."""
         q, dt = self.qspec, self.dtype
         up = update_stats
         y = F.relu(conv_bn(self.layer0[0], self.layer0[1], nchw(images), q,
@@ -266,6 +271,8 @@ class PoseShuffleNetV2(nn.Module):
             y = F.relu(block(y, block_bn, up))
             y = apply_act(getattr(self, "deconv{}_act".format(i)), y, up)
             y = qt_module(self.deconv_layers[4 * i + 3], y)
+        if return_neck:
+            return y
         return {name: nhwc(getattr(self, name)(y, up)).float()
                 for name, _ in self.heads}
 

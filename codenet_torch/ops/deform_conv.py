@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import device_constant
 from ..utils.profile import counted_op
 
 # Per-tap (dy, dx) anchors of a 3x3 kernel, row-major — the reference's
@@ -180,7 +181,7 @@ def codesign_deform_conv(x, s, weight, stride=1, padding=1, dilation=1,
         groups = c
     with counted_op(deform_conv_flops(s.shape[:3] + (weight.shape[3],),
                                       weight.shape)):
-        anchor = torch.as_tensor(ANCHOR_OFFSETS, device=x.device)  # (9, 2)
+        anchor = device_constant(ANCHOR_OFFSETS, x.device)  # (9, 2)
         tap_offsets = anchor[None, None, None] * (s[..., None] - 1.0)
         cols = deform_sample(x, tap_offsets, (3, 3), stride, padding,
                              dilation)

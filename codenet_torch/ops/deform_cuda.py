@@ -18,11 +18,13 @@ in `csrc/deform_fwd.cu` and `csrc/deform_bwd.cu`, or raise.
 
 The kernels are compiled with nvcc on first use into `codenet_torch/_build/`
 (both sources at once) and loaded with ctypes. `LAUNCHES` counts forward
-kernel launches, `BWD_LAUNCHES` backward ones.
+kernel launches, `BWD_LAUNCHES` backward ones; a step captured in a CUDA
+graph (`CountedGraph`) adds the launches it holds on every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -494,6 +496,37 @@ def _launch_bwd(x, s, weight, g):
                            "error {}".format(err))
     BWD_LAUNCHES += 1
     return dx, ds, dw.reshape(weight.shape).to(weight.dtype)
+
+
+class CountedGraph:
+    """A torch.cuda.CUDAGraph that keeps the launch counters true: its
+    capture launches nothing, so the kernel launches recorded while it
+    captures are taken back off LAUNCHES and BWD_LAUNCHES and kept
+    (`launches`), and every `replay` adds them again. The counters then
+    equal the deform kernel events a profiler trace records."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = (0, 0)
+        self.replays = 0
+
+    @contextlib.contextmanager
+    def capture(self, **kwargs):
+        """`torch.cuda.graph(self.graph, **kwargs)`, counting the
+        launches captured."""
+        global LAUNCHES, BWD_LAUNCHES
+        before = (LAUNCHES, BWD_LAUNCHES)
+        with torch.cuda.graph(self.graph, **kwargs):
+            yield
+        self.launches = (LAUNCHES - before[0], BWD_LAUNCHES - before[1])
+        LAUNCHES, BWD_LAUNCHES = before
+
+    def replay(self):
+        global LAUNCHES, BWD_LAUNCHES
+        self.graph.replay()
+        self.replays += 1
+        LAUNCHES += self.launches[0]
+        BWD_LAUNCHES += self.launches[1]
 
 
 def _route(x):

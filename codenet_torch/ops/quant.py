@@ -72,8 +72,10 @@ def weight_channel_min_max(w_oc_first, percentile=False):
 
 def _over(n, t):
     """n / t correctly rounded (a Python number over a tensor computes
-    t.reciprocal() * n, which rounds twice)."""
-    return t.new_tensor(float(n)) / t
+    t.reciprocal() * n, which rounds twice). The numerator is filled on
+    t's device, not copied from the host, so a CUDA graph can capture
+    it."""
+    return torch.full((), float(n), dtype=t.dtype, device=t.device) / t
 
 
 def _symmetric(x, k, x_min, x_max):

@@ -290,7 +290,8 @@ def test_process_batch_cached_equals_raw_on_card(cuda_device):
                                    np.stack([wti, wti[::-1]]),
                                    np.stack([ti, ti[::-1]]))
     torch.cuda.synchronize()
-    assert DC.LAUNCHES == before + 3 * 4
+    # and the K-batch graph's one eager warm-up batch before its capture
+    assert DC.LAUNCHES == before + 3 * 4 + 3
     assert a.shape == b.shape == (3, 100, 6) and c.shape == (2, 3, 100, 6)
     for got in (b, c[0], c[1].flip(0)):
         torch.testing.assert_close(got, a, rtol=1e-5, atol=1e-4)
@@ -1010,3 +1011,166 @@ def test_ladder_and_ops_on_card_match_cpu(cuda_device):
         pooled_size=4, group_size=2, part_size=2, spatial_scale=0.25),
         [data, trans], cuda_device)
     assert (DC.LAUNCHES, DC.BWD_LAUNCHES) == before
+
+
+# -- the graphed engine -----------------------------------------------------------
+
+def _voc_opt(extra=()):
+    from codenet_torch import config as cfg
+    return cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--batch_size", "2", *extra]),
+        cfg.DATASET_SPECS["pascal"])
+
+
+def _graph_batches(n):
+    from test_torch_common import qat_batch
+    out = []
+    for i in range(n):
+        b = qat_batch()
+        b["input_u8"] = np.roll(b["input_u8"], 7 * i, axis=1)
+        out.append(b)
+    return out
+
+
+@pytest.mark.cuda
+def test_graphed_step_matches_eager_step_on_card(cuda_device):
+    """make_multi_train_step with one warm-up: its first call an eager
+    step, its second a capture and one replay, its third a replay, whose
+    stats read the weights the second call's replay updated. Against
+    three eager steps of a twin trainer from the same conditioned state
+    (test_torch_common.raise_bn_biases) on the same batches: the first
+    step's stats within 1e-5, the later ones' within 5e-3 (each trainer
+    takes them from its own earlier steps, whose deform backward summed
+    with atomics in its own order); the parameters' change over the three
+    steps within 1e-1 relative L2 of the eager change (chip_smoke.py's
+    GRAPH_UPDATE_TOL: sound runs read about 1.5e-2 there, a graph that
+    skips Adam's update about 1), every running statistic within 5e-3;
+    3 + 3 launches a step, counted on the replay."""
+    from test_torch_common import raise_bn_biases
+    from codenet_torch.engine import trainer as T
+    opt = _voc_opt()
+    graphed, eager = (T.Trainer(opt, device=cuda_device) for _ in range(2))
+    raise_bn_biases(graphed.model, HEADS)
+    eager.model.load_state_dict(graphed.model.state_dict())
+    graphed.init()
+    eager.init()
+    params = [k for k, _ in graphed.model.named_parameters()]
+    start = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    batches = _graph_batches(3)
+    run = T.make_multi_train_step(graphed.train_step, batches[0],
+                                  cuda_device, warmup=1)
+    for i, batch in enumerate(batches):
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        keys, got = run(batch)
+        torch.cuda.synchronize()
+        assert (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]) \
+            == (3, 3)
+        ref = eager.train_step(T.batch_to_device(batch, cuda_device))
+        assert keys == list(ref)
+        torch.testing.assert_close(got, torch.stack(list(ref.values())),
+                                   rtol=1e-5 if i == 0 else 5e-3,
+                                   atol=1e-6)
+    assert run.graph.replays == 2 and run.graph.launches == (3, 3)
+    got, ref = graphed.model.state_dict(), eager.model.state_dict()
+    num = sum(float(((got[k] - ref[k]).double() ** 2).sum())
+              for k in params)
+    den = sum(float(((ref[k] - start[k]).double() ** 2).sum())
+              for k in params)
+    assert den > 0 and (num / den) ** 0.5 <= 1e-1, (num / den) ** 0.5
+    for k in got:
+        if k not in params:
+            torch.testing.assert_close(got[k], ref[k], rtol=5e-3,
+                                       atol=1e-4, msg=k)
+
+
+@pytest.mark.cuda
+def test_graph_launch_counters_after_replays(cuda_device):
+    """A captured train step holds 3 forward and 3 backward launches; the
+    capture adds none to the counters and each of N replays adds them."""
+    from codenet_torch.engine import trainer as T
+    trainer = T.Trainer(_voc_opt(), device=cuda_device)
+    trainer.init()
+    batches = _graph_batches(5)
+    run = T.make_multi_train_step(trainer.train_step, batches[0],
+                                  cuda_device, warmup=1)
+    run(batches[0])
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    for batch in batches[1:]:
+        run(batch)
+    torch.cuda.synchronize()
+    assert run.graph.launches == (3, 3) and run.graph.replays == 4
+    assert (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]) \
+        == (12, 12)
+
+
+@pytest.mark.cuda
+def test_epoch_engine_graphs_on_card(cuda_device, monkeypatch):
+    """Trainer.run_epoch with no hook on a card: one graph for the
+    epoch's signature, GRAPH_WARMUP eager steps, the rest replays; a
+    ragged last batch takes the per-step path."""
+    from codenet_torch.engine import trainer as T
+    monkeypatch.delenv("CODENET_SCAN_EPOCH", raising=False)
+    trainer = T.Trainer(_voc_opt(), device=cuda_device)
+    trainer.init()
+    batches = _graph_batches(5)
+    ragged = {k: v[:1] for k, v in batches[0].items()}
+    before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+    stats = trainer.run_epoch("train", 1, batches + [ragged])
+    torch.cuda.synchronize()
+    assert np.isfinite(stats["loss"])
+    graphs = list(trainer._multi_steps.values())
+    assert len(graphs) == 1
+    assert graphs[0].graph.replays == 5 - T.GRAPH_WARMUP
+    assert (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1]) \
+        == (18, 18)
+
+
+@pytest.mark.cuda
+def test_kbatch_graph_matches_loop_on_card(cuda_device):
+    """process_batches_cached as one captured graph of K = 3 batches of
+    2, replayed twice, against the loop of process_batch_cached: equal
+    detections; the graph holds 3 launches a batch and counts them on
+    each replay."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.models import create_model
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64"]), cfg.DATASET_SPECS["pascal"])
+    model = create_model("shufflenetv2", HEADS, 64, device="cpu")
+    calibrate_bn(model, np.random.RandomState(25).randn(4, 64, 64, 3)
+                 .astype(np.float32))
+    det = CtdetDetector(opt, state_dict=model.state_dict(),
+                        device=cuda_device)
+    r = np.random.RandomState(26)
+    stack = torch.from_numpy(r.randint(0, 256, (4, 80, 96, 3)).astype(
+        np.uint8)).to(cuda_device)
+    wti, ti = det.pre_process_geometry(80, 96)
+    for rows in (np.array([[0, 1], [2, 3], [1, 2]]),
+                 np.array([[3, 3], [0, 2], [1, 0]])):
+        w = np.broadcast_to(wti, rows.shape + wti.shape)
+        t = np.broadcast_to(ti, rows.shape + ti.shape)
+        got = det.process_batches_cached(stack, rows, w, t)
+        ref = torch.stack([det.process_batch_cached(stack, rows[k], w[k],
+                                                    t[k])
+                           for k in range(3)])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    (graph, _, _), = det._kbatch_graphs.values()
+    assert graph.launches == (9, 0) and graph.replays == 2
+
+
+@pytest.mark.cuda
+def test_graph_capture_error_raises_on_card(cuda_device):
+    """A step that syncs with the host cannot be captured: the engine
+    raises rather than run it eagerly. (Last in the file: a failed
+    capture may leave the process's CUDA state unusable.)"""
+    from codenet_torch.engine import trainer as T
+
+    def step(batch):
+        return {"loss": batch["x"].sum() * float(batch["x"].sum())}
+    run = T.make_multi_train_step(step, {"x": np.ones(4, np.float32)},
+                                  cuda_device, warmup=0)
+    with pytest.raises(RuntimeError):
+        run({"x": np.ones(4, np.float32)})

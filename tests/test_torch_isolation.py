@@ -36,7 +36,9 @@ def test_importing_every_module_loads_no_jax_and_no_cv2():
         "       'codenet_torch.parallel.dryrun',\n"
         "       'codenet_torch.utils.profile', 'codenet_torch.ops.abn',\n"
         "       'codenet_torch.ops.roi_align',\n"
-        "       'codenet_torch.ops.deform_pool'}\n"
+        "       'codenet_torch.ops.deform_pool',\n"
+        "       'codenet_torch.models.fused_heads',\n"
+        "       'codenet_torch.utils.cxx'}\n"
         "assert own <= set(names), own - set(names)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'codenet_tpu', 'cv2'))\n"
