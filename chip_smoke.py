@@ -45,6 +45,14 @@ writer and reader. Then it drives the port's paths at full width
   process on the card (5e-3) with bit-equal rank states, and one
   --device_cache_shard step; each rank's kernel launches count in the
   kernels line;
+- image rows split over ranks (spatial, --spatial_shard 2): gloo ranks
+  sharing one card as dp 1 x sp 2 and dp 2 x sp 2 train 3 FP32 and 3
+  QAT steps of config a at batch 32 from the conditioned init, held to
+  one process on the card (5e-3) with bit-equal rank states, each
+  rank's ms per step and peak memory beside one process's; the dp 1 x
+  sp 2 ranks also take a --device_cache step and train through
+  `cli.main --spatial_shard 2`; with two cards visible, the dp 1 x sp 2
+  steps over NCCL across them;
 - batched eval (`cli.test --batch_eval 32`) with the host warp,
   --device_warp and --device_cache;
 - multi-scale flip-test requests merged by soft-NMS, at fix_res with
@@ -129,8 +137,8 @@ a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
 before them gives each phase's wall seconds. `--phases trace,...` runs
 only the named phases that need no other's results (trace,
-dense_targets, ladder_ops, graphs), after the build (no kernel table,
-no ok line).
+dense_targets, ladder_ops, graphs, ddp, spatial), after the build (no
+kernel table, no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
@@ -3455,14 +3463,19 @@ def _timed(dp, fn):
     return out, start.elapsed_time(end)
 
 
-def _rank_batches(data, opt, dp, n, shard_ranges=None):
+def _rank_batches(data, opt, dp, n, shard_ranges=None, cache_dims=None):
     """This rank's rows of the first n global batches of the shuffled
-    loader (all rows with dp None)."""
+    loader (all rows with dp None; on a data x spatial grid, its data
+    row's rows); with `cache_dims` (an ImageCache's), image cache
+    batches."""
     from codenet_torch.data.loader import DataLoader
     from codenet_torch.parallel import process_batch_slice
-    rows = process_batch_slice(opt.batch_size, dp.rank, dp.world) \
-        if dp is not None else None
-    loader = DataLoader(data.dataset(opt), opt.batch_size, shuffle=True,
+    rows = process_batch_slice(opt.batch_size, dp.data_rank,
+                               dp.data_world) if dp is not None else None
+    ds = data.dataset(opt)
+    if cache_dims is not None:
+        ds._image_cache_dims = cache_dims
+    loader = DataLoader(ds, opt.batch_size, shuffle=True,
                         num_workers=opt.num_workers, seed=opt.seed,
                         shard_ranges=shard_ranges, rows=rows)
     batches = []
@@ -3500,7 +3513,7 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
     opt = data.opt(batch, "--device_cache_shard")
     cache, rows = _sharded_cache(data, opt, dp)
     batches = _rank_batches(data, opt, dp, DDP_TIMED_STEPS,
-                            cache.shard_ranges)
+                            cache.shard_ranges, cache.dims)
     out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
            "device": str(dp.device), "batch_per_rank": batch // dp.world,
            "cache_rows": int(rows.shape[0]),
@@ -3558,23 +3571,33 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
         json.dumps(out))
 
 
-def _ddp_steps(data, opt, dp, state, qspec, n, device):
+def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None):
     """n train steps from `state` on this rank's rows (dp None: the whole
-    batches, in one process): losses, ms per step, the final state."""
+    batches, in one process; --spatial_shard in opt: on the grid), or on
+    `batches`, this rank's rows already: losses, ms per step, the peak
+    memory on a card, the final state."""
     from codenet_torch.engine.trainer import Trainer, batch_to_device
     trainer = Trainer(opt, qspec=qspec, device=device, dp=dp)
     trainer.model.load_state_dict(state, strict=qspec is None)
     trainer.init()
     timing = dp or types.SimpleNamespace(device=torch.device(device))
+    on_card = timing.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(timing.device)
+        torch.cuda.reset_peak_memory_stats(timing.device)
     losses, ms = [], []
-    for b in _rank_batches(data, opt, dp, n):
+    for b in batches or _rank_batches(data, opt, trainer.dp, n):
         dev = batch_to_device(b, trainer.device)
         stats, t = _timed(timing, lambda: trainer.train_step(dev))
         losses.append(float(stats["loss"]))
         ms.append(t)
-    return {"losses": losses, "ms_per_step": ms,
-            "state": {k: v.detach().cpu() for k, v in
-                      trainer.model.state_dict().items()}}
+    out = {"losses": losses, "ms_per_step": ms,
+           "state": {k: v.detach().cpu() for k, v in
+                     trainer.model.state_dict().items()}}
+    if on_card:
+        out["peak_mib"] = \
+            torch.cuda.max_memory_allocated(timing.device) / 2 ** 20
+    return out
 
 
 def _ddp_cache_step(data, opt, dp, state, device):
@@ -3597,7 +3620,7 @@ def _ddp_cache_step(data, opt, dp, state, device):
         rps = -(-n // DDP_GLOO_WORLD)
         ranges = [(min(s * rps, n), min((s + 1) * rps, n))
                   for s in range(DDP_GLOO_WORLD)]
-    batch = _rank_batches(data, opt, dp, 1, ranges)[0]
+    batch = _rank_batches(data, opt, dp, 1, ranges, cache.dims)[0]
     stats = trainer.run_epoch("train", 1, [batch])
     return {"stats": stats, "state": {
         k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
@@ -3747,6 +3770,220 @@ def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
         raise SystemExit("ddp check failed: {}".format(fail))
     return (sum(r["launches"][0] for r in a + b),
             sum(r["launches"][1] for r in a + b))
+
+
+# -- --spatial_shard: image rows split over a data x spatial grid --------
+
+SPATIAL_STEPS = 3      # FP32 and QAT steps of each grid, held to one process
+SPATIAL_GRIDS = (("dp1xsp2", 2), ("dp2xsp2", 4))  # gloo ranks on one card
+
+
+def _spatial_rank(dp, res, batch, out_dir, full):
+    with _rank_log(dp, out_dir):
+        _spatial_body(dp, res, batch, out_dir, full)
+
+
+def _spatial_cache_step(data, opt, dp, state, device, batch=None):
+    """One --device_cache step through Trainer.run_epoch from `state` (dp
+    None: one process) on `batch` (this rank's rows of the first cache
+    batch; None: drawn here): on the grid each rank holds the whole cache
+    and warps its band of rows of its data row's images. The stats, the
+    state and the batch."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.engine.trainer import Trainer
+    trainer = Trainer(opt, device=device, dp=dp)
+    trainer.model.load_state_dict(state)
+    trainer.init()
+    cache = ImageCache.build(data.dataset(opt))
+    trainer.image_cache = cache.to_device(device)
+    if batch is None:
+        batch = _rank_batches(data, opt, trainer.dp, 1, None,
+                              cache.dims)[0]
+    stats = trainer.run_epoch("train", 1, [batch])
+    return {"stats": stats, "batch": batch, "state": {
+        k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}}
+
+
+def _data_rows(batch, dp):
+    """The rows of a global batch that the data row of `dp` (a grid
+    DataParallel) trains on."""
+    from codenet_torch.parallel import process_batch_slice
+    lo, hi = process_batch_slice(len(batch["reg_mask"]), dp.data_rank,
+                                 dp.data_world)
+    return {k: v[lo:hi] for k, v in batch.items() if k != "meta"}
+
+
+def _spatial_body(dp, res, batch, out_dir, full):
+    """One rank of a --spatial_shard 2 grid: SPATIAL_STEPS FP32 and
+    SPATIAL_STEPS QAT steps of config a from the conditioned init on its
+    data row's rows of the parent's global batches (out_dir's parent,
+    batches.pt), each on its band of the images' rows; with `full`, also
+    one --device_cache step and cli.main's training (2 steps, rank 0
+    ending in the final eval). Writes rank<k>.pt with this process's
+    launches and each part's seconds."""
+    from codenet_torch import config as cfg
+    from codenet_torch.cli.main import run_training
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.ops import deform_cuda as DC
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+    data = _ddp_setup(dp, res)
+    state = conditioned_init(data.opt(batch))
+    opt = data.opt(batch, "--spatial_shard", "2")
+    grid = dataclasses.replace(dp, spatial=2)  # its coordinates alone
+    shared = torch.load(Path(out_dir).parent / "batches.pt",
+                        weights_only=False)
+    rows = [_data_rows(b, grid) for b in shared["batches"]]
+    out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
+           "device": str(dp.device)}
+    lap("setup")
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    out["fp32"] = _ddp_steps(data, opt, dp, state, None, SPATIAL_STEPS,
+                             dp.device, rows)
+    lap("fp32")
+    out["qat"] = _ddp_steps(data, opt, dp, state,
+                            QuantSpec(wt_percentile=True, act_clamp=True),
+                            SPATIAL_STEPS, dp.device, rows)
+    lap("qat")
+    if full:
+        out["cache"] = _spatial_cache_step(
+            data, data.opt(batch, "--device_cache", "--spatial_shard", "2"),
+            dp, state, dp.device, _data_rows(shared["cache_batch"], grid))
+        del out["cache"]["batch"]
+        lap("cache")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            run_training(cfg.parse(data.args(
+                batch, "--num_epochs", "1", "--num_iters", "2",
+                "--val_intervals", "-1", "--print_iter", "1",
+                "--spatial_shard", "2", "--gpus",
+                "-1" if dp.device.type == "cpu" else "0",
+                "--exp_id", "chip_smoke_spatial")), None, dp)
+        text = log.getvalue()
+        lap("cli")
+        out["cli"] = {"seconds": seconds["cli"],
+                      "losses": [float(ln.split(" loss ")[1].split()[0])
+                                 for ln in text.splitlines()
+                                 if ln.startswith("train epoch")],
+                      "mean_ap": _lines_with(text, "Mean AP")}
+    out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    out["seconds"] = seconds
+    torch.save(out, Path(out_dir) / "rank{}.pt".format(dp.rank))
+
+
+def _held(ranks, ref, parts):
+    """Each part of the ranks' runs against one process's: the ranks'
+    states bit-equal, the losses (relative) and every parameter and
+    statistic (relative L2), and the per-step times and peak memory side
+    by side."""
+    held = {}
+    for part in parts:
+        got, want = ranks[0][part], ref[part]
+        equal = all(torch.equal(got["state"][k], r[part]["state"][k])
+                    for r in ranks[1:] for k in want["state"])
+        losses = got.get("losses", [got.get("stats", {}).get("loss")])
+        ref_losses = want.get("losses",
+                              [want.get("stats", {}).get("loss")])
+        floats = [k for k, v in want["state"].items()
+                  if v.is_floating_point()]
+        held[part] = {
+            "ranks_bit_equal": equal,
+            "loss_rel": max(abs(x - y) / abs(y)
+                            for x, y in zip(losses, ref_losses)),
+            "state_rel_l2": _rel_l2(got["state"], want["state"], floats),
+            "losses": losses, "losses_one_process": ref_losses}
+        if "ms_per_step" in want:
+            held[part].update(
+                ms_per_step_ranks=[r[part]["ms_per_step"] for r in ranks],
+                ms_per_step_one_process=want["ms_per_step"],
+                peak_mib_ranks=[r[part].get("peak_mib") for r in ranks],
+                peak_mib_one_process=want.get("peak_mib"))
+    return held
+
+
+def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0"):
+    """--spatial_shard 2 (parallel/mesh.py's grid, halo_rows and
+    gather_rows): (a) gloo ranks sharing one card as dp 1 x sp 2 and dp
+    2 x sp 2 each train SPATIAL_STEPS FP32 and SPATIAL_STEPS QAT steps of
+    config a at RES^2, batch `batch`, from the conditioned init, held to
+    one process on the card (losses, and parameters and statistics in
+    relative L2, within STEP_TOL) with every rank's state bit-equal, each
+    rank's ms per step and peak memory beside one process's; (b) the dp
+    1 x sp 2 ranks take one --device_cache step, held the same way, and
+    (c) train through cli.main --spatial_shard 2 for one two-step epoch,
+    rank 0 ending in the final eval; (d) where two cards are visible, the
+    dp 1 x sp 2 steps of (a) over NCCL across them. Every rank's kernel
+    launches, counted in its own process, are returned for the kernels
+    line."""
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.parallel import launch
+    work = ROOT / "exp" / "chip_smoke" / "spatial"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    fail, runs = [], {}
+    opt = data.opt(batch)
+    state = conditioned_init(opt)
+    qspec = QuantSpec(wt_percentile=True, act_clamp=True)
+    # the global batches, drawn once: the ranks load their rows of them
+    batches = _rank_batches(data, opt, None, SPATIAL_STEPS)
+    ref = {"fp32": _ddp_steps(data, opt, None, state, None, SPATIAL_STEPS,
+                              device, batches),
+           "qat": _ddp_steps(data, opt, None, state, qspec, SPATIAL_STEPS,
+                             device, batches),
+           "cache": _spatial_cache_step(
+               data, data.opt(batch, "--device_cache"), None, state,
+               device)}
+    torch.save({"batches": batches, "cache_batch": ref["cache"]["batch"]},
+               work / "batches.pt")
+    grids = [(name, [device] * world, "gloo", name == "dp1xsp2")
+             for name, world in SPATIAL_GRIDS]
+    if torch.cuda.device_count() >= 2:
+        grids.append(("nccl_dp1xsp2", ["cuda:0", "cuda:1"], "nccl", False))
+    cli_steps = 2
+    for name, devices, backend, full in grids:
+        (work / name).mkdir(parents=True)
+        t0 = time.perf_counter()
+        launch(_spatial_rank, devices, backend=backend,
+               args=(res, batch, str(work / name), full))
+        ranks = [torch.load(work / name / "rank{}.pt".format(k),
+                            weights_only=False)
+                 for k in range(len(devices))]
+        parts = ("fp32", "qat", "cache") if full else ("fp32", "qat")
+        held = _held(ranks, ref, parts)
+        run = {"seconds": time.perf_counter() - t0, "world": len(devices),
+               "backend": backend, "devices": devices, "held": held,
+               "launches": [r["launches"] for r in ranks],
+               "rank_seconds": [r["seconds"] for r in ranks]}
+        for part, h in held.items():
+            if not h["ranks_bit_equal"] or h["loss_rel"] > STEP_TOL \
+                    or h["state_rel_l2"] > STEP_TOL:
+                fail.append("{} {}".format(name, part))
+        steps = 2 * SPATIAL_STEPS + (1 + cli_steps if full else 0)
+        for r in ranks:
+            evals = 8 if full and r["rank"] == 0 else 0
+            if r["launches"] != [3 * (steps + evals), 3 * steps]:
+                fail.append("{} rank {} launches {}".format(
+                    name, r["rank"], r["launches"]))
+        if full:
+            cli = ranks[0]["cli"]
+            run["cli"] = cli
+            if len(cli["losses"]) != cli_steps or len(cli["mean_ap"]) != 1 \
+                    or not np.all(np.isfinite(cli["losses"])):
+                fail.append("{} cli".format(name))
+        runs[name] = run
+    out = {"phase": "spatial", "res": res, "batch": batch, "tol": STEP_TOL,
+           "runs": runs, "nccl": "ran across 2 cards" if "nccl_dp1xsp2"
+           in runs else "not run: {} card(s) visible".format(
+               torch.cuda.device_count()),
+           "failed": fail}
+    emit(out)
+    if fail:
+        raise SystemExit("spatial check failed: {}".format(fail))
+    launches = [r for run in runs.values() for r in run["launches"]]
+    return sum(x[0] for x in launches), sum(x[1] for x in launches)
 
 
 # -- the profiler trace, the dense targets, the ladder and the ops ---------
@@ -4495,7 +4732,8 @@ def timed(name, fn, *args):
 
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
-STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs")
+STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs", "ddp",
+              "spatial")
 
 
 def main(argv=None):
@@ -4528,7 +4766,9 @@ def main(argv=None):
                "dense_targets": lambda: phase_dense_targets(
                    data, pose_data, kitti_data, exdet_data),
                "ladder_ops": phase_ladder_ops,
-               "graphs": lambda: phase_graphs(data)}
+               "graphs": lambda: phase_graphs(data),
+               "ddp": lambda: phase_ddp(data),
+               "spatial": lambda: phase_spatial(data)}
         for name in only:
             timed(name, run[name])
         emit({"phase": "done", "seconds": time.perf_counter() - t0,
@@ -4557,6 +4797,7 @@ def main(argv=None):
     cache_fwd, cache_bwd = timed("devcache", phase_devcache, data,
                                  train_run, batches)
     ddp = timed("ddp", phase_ddp, data)
+    spatial = timed("spatial", phase_spatial, data)
     eval_paths_launches = timed("eval_paths", phase_eval_paths, data, model)
     multiscale_launches = timed("multiscale", phase_multiscale, model,
                                 synthetic_frames(8)[0])
@@ -4592,7 +4833,7 @@ def main(argv=None):
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
         + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0]
-        + trace[0] + dense[0] + graphs[0],
+        + spatial[0] + trace[0] + dense[0] + graphs[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -4627,8 +4868,8 @@ def main(argv=None):
         replaces("_bwd_kernel"),
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
-        + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1] + trace[1]
-        + dense[1] + graphs[1], bwd_rows,
+        + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1] + spatial[1]
+        + trace[1] + dense[1] + graphs[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone

@@ -28,7 +28,11 @@ LOCAL_RANK, or on the CPU over gloo with ``--gpus -1``:
 Each rank trains on its rows of every global batch with global-batch BN
 (parallel/mesh.py); rank 0 logs, writes the checkpoints and runs the val
 passes and the final eval, whose detections are those of a one-process
-run from the same weights.
+run from the same weights. ``--spatial_shard k`` makes the ranks a data
+x spatial grid (the JAX package's get_mesh_2d): k must divide the ranks
+(one process raises), the data axis shrinks until it divides
+--batch_size, and the k ranks of a data row train on the same rows, each
+on its band of the images' rows (engine/trainer.py).
 ``--trace`` writes a profiler trace of the epochs into
 exp/<task>/<exp_id>/debug/trace/ (one file per rank; utils/profile.py);
 ``--test`` only decodes and scores the val split; ``--debug N`` renders
@@ -58,6 +62,7 @@ from ..engine.trainer import Trainer
 from ..parallel import (all_max, join_from_env, launch,
                         launched_by_torchrun, leave, process_batch_slice,
                         world_for_batch)
+from ..parallel.mesh import grid_for_batch
 from ..utils.logger import Logger
 from ..utils.profile import maybe_trace
 
@@ -72,6 +77,7 @@ def run_training(opt, qspec=None, dp=None):
     main_rank = dp is None or dp.main
 
     trainer = Trainer(opt, qspec=qspec, dp=dp)
+    dp = trainer.dp  # with --spatial_shard, the data x spatial grid
     logger = Logger(opt, trainer.device, rank=dp.rank if dp else 0)
     trainer.init()
 
@@ -111,8 +117,11 @@ def run_training(opt, qspec=None, dp=None):
         cache = ImageCache.build(train_dataset)
         train_dataset._image_cache_dims = cache.dims
         shard = opt.device_cache_shard
-        trainer.image_cache = cache.to_device(trainer.device, shard=shard,
-                                              dp=dp)
+        # the cache's rows are split over the data axis; the ranks of a
+        # data row hold the same shard
+        trainer.image_cache = cache.to_device(
+            trainer.device, shard=shard,
+            dp=dp.over_data if dp is not None else None)
         if shard:
             shard_ranges = cache.shard_ranges
             trainer.cache_shard_rows = cache.shard_rows
@@ -124,7 +133,8 @@ def run_training(opt, qspec=None, dp=None):
         train_dataset, opt.batch_size, shuffle=True,
         num_workers=opt.num_workers, seed=opt.seed,
         shard_ranges=shard_ranges,
-        rows=process_batch_slice(opt.batch_size, dp.rank, dp.world)
+        rows=process_batch_slice(opt.batch_size, dp.data_rank,
+                                 dp.data_world)
         if dp is not None else None)
 
     def save(name, epoch, with_optimizer=True):
@@ -208,8 +218,10 @@ def train(opt, qspec=None):
     torchrun group; on every card of --gpus (spawned ranks, NCCL) when
     it lists several; else in this process. Returns the trainer of a
     one-process run."""
+    spatial = opt.spatial_shard
     if launched_by_torchrun():
-        dp = join_from_env(opt.batch_size, cpu=opt.gpus[0] < 0)
+        dp = join_from_env(opt.batch_size, cpu=opt.gpus[0] < 0,
+                           spatial=spatial)
         try:
             with _quiet_unless_main(dp):
                 return run_training(opt, qspec, dp)
@@ -218,6 +230,17 @@ def train(opt, qspec=None):
     ids = [int(g) for g in opt.gpus_str.split(",")][:len(opt.gpus)]
     if opt.gpus[0] < 0 or len(ids) == 1 or opt.test:
         return run_training(opt, qspec)
+    if spatial > 1:
+        rows, _ = grid_for_batch(opt.batch_size, len(ids), spatial)
+        world = rows * spatial
+        if world < len(ids):
+            print("note: --batch_size {} does not divide over {} data "
+                  "rows; training on {} x {} cards".format(
+                      opt.batch_size, len(ids) // spatial, rows, spatial))
+        sys.stdout.flush()
+        launch(_rank_main, ["cuda:{}".format(i) for i in ids[:world]],
+               args=(opt, qspec))
+        return None
     world = world_for_batch(opt.batch_size, len(ids))
     if world < len(ids):
         print("note: --batch_size {} does not divide over {} cards; "

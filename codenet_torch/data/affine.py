@@ -95,7 +95,7 @@ def transform_preds(coords, center, scale, output_size):
     return target_coords
 
 
-def warp_affine_batch(images, trans_inv, out_h, out_w, rows=None):
+def warp_affine_batch(images, trans_inv, out_h, out_w, rows=None, row0=0):
     """Bilinear affine warp of a batch, one (2, 3) matrix per output image;
     `trans_inv` maps OUTPUT px -> INPUT px.
 
@@ -111,7 +111,10 @@ def warp_affine_batch(images, trans_inv, out_h, out_w, rows=None):
     of the image each output warps (default: output b warps image b, B ==
     N). The four corners are four gathers over the whole batch from the
     flat (N * H * W, C) pixels, converted to float after the gather.
-    Returns (B, out_h, out_w, C) on the images' device.
+    row0: the first output row (rows [row0, row0 + out_h) of a taller
+    output; each output pixel is warped on its own, so a band of rows is
+    exactly those rows of the whole). Returns (B, out_h, out_w, C) on the
+    images' device.
     """
     n, h, w, c = images.shape
     dev = images.device
@@ -120,7 +123,7 @@ def warp_affine_batch(images, trans_inv, out_h, out_w, rows=None):
     b = t.shape[0]
     base = (torch.arange(b, device=dev) if rows is None
             else torch.as_tensor(rows, device=dev).long()) * (h * w)
-    ys = torch.arange(out_h, dtype=torch.float32, device=dev)
+    ys = torch.arange(row0, row0 + out_h, dtype=torch.float32, device=dev)
     xs = torch.arange(out_w, dtype=torch.float32, device=dev)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # (out_h, out_w)
 

@@ -8,6 +8,12 @@ lighting and the normalisation run on the device, and the ctdet
 focal-loss heatmap is rendered there from the sparse object list. The
 host draws the random state in the reference's order
 (`draw_color_aug_params`), so the stream is the reference's.
+
+Under --spatial_shard (`model_input`'s `band`) a rank makes only its band
+of rows of each image: it slices a host image, or warps only those output
+rows of a cached frame (the warp is per output pixel, so exact), and the
+contrast's grey mean is the whole image's, its sum taken over the
+spatial group.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import device_constant
+from ..parallel.mesh import all_sum
 from .affine import warp_affine_batch
 
 # canonical order of the 3 ops; a permutation index selects execution order
@@ -49,21 +56,26 @@ def identity_aug_params():
     return 0, np.zeros(3, np.float32), np.zeros(3, np.float32)
 
 
-def device_preprocess(inp_u8, perm, alphas, light_add, mean, std):
+def device_preprocess(inp_u8, perm, alphas, light_add, mean, std,
+                      rows_of=None):
     """Colour aug + normalise. inp_u8: (B, H, W, 3) uint8 BGR; perm (B,)
     in [0, 6); alphas, light_add (B, 3); mean/std (3,). Returns (B, H, W,
-    3) f32."""
+    3) f32. `rows_of`: `color_norm_f01`'s."""
     return color_norm_f01(inp_u8.float() / 255.0, perm, alphas, light_add,
-                          mean, std)
+                          mean, std, rows_of)
 
 
-def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std):
+def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std,
+                   rows_of=None):
     """Colour aug + normalise over f32 images already scaled to [0, 1].
 
     Every op is a blend `im * alpha + (1 - alpha) * base`: brightness with
     base 0, contrast with the image's grey mean, saturation with its grey
     map. Each image applies its three ops in its own permutation's order:
-    step k of image b runs op PERMS[perm[b]][k], selected per image."""
+    step k of image b runs op PERMS[perm[b]][k], selected per image.
+    rows_of: (height, spatial group) when the images are a band of rows of
+    `height`-row images split over the group: the grey mean is then the
+    band's sum summed over the group, over height * W pixels."""
     dev = inp_f01.device
     gray_w = device_constant(np.float32(_BGR_GRAY), dev)
     mean = device_constant(np.asarray(mean, np.float32).reshape(3), dev)
@@ -73,7 +85,11 @@ def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std):
     light_add = torch.as_tensor(light_add, device=dev).float()
 
     gs = inp_f01 @ gray_w                                 # (B, H, W)
-    gs_mean = gs.mean(dim=(1, 2))                         # (B,)
+    if rows_of is None:
+        gs_mean = gs.mean(dim=(1, 2))                     # (B,)
+    else:
+        height, sp = rows_of
+        gs_mean = all_sum(gs.sum(dim=(1, 2)), sp) / (height * gs.shape[2])
     order = device_constant(PERMS, dev)[perm]             # (B, 3)
     img = inp_f01
     for step in range(3):
@@ -91,26 +107,49 @@ def color_norm_f01(inp_f01, perm, alphas, light_add, mean, std):
     return (img - mean) / std
 
 
-def model_input(batch, mean, std, out_hw=None, cache=None):
+# the batch fields that carry the image (the JAX mesh's _SPATIAL_FIELDS,
+# and the cache batch's row index)
+IMAGE_FIELDS = ("input", "input_u8", "img_idx")
+
+
+def image_height(batch, out_hw=None):
+    """The height of a batch's model input."""
+    if "img_idx" in batch:
+        return out_hw[0]
+    return batch["input_u8" if "input_u8" in batch else "input"].shape[1]
+
+
+def model_input(batch, mean, std, out_hw=None, cache=None, band=None):
     """The model input of a batch: the image cache path (img_idx + warp_ti
     against `cache`, the device-resident (N, Hc, Wc, 3) uint8 stack of
     data/device_cache.py, warped to out_hw = (input_h, input_w)), the
     device path (input_u8 + aug state) or a host-normalised f32 'input'.
 
     The cache path warps in f32 and is not rounded to uint8 (the host path
-    is): the JAX package's arithmetic."""
+    is): the JAX package's arithmetic. band: ((lo, hi), spatial group),
+    only rows [lo, hi) of each image (the module docstring)."""
+    rows_of = None
+    if band is not None:
+        (lo, hi), sp = band
+        rows_of = (image_height(batch, out_hw), sp)
     if "img_idx" in batch:
         oh, ow = out_hw
+        row0 = 0
+        if band is not None:
+            row0, oh = lo, hi - lo
         warped = warp_affine_batch(cache, batch["warp_ti"], oh, ow,
-                                   rows=batch["img_idx"]) / 255.0
+                                   rows=batch["img_idx"], row0=row0) / 255.0
         return color_norm_f01(warped, batch["aug_perm"],
                               batch["aug_alphas"], batch["aug_light"],
-                              mean, std)
+                              mean, std, rows_of)
     if "input_u8" in batch:
-        return device_preprocess(batch["input_u8"], batch["aug_perm"],
+        inp = batch["input_u8"]
+        if band is not None:
+            inp = inp[:, lo:hi]
+        return device_preprocess(inp, batch["aug_perm"],
                                  batch["aug_alphas"], batch["aug_light"],
-                                 mean, std)
-    return batch["input"]
+                                 mean, std, rows_of)
+    return batch["input"] if band is None else batch["input"][:, lo:hi]
 
 
 def render_umich_hm(ct, radius, cls, mask, out_h, out_w, num_classes):
@@ -140,11 +179,12 @@ def render_umich_hm(ct, radius, cls, mask, out_h, out_w, num_classes):
     return torch.stack(chans, dim=-1)
 
 
-def resolve_targets(batch, inp, down_ratio, num_classes):
-    """Materialise dense targets shipped in sparse form."""
+def resolve_targets(batch, inp, down_ratio, num_classes, height=None):
+    """Materialise dense targets shipped in sparse form; `height`: the
+    whole input's, where `inp` is a band of its rows."""
     if "hm_ct" not in batch:
         return batch
-    out_h = inp.shape[1] // down_ratio
+    out_h = (height or inp.shape[1]) // down_ratio
     out_w = inp.shape[2] // down_ratio
     hm = render_umich_hm(batch["hm_ct"], batch["hm_radius"],
                          batch["hm_cls"], batch["reg_mask"], out_h, out_w,

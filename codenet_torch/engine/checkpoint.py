@@ -9,7 +9,13 @@ shape-mismatch-tolerantly with printed warnings. Two formats load:
   restricted unpickler maps every class outside numpy to an inert stub,
   and only ``epoch`` and ``variables`` are kept;
 - a ``.pth``/``.pt`` (the reference's, or this package's own):
-  ``torch.load(weights_only=True)``.
+  ``torch.load(weights_only=True)``. A pytorchcv ImageNet ShuffleNetV2
+  (``features.*`` keys) is renamed to the reference layout and only its
+  backbone (layer0-layer4) loads, so the neck and heads keep their init:
+  the JAX package's ImageNet warm start (its engine/torch_import.py::
+  convert_pretrained_backbone). A reference checkpoint of CenterNet's
+  other backbones whose top-level keys are neither the backbone's nor
+  head-shaped raises, as the JAX loader does.
 
 `save_model` writes the port's ``.pth``: {epoch, state_dict[, optimizer,
 quant]}, where ``quant`` is the QAT recipe (w_bit, a_bit, percentiles,
@@ -91,8 +97,90 @@ def _shared_up_plane(key, value):
     return value
 
 
+# pytorchcv shufflenetv2_w1/w2 names -> reference CoDeNet names: the JAX
+# package's table (the rename the reference built but never applied,
+# shufflenetv2_dcn.py:343-361), applied in order to every key
+PYTORCHCV_RENAMES = [
+    ("features.stage1.", "layer1."), ("features.stage2.", "layer2."),
+    ("features.stage3.", "layer3."),
+    ("unit1.", "0."), ("unit2.", "1."), ("unit3.", "2."), ("unit4.", "3."),
+    ("unit5.", "4."), ("unit6.", "5."), ("unit7.", "6."), ("unit8.", "7."),
+    ("compress_layer0", "b2.0"),
+    ("dw_conv2", "b2.3"), ("compress_bn1", "b2.1"),
+    ("dw_bn2", "b2.4"), ("compress_conv1", "b2.0"),
+    ("expand_conv3", "b2.5"), ("expand_bn3", "b2.6"),
+    ("dw_conv4", "b1.0"), ("dw_bn4", "b1.1"),
+    ("expand_conv5", "b1.2"), ("expand_bn5", "b1.3"),
+    ("features.final_block.conv", "layer4.0"),
+    ("features.final_block.bn", "layer4.1"),
+    ("features.init_block.conv.conv", "layer0.0"),
+    ("features.init_block.conv.bn", "layer0.1"),
+]
+
+_BACKBONE = ("layer0.", "layer1.", "layer2.", "layer3.", "layer4.")
+# what the JAX converter carries of each backbone module: conv weights
+# and BN affine parameters and running statistics
+_CARRIED = (".weight", ".bias", ".running_mean", ".running_var")
+
+
+def pytorchcv_to_reference_names(sd):
+    """A pytorchcv ShuffleNetV2 state_dict renamed to the reference
+    layout (the JAX package's function of the same name), its straggling
+    '.conv.weight' suffixes stripped."""
+    out = {}
+    for key, value in sd.items():
+        for old, repl in PYTORCHCV_RENAMES:
+            key = key.replace(old, repl)
+        out[key.replace(".conv.weight", ".weight")] = value
+    return out
+
+
+def pretrained_backbone(sd):
+    """The backbone (layer0-layer4) of a pytorchcv state_dict in the
+    reference layout: the entries the JAX package's
+    convert_pretrained_backbone converts, and nothing else."""
+    return {k: v for k, v in pytorchcv_to_reference_names(sd).items()
+            if k.startswith(_BACKBONE) and k.endswith(_CARRIED)}
+
+
+# the reference layouts whose loader checks the top-level keys (the JAX
+# package's _load_torch_payload): a stem key, the backbone's top-level
+# modules (the port's dla_34 adds its ida_up) and a head's first weight
+# (a conv stack, one conv, or, in the hourglass, one conv stack a stack
+# of the network; the JAX check omits the last and so refuses every
+# hourglass checkpoint)
+_HEAD = ("{}.0.weight", "{}.weight")
+_FAMILIES = (
+    (("base.base_layer.0.weight",), {"base", "dla_up", "ida_up"}, _HEAD),
+    (("pre.0.conv.weight",), {"pre", "kps", "cnvs", "inters", "inters_",
+                              "cnvs_"}, _HEAD + ("{}.0.0.conv.weight",)),
+    (("deconv_layers.0.weight", "conv1.weight"),
+     {"conv1", "bn1", "layer1", "layer2", "layer3", "layer4",
+      "deconv_layers"}, _HEAD))
+
+
+def check_top_level_keys(sd):
+    """Raise on a top-level key of a reference DLA, hourglass or ResNet
+    state_dict that is neither its backbone's nor head-shaped, with the
+    JAX loader's message."""
+    for stems, backbone, head in _FAMILIES:
+        if not all(k in sd for k in stems):
+            continue
+        names = sorted({k.split(".")[0] for k in sd} - backbone)
+        bogus = [h for h in names
+                 if not any(f.format(h) in sd for f in head)]
+        if bogus:
+            raise ValueError(
+                "torch checkpoint has top-level keys that are neither "
+                "backbone ({}) nor head-shaped: {} — strip them or pass "
+                "a native checkpoint".format(", ".join(sorted(backbone)),
+                                             bogus))
+        return
+
+
 def read_checkpoint(path):
-    """(epoch, state_dict in the reference layout) from a .ckpt or .pth."""
+    """(epoch, state_dict in the reference layout) from a .ckpt or .pth;
+    of a pytorchcv ImageNet .pth, its backbone alone."""
     if path.endswith((".pth", ".pt")):
         payload = _read_pth(path)
         sd = payload.get("state_dict", payload)
@@ -100,6 +188,9 @@ def read_checkpoint(path):
             else 0
         sd = {k[7:] if k.startswith("module.") else k:
               _shared_up_plane(k, v) for k, v in sd.items()}
+        if any(k.startswith("features.") for k in sd):
+            return epoch, pretrained_backbone(sd)
+        check_top_level_keys(sd)
         return epoch, sd
     epoch, variables = read_jax_ckpt(path)
     return epoch, from_jax_variables(variables)

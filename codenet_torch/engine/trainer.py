@@ -34,8 +34,8 @@ steps. On the CPU the engine runs the same step body per batch. A batch
 whose keys, shapes or dtypes differ from the epoch's first (a ragged
 tail) runs the per-step path, as the JAX engine runs a stack that will
 not stack. On a card Adam is torch's fused one, capturable, its learning
-rate a device tensor that `set_lr` fills. --spatial_shard raises; with
-`dp` every step takes the per-step path.
+rate a device tensor that `set_lr` fills. With `dp` every step takes the
+per-step path.
 
 Data parallelism (`dp`, a parallel.DataParallel; the JAX trainer's data
 mesh): the trainer is one rank's replica on its device, fed its rows of
@@ -47,25 +47,41 @@ bit-equal state; the step's stats are the all-reduced sums. With
 cache, and `check_shard_routing` checks that each batch asks for no
 other rows. Val steps run on one rank alone (the CLI runs them on rank
 0), with this process's batch and no collective.
+
+--spatial_shard k (ShuffleNetV2, the JAX trainer's get_mesh_2d): `dp`
+becomes a data x spatial grid (parallel/mesh.py::grid; one process
+raises, as the JAX mesh does on one device). The ranks of one data row
+load the same rows of each global batch; each makes its band of the
+images' rows (data/device_aug.py::model_input) and runs the backbone on
+it, then the whole neck and heads on the gathered map
+(models/shufflenetv2.py). The loss normalisers count the data group's
+images, each rank scales its loss by 1/k before the backward (the k
+ranks of a row compute the same loss), and the gradients are summed over
+the world, so every rank keeps bit-equal state and a step is the
+one-process step. Where an image's rows do not split over k, the batch
+runs whole on every rank of its row, with the JAX mesh's warning.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.device_aug import model_input, resolve_targets
+from ..data.device_aug import (IMAGE_FIELDS, image_height, model_input,
+                               resolve_targets)
 from ..models import create_model
 from ..models.fused_heads import (apply_fused_heads,
                                   apply_fused_heads_train, can_fuse_heads)
 from ..models.layers import set_data_parallel
 from ..models.losses import LOSS_FACTORY
 from ..ops.deform_cuda import CountedGraph
-from ..parallel.mesh import all_reduce_grads, all_sum, broadcast_module
+from ..parallel.mesh import (all_reduce_grads, all_sum, band,
+                             broadcast_module, grid)
 from ..utils.meters import AverageMeter
 from .detector import device_from_opt
 
@@ -132,8 +148,12 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
     global one). With `fuse` an FP32 or bf16 ShuffleNetV2 runs its heads
     fused (`apply_fused_heads_train`), the JAX train step's default. The
     step copies nothing from the host to the device: a CUDA graph can
-    capture it."""
+    capture it. On a data x spatial grid (`dp.spatial` k > 1) the model
+    runs on this rank's band of rows, the loss is scaled by 1/k for the
+    backward and the summed stats are divided by k (the module
+    docstring)."""
     fuse = fuse and not quantized and can_fuse_heads(model)
+    spatial = dp.spatial if dp is not None else 1
 
     def stat(v, like):
         # a loss part that stays the Python 0.0 it starts as is filled on
@@ -143,26 +163,46 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
         return torch.full((), float(v), dtype=like.dtype,
                           device=like.device)
 
+    def spatial_band(batch):
+        """(model kwargs, band, height) of a batch on the grid."""
+        if spatial == 1:
+            return {}, None, None
+        height = image_height(batch, input_hw)
+        kw = {"grid": dp, "full_height": height}
+        if height % spatial:
+            key = next(k for k in IMAGE_FIELDS if k in batch)
+            warnings.warn(
+                "spatial_shard: image H={} is not divisible by the spatial "
+                "axis ({}); '{}' is replicated over 'spatial' for this "
+                "batch".format(height, spatial, key), stacklevel=3)
+            return kw, None, height
+        sp = dp.over_spatial
+        return kw, (band(height, sp), sp), height
+
     def step(batch):
         model.train(not quantized)
+        kw, rows, height = spatial_band(batch)
         inp = model_input(batch, mean, std, input_hw,
-                          batch.get("cache_images"))
-        batch = resolve_targets(batch, inp, down_ratio, num_classes)
+                          batch.get("cache_images"), rows)
+        batch = resolve_targets(batch, inp, down_ratio, num_classes, height)
         if quantized:
-            out = model(inp, update_stats=True)
+            out = model(inp, update_stats=True, **kw)
         elif fuse:
-            out = apply_fused_heads_train(model, model(inp,
-                                                       return_neck=True))
+            out = apply_fused_heads_train(model, model(
+                inp, return_neck=True, **kw))
         else:
-            out = model(inp)
+            out = model(inp, **kw)
         loss, stats = loss_fn(stacks(out), batch, loss_opts)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        # the k ranks of a data row compute the same loss: count it once
+        (loss / spatial if spatial > 1 else loss).backward()
         all_reduce_grads(model.parameters(), dp)
         optimizer.step()
         stats = {k: stat(v, loss) for k, v in stats.items()}
         if dp is not None:
             summed = all_sum(torch.stack(list(stats.values())), dp)
+            if spatial > 1:
+                summed = summed / spatial
             stats = dict(zip(stats, summed))
         return stats
 
@@ -322,15 +362,19 @@ def make_multi_train_step(step_body, example, device, cache_images=None,
 class Trainer:
     """Epoch-loop engine (reference base_trainer.py:23-119) on one device:
     `cuda` unless opt.gpus is -1 or `device` says otherwise; with `dp`,
-    one rank's replica on dp.device. `fuse_heads` False runs the train
+    one rank's replica on dp.device; with --spatial_shard, dp's ranks as
+    a data x spatial grid (`grid`). `fuse_heads` False runs the train
     step's heads one by one (make_train_step's `fuse`)."""
 
     def __init__(self, opt, qspec=None, device=None, dp=None,
                  fuse_heads=True):
-        if getattr(opt, "spatial_shard", 1) > 1:
-            raise NotImplementedError(
-                "--spatial_shard (halo-exchanged convs) is queued in "
-                "ROADMAP.md (item 20)")
+        spatial = getattr(opt, "spatial_shard", 1)
+        if spatial > 1:
+            if opt.arch != "shufflenetv2":
+                raise NotImplementedError(
+                    "--spatial_shard with --arch {} is queued in "
+                    "ROADMAP.md (item 30)".format(opt.arch))
+            dp = grid(dp, spatial)
         self.opt = opt
         self.qspec = qspec
         self.dp = dp
@@ -346,7 +390,8 @@ class Trainer:
         set_data_parallel(self.model, dp)
         self.loss_fn = LOSS_FACTORY[opt.task]
         self.loss_opts = LossOpts(opt)
-        self.train_loss_opts = LossOpts(opt, dp)
+        self.train_loss_opts = LossOpts(
+            opt, dp.over_data if dp is not None else None)
         self.mean = np.asarray(opt.mean, np.float32)
         self.std = np.asarray(opt.std, np.float32)
         self.lr = opt.lr
@@ -501,11 +546,12 @@ class Trainer:
             pending.clear()
 
         step = self.train_step if phase == "train" else self.val_step
-        # a train step's stats are the global batch's
-        ranks = self.dp.world if self.dp is not None and phase == "train" \
-            else 1
-        rank = self.dp.rank if self.dp is not None else 0
-        show = rank == 0
+        # a train step's stats are the global batch's; a rank's rows of
+        # each batch and its cache shard follow its data row
+        ranks = self.dp.data_world if self.dp is not None \
+            and phase == "train" else 1
+        rank = self.dp.data_rank if self.dp is not None else 0
+        show = self.dp is None or self.dp.main
         end = time.time()
         for it, batch in enumerate(loader):
             if it >= n_iters:

@@ -12,7 +12,10 @@ Conv + BN pairs are plain ``nn.Conv2d`` (no bias) + ``BatchNorm2d``
 the model, so the ``state_dict`` has the reference CoDeNet names. Under
 data parallelism (`set_data_parallel`) each train-mode BatchNorm takes
 the statistics of the global batch, as flax's BN does over a sharded
-batch, and each ``QuantAct`` the global activation range.
+batch, and each ``QuantAct`` the global activation range. Inside
+`row_sharded` (--spatial_shard) each map is this rank's band of rows, and
+every conv and max pool that reads across rows takes its halo from its
+neighbours first (parallel/mesh.py::halo_rows).
 
 Quantized (W4A8 fake-quant) execution follows the JAX package's layers.py:
 one module tree for both modes, selected by a ``QuantSpec`` (None = FP32).
@@ -46,6 +49,7 @@ quantizers) is f32. Parameters, buffers and optimizer state stay f32.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import math
 
@@ -56,7 +60,7 @@ from torch import nn
 from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
-from ..parallel.mesh import all_gather_rows, all_sum
+from ..parallel.mesh import all_gather_rows, all_sum, halo_rows
 
 # int8 eval samples the deform conv in bf16 (the JAX package's
 # layers.py:562-574): its input holds 2^a_bit levels and `deform_act`
@@ -73,6 +77,34 @@ def nchw(x):
     """(N, H, W, C) -> (N, C, H, W) view (channels_last if x is
     contiguous)."""
     return x.permute(0, 3, 1, 2)
+
+
+# the spatial group whose ranks each hold a band of the current map's
+# rows (parallel/mesh.py), inside `row_sharded`; None outside
+_ROWS = contextvars.ContextVar("row_shard", default=None)
+
+
+@contextlib.contextmanager
+def row_sharded(sp):
+    """Within the block, the convs (`conv_bn`, `conv_q`) and `pool_rows`
+    read maps split over the spatial group `sp` (None: whole maps)."""
+    token = _ROWS.set(sp)
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def pool_rows(pool, x):
+    """`pool` (an nn.MaxPool2d) on x, a QTensor's values included
+    (`qt_module`); inside `row_sharded`, on this rank's band, its halo
+    filled with -inf beyond the image."""
+    sp = _ROWS.get()
+    if sp is None:
+        return qt_module(pool, x)
+    k, stride, pad = pool.kernel_size, pool.stride, pool.padding
+    x = halo_rows(x, sp, k, stride, pad, fill=float("-inf"))
+    return F.max_pool2d(x, k, stride, (0, pad))
 
 
 def max_pool(x, window=3, stride=2, padding=1):
@@ -434,8 +466,16 @@ def conv2d(x, weight, bias, dtype, stride=1, padding=0, dilation=1,
 
 
 def _conv(conv_mod, x, weight, bias, dtype):
-    """`conv_mod`'s convolution of x with `weight` and `bias` (`conv2d`)."""
-    return conv2d(x, weight, bias, dtype, conv_mod.stride, conv_mod.padding,
+    """`conv_mod`'s convolution of x with `weight` and `bias` (`conv2d`);
+    inside `row_sharded`, of this rank's band, widened by its halo
+    (`halo_rows`) where the window reads other rows."""
+    padding = conv_mod.padding
+    sp = _ROWS.get()
+    k, stride = conv_mod.kernel_size[0], conv_mod.stride[0]
+    if sp is not None and (k > 1 or stride > 1):
+        x = halo_rows(x, sp, k, stride, padding[0], conv_mod.dilation[0])
+        padding = (0, padding[1])
+    return conv2d(x, weight, bias, dtype, conv_mod.stride, padding,
                   conv_mod.dilation, conv_mod.groups)
 
 
@@ -445,8 +485,6 @@ def conv_q(conv_mod, x, qspec, w_bit=None, dtype=None):
     QTensor input runs the int8 conv (the JAX ``Conv``'s int8 branch).
     `dtype`: the operands' compute dtype (`_conv`)."""
     if qspec is None:
-        if dtype is None:
-            return conv_mod(x)
         return _conv(conv_mod, x, conv_mod.weight, conv_mod.bias, dtype)
     if isinstance(x, Q.QTensor):
         return _int8_conv(conv_mod, x,
@@ -464,8 +502,6 @@ def conv_bn(conv_mod, bn_mod, x, qspec, w_bit=None, dtype=None):
     against frozen folded BN. A QTensor input runs the folded conv in
     int8 (the JAX ``ConvBN``'s int8 branch)."""
     if qspec is None:
-        if dtype is None:
-            return bn_mod(conv_mod(x))
         return bn_mod(_conv(conv_mod, x, conv_mod.weight, None, dtype))
 
     def folded():

@@ -39,6 +39,18 @@ train/eval mode in FP32; quantized, BN is always folded and frozen and
 quantizers emit QTensors and every conv after layer0 runs in int8; the
 channel split, the stage's concat and shuffle, the stem pool and the 2x
 upsamples move int8 values at the quantizer's scale.
+
+With `grid` (a data x spatial parallel.DataParallel, --spatial_shard;
+train steps only) the images are this rank's band of rows of each image
+(rows [s * H / k, (s + 1) * H / k) on spatial rank s of k), and the
+backbone runs on bands (`layers.row_sharded`: each conv and pool takes
+its halo from its neighbours) with its BNs and quantizers reducing over
+the whole grid. `gather_rows` puts the map together ahead of the deform
+stage, or ahead of the first backbone step whose output rows would not
+split evenly; from there on each rank of the data row runs the same
+whole map, its BNs and quantizers reducing over the data group alone.
+Where the image's rows do not split, the caller passes whole images
+(`full_height` not divisible by k) and every step runs whole.
 """
 
 from __future__ import annotations
@@ -48,9 +60,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import QTensor
+from ..parallel.mesh import gather_rows
 from .layers import (CodesignDeformBlock, apply_act, bn, channel_shuffle,
                      conv, conv_bn, conv_q, kaiming_normal_relu_, nchw,
-                     nhwc, qt_concat, qt_module, qt_spatial, quant_act,
+                     nhwc, pool_rows, qt_concat, qt_module, qt_spatial,
+                     quant_act, row_sharded, set_data_parallel,
                      torch_conv_init_)
 
 
@@ -189,6 +203,7 @@ class PoseShuffleNetV2(nn.Module):
         self.qspec = qspec
         self.dtype = dtype
         self.maxpool = maxpool
+        self.deform_backbone = deform_backbone
         heads = dict(heads)
         self.heads = tuple(sorted(heads.items()))
         channels = [24, 244, 488, 976, 2153] if w2 \
@@ -251,21 +266,75 @@ class PoseShuffleNetV2(nn.Module):
             if isinstance(m, nn.Conv2d) and m not in done:
                 torch_conv_init_(m.weight, generator)
 
-    def forward(self, images, update_stats=False, return_neck=False):
+    def _backbone_steps(self, up):
+        """The backbone as steps (fn, the modules whose BNs and quantizers
+        it runs, its (kernel, stride, padding) over rows or None)."""
+        q, dt = self.qspec, self.dtype
+
+        def stem(y):
+            y = F.relu(conv_bn(self.layer0[0], self.layer0[1], y, q,
+                               w_bit=8, dtype=dt))
+            return apply_act(self.layer0_act, y, up)
+
+        def last(y):
+            y = F.relu(conv_bn(self.layer4[0], self.layer4[1], y, q,
+                               dtype=dt))
+            return apply_act(self.layer4_act, y, up)
+        c0 = self.layer0[0]
+        steps = [(stem, [self.layer0, self.layer0_act],
+                  (3, c0.stride[0], 1))]
+        if self.maxpool:
+            steps.append((lambda y: pool_rows(self.layer0[3], y), [],
+                          (3, 2, 1)))
+        for stage in (self.layer1, self.layer2, self.layer3):
+            steps.append((lambda y, st=stage: st(y, up), [stage],
+                          (3, 2, 1)))
+        steps.append((last, [self.layer4, self.layer4_act], None))
+        return steps
+
+    def _gather_point(self, steps, height, spatial):
+        """How many backbone steps run on bands of `height` rows split
+        over `spatial` ranks: up to the first whose output rows do not
+        split (all of them when every one does); None when the image's
+        own rows do not split."""
+        if height % spatial:
+            return None
+        for i, (_, _, window) in enumerate(steps):
+            if window is not None:
+                k, stride, pad = window
+                height = (height + 2 * pad - k) // stride + 1
+                if height % spatial:
+                    return i
+        return len(steps)
+
+    def forward(self, images, update_stats=False, return_neck=False,
+                grid=None, full_height=None):
         """{head: (N, H/4, W/4, C)} of (N, H, W, 3) images; with
         `return_neck`, the (N, 64, H/4, W/4) channels_last output of the
-        deconv stage instead, which models/fused_heads.py reads."""
-        q, dt = self.qspec, self.dtype
+        deconv stage instead, which models/fused_heads.py reads. With
+        `grid`, images hold this rank's band of rows of `full_height`
+        (whole images where full_height does not split), and every output
+        is whole on every rank (the module docstring)."""
         up = update_stats
-        y = F.relu(conv_bn(self.layer0[0], self.layer0[1], nchw(images), q,
-                           w_bit=8, dtype=dt))
-        y = apply_act(self.layer0_act, y, up)
-        if self.maxpool:
-            y = qt_module(self.layer0[3], y)
-        for stage in (self.layer1, self.layer2, self.layer3):
-            y = stage(y, up)
-        y = F.relu(conv_bn(self.layer4[0], self.layer4[1], y, q, dtype=dt))
-        y = apply_act(self.layer4_act, y, up)
+        steps = self._backbone_steps(up)
+        y = nchw(images)
+        sp, cut = None, 0  # steps [0, cut) run on bands
+        if grid is not None:
+            if self.deform_backbone:
+                raise NotImplementedError(
+                    "--spatial_shard with the deform backbone is queued in "
+                    "ROADMAP.md (item 30)")
+            sp = grid.over_spatial
+            cut = self._gather_point(steps, full_height, grid.spatial)
+            if cut == 0:
+                y = gather_rows(y, sp)
+            cut = cut or 0
+            self._reduce_over(steps, cut, grid)
+        for i, (fn, _, _) in enumerate(steps):
+            with row_sharded(sp if i < cut else None):
+                y = fn(y)
+            if i + 1 == cut:
+                y = gather_rows(y, sp)
         for i in range(3):
             block, block_bn = self.deconv_layers[4 * i:4 * i + 2]
             y = F.relu(block(y, block_bn, up))
@@ -275,6 +344,20 @@ class PoseShuffleNetV2(nn.Module):
             return y
         return {name: nhwc(getattr(self, name)(y, up)).float()
                 for name, _ in self.heads}
+
+    def _reduce_over(self, steps, cut, grid):
+        """The BNs and quantizers of the steps before `cut` reduce over the
+        whole grid; the rest, the neck's and the heads', over the data
+        group."""
+        banded = [m for _, mods, _ in steps[:cut] for m in mods]
+        whole = [m for _, mods, _ in steps[cut:] for m in mods]
+        whole += [self.deconv_layers] + [getattr(self, n) for n in (
+            ["deconv{}_act".format(i) for i in range(3)]
+            + [name for name, _ in self.heads])]
+        for mods, over in ((banded, grid), (whole, grid.over_data)):
+            for m in mods:
+                if m is not None:
+                    set_data_parallel(m, over)
 
 
 def get_shufflenetv2_dcn(num_layers, heads, head_conv=64, w2=False,

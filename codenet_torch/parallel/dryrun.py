@@ -8,13 +8,17 @@ shapes, in the data-parallel regimes the port has:
 
 1. dp: the batch split over the ranks (global-batch BN, gradients summed
    over the ranks);
-2. dp + sharded cache (--device_cache_shard): each rank holds its rows of
+2. dp x sp (--spatial_shard 2, for an even N): the ranks as a data x
+   spatial grid, each image's rows split over the 2 ranks of its data
+   row (halo-exchanged backbone, the map gathered ahead of the deform
+   stage); its loss must be within 5% of the dp step's, as in the JAX
+   dryrun;
+3. dp + sharded cache (--device_cache_shard): each rank holds its rows of
    the raw-image stack, and its rows of the batch (slot-block s for rank
    s) index only those.
 
-The JAX dryrun's dp x sp phase (image H sharded over a second mesh axis,
---spatial_shard) is not ported; the phase says so. Each phase checks a
-finite loss and bit-equal replicas, and rank 0 prints one line a phase.
+Each phase checks a finite loss and bit-equal replicas, and rank 0 prints
+one line a phase.
 """
 
 from __future__ import annotations
@@ -40,10 +44,11 @@ def _report(dp, trainer, name, stats):
     loss = float(stats["loss"])
     if not np.isfinite(loss):
         raise RuntimeError("{}: loss {}".format(name, loss))
-    check_replicas_equal(trainer.model, dp)
+    check_replicas_equal(trainer.model, trainer.dp)
     if dp.main:
         print("dryrun({}): {} loss={:.4f} OK".format(dp.world, name, loss),
               flush=True)
+    return loss
 
 
 def _rank(dp):
@@ -69,10 +74,20 @@ def _rank(dp):
     trainer.init()
     stats = trainer.run_epoch(
         "train", 1, [{k: v[lo:hi] for k, v in batch.items()}])
-    _report(dp, trainer, "dp", stats)
-    if dp.main:
-        print("dryrun({}): dp x sp waits for --spatial_shard (ROADMAP.md "
-              "item 20)".format(n), flush=True)
+    loss = _report(dp, trainer, "dp", stats)
+
+    if n % 2 == 0:
+        trainer = Trainer(_opt(b, "--spatial_shard", "2"), dp=dp)
+        trainer.init()
+        grid = trainer.dp
+        lo2, hi2 = process_batch_slice(b, grid.data_rank, grid.data_world)
+        stats = trainer.run_epoch(
+            "train", 1, [{k: v[lo2:hi2] for k, v in batch.items()}])
+        loss2 = float(stats["loss"])
+        if abs(loss2 - loss) >= 0.05 * max(abs(loss), 1.0):
+            raise RuntimeError("dp x sp loss {} against dp {}".format(
+                loss2, loss))
+        _report(dp, trainer, "dp x sp", stats)
 
     trainer = Trainer(_opt(b, "--device_cache_shard"), dp=dp)
     trainer.init()

@@ -19,7 +19,13 @@
   given there wins, also one equal to its default, as in the JAX package, which records no recipe and
   runs what its flags say. Before, the recipe overrode it, so the
   synthetic regression's `qat_clamped` eval (--act_clamp on a checkpoint
-  trained without it) ran unclamped.
+  trained without it) ran unclamped;
+- F5: `--load_model` of a pytorchcv ImageNet ShuffleNetV2 (.pth with
+  `features.*` keys) loads its backbone (layer0-layer4, renamed to the
+  reference layout) and leaves the neck and heads at their init, as the
+  JAX package's loader does; before, no key matched and training started
+  from random weights. A reference ResNet checkpoint with a top-level
+  key that is neither backbone nor head-shaped raises in both packages.
 """
 
 import json
@@ -292,3 +298,133 @@ def test_given_flag_equal_to_its_default_wins_over_the_recipe(
     assert got.w_bit == w_bit and got.wt_percentile
     if flags:
         assert jcfg.parse(args).w_bit == w_bit
+
+
+# pytorchcv ShuffleNetV2 module names by reference layout name (the
+# inverse of the JAX package's PYTORCHCV_RENAMES)
+_PYTORCHCV = {"b2.0": "compress_conv1", "b2.1": "compress_bn1",
+              "b2.3": "dw_conv2", "b2.4": "dw_bn2", "b2.5": "expand_conv3",
+              "b2.6": "expand_bn3", "b1.0": "dw_conv4", "b1.1": "dw_bn4",
+              "b1.2": "expand_conv5", "b1.3": "expand_bn5"}
+_PYTORCHCV_ENDS = {"layer0.0": "features.init_block.conv.conv",
+                   "layer0.1": "features.init_block.conv.bn",
+                   "layer4.0": "features.final_block.conv",
+                   "layer4.1": "features.final_block.bn"}
+
+
+def _pytorchcv_name(key):
+    """A reference backbone key under its pytorchcv name."""
+    parts = key.split(".")
+    head = ".".join(parts[:2])
+    if head in _PYTORCHCV_ENDS:
+        return ".".join([_PYTORCHCV_ENDS[head]] + parts[2:])
+    stage, unit, branch, idx = parts[:4]
+    return ".".join(["features", "stage" + stage[-1],
+                     "unit{}".format(int(unit) + 1),
+                     _PYTORCHCV[branch + "." + idx]] + parts[4:])
+
+
+def _pytorchcv_checkpoint(model, path):
+    """A seeded pytorchcv-named ImageNet checkpoint of `model`'s backbone
+    (with its classifier and BN batch counters); returns it by reference
+    name."""
+    r = np.random.RandomState(55)
+    import torch
+    sd, by_ref = {}, {}
+    for key, value in model.state_dict().items():
+        if not key.startswith(("layer0.", "layer1.", "layer2.", "layer3.",
+                               "layer4.")):
+            continue
+        if key.endswith("num_batches_tracked"):
+            sd[_pytorchcv_name(key)] = torch.tensor(7)
+            continue
+        v = torch.from_numpy(r.rand(*value.shape).astype(np.float32)
+                             + (0.5 if key.endswith("running_var")
+                                else -0.5))
+        sd[_pytorchcv_name(key)] = by_ref[key] = v
+    sd["output.weight"] = torch.zeros(1000, 1024)
+    sd["output.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return by_ref
+
+
+@pytest.mark.parametrize("w2", [False, True], ids=["w1", "w2"])
+def test_pytorchcv_backbone_warm_start_matches_jax(tmp_path, w2):
+    """F5: the port's load_model and the JAX package's, from the same
+    init (the port's, carried to JAX by engine/jax_weights.py), read a
+    pytorchcv checkpoint into equal weights: every backbone weight and BN
+    statistic the checkpoint's, everything else its init."""
+    import jax
+    from codenet_tpu.engine import checkpoint as jckpt
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.jax_weights import (from_jax_variables,
+                                                  to_jax_variables)
+    from codenet_torch.models import create_model
+    import torch
+    model = create_model("shufflenetv2", {"hm": 20, "wh": 2, "reg": 2}, 64,
+                         w2=w2, device="cpu",
+                         generator=torch.Generator().manual_seed(3))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    path = str(tmp_path / "shufflenetv2_w{}.pth".format(2 if w2 else 1))
+    backbone = _pytorchcv_checkpoint(model, path)
+    checkpoint.load_model(path, model)
+    got = model.state_dict()
+    jvars, _, _ = jckpt.load_model(path, to_jax_variables(init))
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray, jvars))
+    assert len(backbone) == 280  # 56 convs and 56 BNs
+    for key, value in got.items():
+        if key.endswith("num_batches_tracked"):
+            assert torch.equal(value, init[key]), key
+            continue
+        np.testing.assert_array_equal(value.numpy(), want[key].numpy(),
+                                      err_msg=key)
+        expect = backbone.get(key, init[key])
+        np.testing.assert_array_equal(value.numpy(), expect.numpy(),
+                                      err_msg=key)
+
+
+def test_stray_top_level_keys_raise_as_in_jax(tmp_path):
+    """F5: a reference res_18 checkpoint with a classifier left in it
+    raises in both loaders, naming the stray key."""
+    import jax
+    from codenet_tpu.engine import checkpoint as jckpt
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.engine.jax_weights import to_jax_variables
+    from codenet_torch.models import create_model
+    import torch
+    model = create_model("res_18", {"hm": 20, "wh": 2, "reg": 2}, 64,
+                         device="cpu")
+    sd = dict(model.state_dict(), **{"fc.linear.weight": torch.zeros(3, 512)})
+    path = str(tmp_path / "res18_fc.pth")
+    torch.save({"epoch": 1, "state_dict": sd}, path)
+    with pytest.raises(ValueError) as jerr:
+        jckpt.load_model(path, jax.tree_util.tree_map(
+            np.asarray, to_jax_variables(model.state_dict())))
+    with pytest.raises(ValueError) as terr:
+        checkpoint.load_model(path, model)
+    for err in (jerr, terr):
+        assert "neither backbone" in str(err.value)
+        assert "['fc']" in str(err.value)
+
+
+@pytest.mark.parametrize("arch", ["res_18", "dlav0_34", "dla_34",
+                                  "hourglass"])
+def test_every_backbones_checkpoint_passes_the_key_check(tmp_path, arch):
+    """F5's key check passes each backbone's own .pth (the hourglass's
+    heads are one conv stack per stack of the network: 'hm.0.0.conv.
+    weight'), which loads back equal."""
+    import torch
+    from codenet_torch.engine import checkpoint
+    from codenet_torch.models import create_model
+    heads = {"hm": 20, "wh": 2, "reg": 2}
+    res = 128 if arch == "hourglass" else 64
+    model = create_model(arch, heads, res, device="cpu",
+                         generator=torch.Generator().manual_seed(6))
+    path = str(tmp_path / "model.pth")
+    checkpoint.save_model(path, 2, model)
+    other = create_model(arch, heads, res, device="cpu",
+                         generator=torch.Generator().manual_seed(7))
+    _, epoch = checkpoint.load_model(path, other, strict=True)
+    assert epoch == 2
+    for k, v in model.state_dict().items():
+        assert torch.equal(other.state_dict()[k], v), k

@@ -371,7 +371,7 @@ def test_dryrun_two_ranks():
     lines = proc.stdout.splitlines()
     assert len(lines) == 3, lines
     assert re.match(r"dryrun\(2\): dp loss=[\d.]+ OK", lines[0])
-    assert "dp x sp waits for --spatial_shard" in lines[1]
+    assert re.match(r"dryrun\(2\): dp x sp loss=[\d.]+ OK", lines[1])
     assert re.match(r"dryrun\(2\): dp \+ sharded-cache loss=[\d.]+ OK",
                     lines[2])
 

@@ -315,7 +315,39 @@ PORTED_TRAINING_OPTIONS = (["--host_normalize"], ["--device_cache"],
                            ["--dtype", "bfloat16"], ["--debug", "1"],
                            ["--eval_oracle_hm"], ["--test"],
                            ["--device_cache_shard"], ["--mse_loss"],
-                           ["--dense_wh"], ["--trace"])
+                           ["--dense_wh"], ["--trace"],
+                           ["--spatial_shard", "2"])
+
+
+def _spatial_shard_two_ranks(args):
+    """`cli.main args` as two gloo ranks on the CPU under torchrun's
+    variables: one data row of two spatial ranks, one step at batch 2;
+    rank 0 alone prints its finite loss and the final eval's Mean AP."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    cmd = [sys.executable, "-m", "codenet_torch.cli.main", *args,
+           "--batch_size", "2", "--num_epochs", "1", "--num_iters", "1",
+           "--val_intervals", "-1", "--num_workers", "1", "--print_iter",
+           "1"]
+    procs = [subprocess.Popen(
+        cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=REPO, RANK=str(k),
+                            LOCAL_RANK=str(k), WORLD_SIZE="2",
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+        for k in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    losses = [[float(line.split(" loss ")[1].split()[0])
+               for line in out.splitlines() if line.startswith("train epoch")]
+              for out, _ in outs]
+    assert len(losses[0]) == 1 and np.isfinite(losses[0][0])
+    assert losses[1] == [] and "Mean AP" in outs[0][0]
+    assert "Mean AP" not in outs[1][0]
 
 
 def _scalars(exp_id):
@@ -343,11 +375,22 @@ def test_unported_training_options_raise(extra, voc_root, capsys,
     the ground truth's own, is below the trained model's; with --test
     the val-only run: no step, the val split decoded and scored into
     results.json; with --trace a profiler trace of the epochs and one of
-    the final eval in <debug_dir>/trace."""
+    the final eval in <debug_dir>/trace; with --spatial_shard 2 one
+    process raises the JAX mesh's ValueError, and two gloo ranks under
+    torchrun's variables train (`_spatial_shard_two_ranks`)."""
     from codenet_torch.cli.main import main
     exp_id = "torch_unported_" + extra[0].strip("-")
     args = ["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
             "--input_res", "64", "--gpus", "-1", "--exp_id", exp_id] + extra
+    if extra == ["--spatial_shard", "2"]:
+        from codenet_tpu.parallel.mesh import get_mesh_2d
+        with pytest.raises(ValueError) as jerr:
+            get_mesh_2d(2, devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as terr:
+            main(args + ["--data_dir", voc_root])
+        assert str(terr.value) == str(jerr.value)
+        _spatial_shard_two_ranks(args + ["--data_dir", voc_root])
+        return
     if extra not in PORTED_TRAINING_OPTIONS:
         with pytest.raises(NotImplementedError, match="item 2[023]"):
             main(args + ["--data_dir", "/nonexistent"])

@@ -182,9 +182,13 @@ def main(argv=None, runner=None):
 
     voc = os.path.join(args.data_dir, "voc")
     if not os.path.isdir(voc) and not args.dry_run:
-        print(f"ERROR: {voc} not found. Fetch Pascal VOC first:\n"
+        print(f"ERROR: {voc} not found. Fetch Pascal VOC first (the "
+              f"download script is the JAX package's), then merge its "
+              f"trainval files:\n"
               f"  bash tools_tpu/get_pascal_voc.sh\n"
-              f"  python tools_tpu/merge_pascal_json.py", file=sys.stderr)
+              f"  python tools_torch/merge_pascal_json.py "
+              f"pascal_trainval2007.json pascal_trainval2012.json "
+              f"--out pascal_trainval0712.json", file=sys.stderr)
         return 2
 
     # a resumed run keeps the seconds of the stages it skips
