@@ -38,13 +38,17 @@ writer and reader. Then it drives the port's paths at full width
   beside the host ones, and `cli.main --device_cache`;
 - data parallelism (ddp, codenet_torch/parallel/): an NCCL group over
   every visible card trains config a at batch 32 with
-  --device_cache_shard (timed FP32 and QAT steps with each rank's peak
-  memory, then cli.main's and cli.quant_main's training as that rank);
-  two gloo ranks sharing one card race the kernels' first build, then
-  train 3 FP32 and 3 QAT steps from the conditioned init held to one
-  process on the card (5e-3) with bit-equal rank states, and one
-  --device_cache_shard step; each rank's kernel launches count in the
-  kernels line;
+  --device_cache_shard, FP32 then QAT, through Trainer.run_epoch's
+  graphed engine (each step a replay of the rank's graph of the whole
+  step, collectives included) against its per-step path: an epoch of
+  each from one state held with the graphs phase's gate, then steps of
+  each in turns, timed, with each rank's replays and peak memory; then
+  cli.main's and cli.quant_main's training as that rank; two gloo ranks
+  sharing one card race the kernels' first build, then train 3 FP32
+  and 3 QAT steps through the engine's ungraphed body from the
+  conditioned init held to one process on the card (5e-3) with
+  bit-equal rank states, and one --device_cache_shard step; each rank's
+  kernel launches count in the kernels line;
 - image rows split over ranks (spatial, --spatial_shard 2): gloo ranks
   sharing one card as dp 1 x sp 2 and dp 2 x sp 2 train 3 FP32 and 3
   QAT steps of config a at batch 32 from the conditioned init, held to
@@ -52,7 +56,8 @@ writer and reader. Then it drives the port's paths at full width
   rank's ms per step and peak memory beside one process's; the dp 1 x
   sp 2 ranks also take a --device_cache step and train through
   `cli.main --spatial_shard 2`; with two cards visible, the dp 1 x sp 2
-  steps over NCCL across them;
+  steps over NCCL across them, with four the dp 2 x sp 2 ones (each
+  NCCL rank's steps replays of its graph);
 - batched eval (`cli.test --batch_eval 32`) with the host warp,
   --device_warp and --device_cache;
 - multi-scale flip-test requests merged by soft-NMS, at fix_res with
@@ -137,8 +142,9 @@ a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
 before them gives each phase's wall seconds. `--phases trace,...` runs
 only the named phases that need no other's results (trace,
-dense_targets, ladder_ops, graphs, ddp, spatial), after the build (no
-kernel table, no ok line).
+dense_targets, ladder_ops, graphs, ddp, spatial; ddp_nccl and
+spatial_nccl: their NCCL parts alone, for a call across cards), after
+the build (no kernel table, no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
@@ -3423,7 +3429,10 @@ def phase_configs_ae():
 # -- data parallelism (ddp) ------------------------------------------------
 
 DDP_STEPS = 3          # FP32 and QAT steps of part (b), held to one process
-DDP_TIMED_STEPS = 4    # FP32 and QAT steps of part (a), timed
+DDP_TIMED_STEPS = 4    # part (a): steps of each engine in turns, timed,
+# after an epoch of GRAPH_STEPS steps of each (FP32, then QAT)
+DDP_CLI_EPOCHS = 2     # cli.main and cli.quant_main: 2 steps an epoch (64
+# frames at batch 32), the first 2 eager, then a capture and replays
 DDP_QAT = ("--wt-percentile", "--act_clamp")
 
 
@@ -3497,58 +3506,105 @@ def _ddp_nccl_rank(dp, res, batch, out_dir):
         _ddp_nccl_body(dp, res, batch, out_dir)
 
 
+def _ddp_engine_epochs(data, opt, dp, state, qspec, rows, cache, batches):
+    """One mode (FP32 or QAT) of part (a) on this rank: an epoch of
+    GRAPH_STEPS steps through Trainer.run_epoch's graphed engine and one
+    through its per-step path (CODENET_SCAN_EPOCH 0), from `state` on
+    the same batches, held to each other as the graphs phase holds them;
+    then DDP_TIMED_STEPS more steps of each, in turns, each a run_epoch
+    of one batch timed with CUDA events. Returns (the result, the graphed
+    trainer's final state)."""
+    from codenet_torch.engine import trainer as T
+    trainers, res = {}, {}
+    epoch, timed = batches[:GRAPH_STEPS], batches[GRAPH_STEPS:]
+    for engine in ("graphed", "per_step"):
+        trainer = T.Trainer(opt, qspec=qspec, dp=dp)
+        trainer.model.load_state_dict(state, strict=qspec is None)
+        trainer.init()
+        trainer.image_cache, trainer.cache_shard_rows = rows, \
+            cache.shard_rows
+        if engine == "graphed":
+            start = {k: v.clone()
+                     for k, v in trainer.model.state_dict().items()}
+            torch.cuda.reset_peak_memory_stats(dp.device)
+        stats, seconds, launches = _epoch(trainer, engine, epoch,
+                                          GRAPH_STEPS)
+        res[engine] = {"epoch_s": seconds, "stats": stats,
+                       "launches": launches}
+        if engine == "graphed":
+            res[engine]["peak_mib"] = \
+                torch.cuda.max_memory_allocated(dp.device) / 2 ** 20
+        trainers[engine] = trainer
+    state_g = trainers["graphed"].model.state_dict()
+    state_p = trainers["per_step"].model.state_dict()
+    params = [k for k, _ in trainers["per_step"].model.named_parameters()]
+    res["weights_rel_l2"] = _rel_l2_state(state_g, state_p, params)
+    res["updates_rel_l2"] = _rel_l2_state(
+        {k: state_g[k] - start[k] for k in params},
+        {k: state_p[k] - start[k] for k in params}, params)
+    res["meters_rel"] = {
+        k: abs(res["graphed"]["stats"][k] - v) / max(abs(v), 1e-12)
+        for k, v in res["per_step"]["stats"].items()}
+    ms = {"graphed": [], "per_step": []}
+    for b in timed:
+        for engine in ms:
+            os.environ["CODENET_SCAN_EPOCH"] = \
+                "1" if engine == "graphed" else "0"
+            try:
+                _, t = _timed(dp, lambda: trainers[engine].run_epoch(
+                    "train", 1, [b]))
+            finally:
+                os.environ.pop("CODENET_SCAN_EPOCH", None)
+            ms[engine].append(t)
+    for engine, times in ms.items():
+        graphs = list(trainers[engine]._multi_steps.values())
+        res[engine].update(
+            ms_per_step=times, ms_per_step_median=float(np.median(times)),
+            graphs=len(graphs),
+            replays=sum(g.graph.replays for g in graphs),
+            graph_launches=[list(g.graph.launches) for g in graphs])
+    res["per_step_over_graphed"] = (res["per_step"]["ms_per_step_median"]
+                                    / res["graphed"]["ms_per_step_median"])
+    return res, state_g
+
+
 def _ddp_nccl_body(dp, res, batch, out_dir):
     """Part (a), one rank of the NCCL group over every visible card: the
-    main path at config a with --device_cache_shard. Timed FP32 steps,
-    then QAT (--wt-percentile --act_clamp) steps from them, each fed this
-    rank's rows from its cache shard; then cli.main's and
-    cli.quant_main's training (run_training, this rank's) for 2 steps
-    each, rank 0 ending each in the final eval. Writes rank<k>.json."""
+    main path at config a with --device_cache_shard, each step fed this
+    rank's rows from its cache shard through Trainer.run_epoch: FP32
+    from the conditioned init, then QAT (--wt-percentile --act_clamp)
+    from the FP32 run's weights, each through the graphed engine (every
+    step one replay of the rank's graph of the whole step, collectives
+    included) against the per-step path (_ddp_engine_epochs); then
+    cli.main's and cli.quant_main's training (run_training, this rank's,
+    through the graphed engine: no --print_iter) for DDP_CLI_EPOCHS
+    epochs each, rank 0 ending each in the final eval. Writes
+    rank<k>.json."""
     from codenet_torch import config as cfg
     from codenet_torch.cli.main import run_training
-    from codenet_torch.engine.trainer import Trainer
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.ops import deform_cuda as DC
     data = _ddp_setup(dp, res)
     opt = data.opt(batch, "--device_cache_shard")
     cache, rows = _sharded_cache(data, opt, dp)
-    batches = _rank_batches(data, opt, dp, DDP_TIMED_STEPS,
+    batches = _rank_batches(data, opt, dp, GRAPH_STEPS + DDP_TIMED_STEPS,
                             cache.shard_ranges, cache.dims)
     out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
-           "device": str(dp.device), "batch_per_rank": batch // dp.world,
+           "graphable": dp.graphable, "device": str(dp.device),
+           "batch_per_rank": batch // dp.world,
            "cache_rows": int(rows.shape[0]),
            "cache_shard_mib": rows.numel() / 2 ** 20}
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
-    state = None
+    state = conditioned_init(data.opt(batch))
     for name, qspec in (("fp32", None),
                         ("qat", QuantSpec(wt_percentile=True,
                                           act_clamp=True))):
-        trainer = Trainer(opt, qspec=qspec, dp=dp)
-        if state is not None:
-            trainer.model.load_state_dict(state, strict=False)
-        trainer.init()
-        trainer.image_cache, trainer.cache_shard_rows = rows, \
-            cache.shard_rows
-        if dp.device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dp.device)
-        ms, losses = [], []
-        for b in batches:
-            stats, t = _timed(dp, lambda: trainer.run_epoch("train", 1,
-                                                            [b]))
-            ms.append(t)
-            losses.append(stats["loss"])
-        out[name] = {"ms_per_step": ms,
-                     "ms_per_step_steady_median": float(np.median(ms[1:])),
-                     "losses": losses}
-        if dp.device.type == "cuda":
-            out[name]["peak_mib"] = \
-                torch.cuda.max_memory_allocated(dp.device) / 2 ** 20
-        state = trainer.model.state_dict()
-        del trainer
+        out[name], state = _ddp_engine_epochs(data, opt, dp, state, qspec,
+                                              rows, cache, batches)
     out["timed_launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
-    ckpt = ROOT / "exp" / "ctdet" / "chip_smoke_ddp_fp32" / "model_last.pth"
-    common = ["--num_epochs", "1", "--num_iters", "2", "--val_intervals",
-              "-1", "--print_iter", "1", "--device_cache_shard",
+    exp = ROOT / "exp" / "ctdet"
+    common = ["--num_epochs", str(DDP_CLI_EPOCHS), "--val_intervals", "-1",
+              "--device_cache_shard",
               "--gpus", "-1" if dp.device.type == "cpu" else "0"]
     log = io.StringIO()
     t0 = time.perf_counter()
@@ -3557,13 +3613,18 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
             batch, *common, "--exp_id", "chip_smoke_ddp_fp32")), None, dp)
         run_training(cfg.parse(data.args(
             batch, *common, *DDP_QAT, "--exp_id", "chip_smoke_ddp_qat",
-            "--load_model", str(ckpt))),
+            "--load_model",
+            str(exp / "chip_smoke_ddp_fp32" / "model_last.pth"))),
             QuantSpec(wt_percentile=True, act_clamp=True), dp)
     text = log.getvalue()
-    out["cli"] = {"seconds": time.perf_counter() - t0,
-                  "losses": [float(ln.split(" loss ")[1].split()[0])
-                             for ln in text.splitlines()
-                             if ln.startswith("train epoch")],
+    losses = []
+    for name in ("fp32", "qat"):  # rank 0 logs each epoch's meters
+        path = exp / "chip_smoke_ddp_{}".format(name) / "scalars.jsonl"
+        if dp.main:
+            losses += [json.loads(ln)["value"] for ln in
+                       path.read_text().splitlines()
+                       if json.loads(ln)["tag"] == "train_loss"]
+    out["cli"] = {"seconds": time.perf_counter() - t0, "losses": losses,
                   "mean_ap": _lines_with(text, "Mean AP"),
                   "cache_lines": _lines_with(text, "device_cache:")}
     out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
@@ -3574,9 +3635,11 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
 def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None):
     """n train steps from `state` on this rank's rows (dp None: the whole
     batches, in one process; --spatial_shard in opt: on the grid), or on
-    `batches`, this rank's rows already: losses, ms per step, the peak
-    memory on a card, the final state."""
-    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    `batches`, this rank's rows already, each a Trainer.run_epoch of one
+    batch through the epoch engine (graphed in one process and on an
+    NCCL rank on a card, the step body on a gloo rank): losses, ms per
+    step, the peak memory on a card, the final state."""
+    from codenet_torch.engine.trainer import Trainer
     trainer = Trainer(opt, qspec=qspec, device=device, dp=dp)
     trainer.model.load_state_dict(state, strict=qspec is None)
     trainer.init()
@@ -3587,9 +3650,9 @@ def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None):
         torch.cuda.reset_peak_memory_stats(timing.device)
     losses, ms = [], []
     for b in batches or _rank_batches(data, opt, trainer.dp, n):
-        dev = batch_to_device(b, trainer.device)
-        stats, t = _timed(timing, lambda: trainer.train_step(dev))
-        losses.append(float(stats["loss"]))
+        stats, t = _timed(timing, lambda: trainer.run_epoch("train", 1,
+                                                            [b]))
+        losses.append(stats["loss"])
         ms.append(t)
     out = {"losses": losses, "ms_per_step": ms,
            "state": {k: v.detach().cpu() for k, v in
@@ -3675,23 +3738,31 @@ def _rel_l2(got, ref, keys):
 
 
 def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
-              gloo_device="cuda:0"):
+              gloo_device="cuda:0", gloo=True):
     """Data parallelism (codenet_torch/parallel/): (a) an NCCL group over
-    every visible card trains config a with --device_cache_shard (timed
-    FP32 and QAT steps, then cli.main's and cli.quant_main's training);
-    (b) two gloo ranks sharing one card race the kernels' first build,
-    then train DDP_STEPS FP32 and DDP_STEPS QAT steps from the conditioned
-    init on the global batches of one process, held to that process's
-    steps on the card (losses, and parameters in relative L2, within
-    STEP_TOL) with the ranks' states bit-equal, and one
+    every visible card trains config a with --device_cache_shard, FP32
+    then QAT, through the graphed epoch engine against the per-step path
+    (an epoch of each from the same weights, held with the graphs
+    phase's gate; then steps of each in turns, timed), then cli.main's
+    and cli.quant_main's training; (b) two gloo ranks sharing one card
+    race the kernels' first build, then train DDP_STEPS FP32 and
+    DDP_STEPS QAT steps through the engine's ungraphed body (gloo's
+    collectives run on the host: the rule rank 0 prints) from the
+    conditioned init on the global batches of one process, held to that
+    process's steps on the card (losses, and parameters in relative L2,
+    within STEP_TOL) with the ranks' states bit-equal, and one
     --device_cache_shard step; (c) every rank's kernel launches, counted
-    in its own process, returned for the kernels line."""
-    from codenet_torch.models.layers import QuantSpec
+    in its own process (a graph's replays included), returned for the
+    kernels line. gloo=False runs (a) alone (the call across cards)."""
+    from codenet_torch.engine.trainer import GRAPH_WARMUP
     from codenet_torch.parallel import launch
     work = ROOT / "exp" / "chip_smoke" / "ddp"
     shutil.rmtree(work, ignore_errors=True)
     for sub in ("a", "b", "build"):
         (work / sub).mkdir(parents=True)
+    for name in ("fp32", "qat"):  # the CLIs' logs append
+        shutil.rmtree(ROOT / "exp" / "ctdet" / "chip_smoke_ddp_{}".format(
+            name), ignore_errors=True)
     nccl_devices = nccl_devices or ["cuda:{}".format(k) for k in
                                     range(torch.cuda.device_count())]
     fail = []
@@ -3700,20 +3771,54 @@ def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
     a = [json.loads((work / "a" / "rank{}.json".format(k)).read_text())
          for k in range(len(nccl_devices))]
     a_seconds = time.perf_counter() - t0
-    # FP32 and QAT: DDP_TIMED_STEPS steps each, then 2 + 2 CLI steps; rank
-    # 0 adds the two final evals (flip test over the 8 val frames)
-    steps = 2 * DDP_TIMED_STEPS + 4
+    # FP32 and QAT: an epoch of each engine and timed steps of each, then
+    # the two CLIs' steps; rank 0 adds the two final evals (flip test
+    # over the 8 val frames)
+    cli_steps = DDP_CLI_EPOCHS * 64 // batch  # the smoke set's 64 frames
+    steps = 2 * 2 * (GRAPH_STEPS + DDP_TIMED_STEPS) + 2 * cli_steps
     for r in a:
         evals = 2 * 8 if r["rank"] == 0 else 0
         if r["launches"] != [3 * (steps + evals), 3 * steps]:
             fail.append("a rank {} launches {}".format(r["rank"],
                                                        r["launches"]))
-        if not np.all(np.isfinite(r["fp32"]["losses"] + r["qat"]["losses"]
-                                  + r["cli"]["losses"])):
+        losses = list(r["cli"]["losses"])
+        for name in ("fp32", "qat"):
+            m = r[name]
+            g, p = m["graphed"], m["per_step"]
+            losses += [g["stats"]["loss"], p["stats"]["loss"]]
+            if (not r["graphable"] or g["graphs"] != 1
+                    or g["replays"] != GRAPH_STEPS - GRAPH_WARMUP
+                    + DDP_TIMED_STEPS
+                    or g["graph_launches"] != [[3, 3]]
+                    or p["graphs"] != 0
+                    or g["launches"] != [3 * GRAPH_STEPS] * 2
+                    or p["launches"] != [3 * GRAPH_STEPS] * 2
+                    or not m["weights_rel_l2"] <= GRAPH_TOL
+                    or not m["updates_rel_l2"] <= GRAPH_UPDATE_TOL[name]
+                    or not max(m["meters_rel"].values()) <= GRAPH_TOL):
+                fail.append("a rank {} {}".format(r["rank"], name))
+        if not np.all(np.isfinite(losses)):
             fail.append("a rank {} losses".format(r["rank"]))
-    if len(a[0]["cli"]["mean_ap"]) != 2 or len(a[0]["cli"]["losses"]) != 4:
+    if (len(a[0]["cli"]["mean_ap"]) != 2
+            or len(a[0]["cli"]["losses"]) != 2 * DDP_CLI_EPOCHS):
         fail.append("a cli")
 
+    out = {"phase": "ddp", "a": {"seconds": a_seconds, "ranks": a},
+           "launches": {"a": [r["launches"] for r in a]}, "failed": fail}
+    b = _ddp_gloo_part(data, res, batch, work, gloo_device, out, fail) \
+        if gloo else []
+    emit(out)
+    if fail:
+        raise SystemExit("ddp check failed: {}".format(fail))
+    return (sum(r["launches"][0] for r in a + b),
+            sum(r["launches"][1] for r in a + b))
+
+
+def _ddp_gloo_part(data, res, batch, work, gloo_device, out, fail):
+    """Part (b) of phase_ddp, its result in out["b"]; returns the ranks'
+    results."""
+    from codenet_torch.models.layers import QuantSpec
+    from codenet_torch.parallel import launch
     t0 = time.perf_counter()
     launch(_ddp_gloo_rank, [gloo_device] * DDP_GLOO_WORLD, backend="gloo",
            args=(res, batch, str(work / "b"), str(work / "build")))
@@ -3756,20 +3861,18 @@ def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
         if r["launches"] != [3 * (2 * DDP_STEPS + 1)] * 2:
             fail.append("b rank {} launches {}".format(r["rank"],
                                                        r["launches"]))
-    out = {"phase": "ddp", "a": {"seconds": a_seconds, "ranks": a},
-           "b": {"seconds": b_seconds, "world": DDP_GLOO_WORLD,
-                 "backend": b[0]["backend"], "device": b[0]["device"],
-                 "build": [r.get("build") for r in b],
-                 "build_seconds": [r.get("build_seconds") for r in b],
-                 "held": held, "tol": STEP_TOL},
-           "launches": {"a": [r["launches"] for r in a],
-                        "b": [r["launches"] for r in b]},
-           "failed": fail}
-    emit(out)
-    if fail:
-        raise SystemExit("ddp check failed: {}".format(fail))
-    return (sum(r["launches"][0] for r in a + b),
-            sum(r["launches"][1] for r in a + b))
+    # the engine's backend rule, printed by rank 0 once an epoch
+    rule = _lines_with((work / "b" / "rank0.log").read_text(),
+                       "graphed epoch engine")
+    if not rule or set(rule) != {"graphed epoch engine: off (gloo)"}:
+        fail.append("b engine rule {}".format(rule[:1]))
+    out["b"] = {"seconds": b_seconds, "world": DDP_GLOO_WORLD,
+                "backend": b[0]["backend"], "device": b[0]["device"],
+                "build": [r.get("build") for r in b],
+                "build_seconds": [r.get("build_seconds") for r in b],
+                "held": held, "tol": STEP_TOL, "engine_rule": rule[:1]}
+    out["launches"]["b"] = [r["launches"] for r in b]
+    return b
 
 
 # -- --spatial_shard: image rows split over a data x spatial grid --------
@@ -3904,7 +4007,8 @@ def _held(ranks, ref, parts):
     return held
 
 
-def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0"):
+def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0",
+                  gloo=True):
     """--spatial_shard 2 (parallel/mesh.py's grid, halo_rows and
     gather_rows): (a) gloo ranks sharing one card as dp 1 x sp 2 and dp
     2 x sp 2 each train SPATIAL_STEPS FP32 and SPATIAL_STEPS QAT steps of
@@ -3915,9 +4019,12 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0"):
     1 x sp 2 ranks take one --device_cache step, held the same way, and
     (c) train through cli.main --spatial_shard 2 for one two-step epoch,
     rank 0 ending in the final eval; (d) where two cards are visible, the
-    dp 1 x sp 2 steps of (a) over NCCL across them. Every rank's kernel
+    dp 1 x sp 2 steps of (a) over NCCL across them, and where four are,
+    the dp 2 x sp 2 ones, each step of an NCCL rank a replay of its
+    graph once GRAPH_WARMUP steps have run (the gloo ranks step through
+    the engine's ungraphed body). Every rank's kernel
     launches, counted in its own process, are returned for the kernels
-    line."""
+    line. gloo=False runs (d) alone (the call across cards)."""
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.parallel import launch
     work = ROOT / "exp" / "chip_smoke" / "spatial"
@@ -3939,9 +4046,12 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0"):
     torch.save({"batches": batches, "cache_batch": ref["cache"]["batch"]},
                work / "batches.pt")
     grids = [(name, [device] * world, "gloo", name == "dp1xsp2")
-             for name, world in SPATIAL_GRIDS]
+             for name, world in SPATIAL_GRIDS if gloo]
     if torch.cuda.device_count() >= 2:
         grids.append(("nccl_dp1xsp2", ["cuda:0", "cuda:1"], "nccl", False))
+    if torch.cuda.device_count() >= 4:
+        grids.append(("nccl_dp2xsp2", ["cuda:{}".format(k)
+                                       for k in range(4)], "nccl", False))
     cli_steps = 2
     for name, devices, backend, full in grids:
         (work / name).mkdir(parents=True)
@@ -3975,8 +4085,10 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0"):
                 fail.append("{} cli".format(name))
         runs[name] = run
     out = {"phase": "spatial", "res": res, "batch": batch, "tol": STEP_TOL,
-           "runs": runs, "nccl": "ran across 2 cards" if "nccl_dp1xsp2"
-           in runs else "not run: {} card(s) visible".format(
+           "runs": runs, "nccl": "ran across {} cards".format(
+               max(len(r["devices"]) for n, r in runs.items()
+                   if n.startswith("nccl"))) if "nccl_dp1xsp2" in runs
+           else "not run: {} card(s) visible".format(
                torch.cuda.device_count()),
            "failed": fail}
     emit(out)
@@ -4733,7 +4845,7 @@ def timed(name, fn, *args):
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
 STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs", "ddp",
-              "spatial")
+              "spatial", "ddp_nccl", "spatial_nccl")
 
 
 def main(argv=None):
@@ -4745,6 +4857,13 @@ def main(argv=None):
                         "(comma-separated; no kernels or ok line)".format(
                             ", ".join(STANDALONE)))
     args = parser.parse_args(argv)
+    try:
+        run(args)
+    finally:  # a failed phase's lines too
+        write_out(args.out)
+
+
+def run(args):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; none is visible")
     sys.path.insert(0, str(ROOT))
@@ -4768,12 +4887,14 @@ def main(argv=None):
                "ladder_ops": phase_ladder_ops,
                "graphs": lambda: phase_graphs(data),
                "ddp": lambda: phase_ddp(data),
-               "spatial": lambda: phase_spatial(data)}
+               "spatial": lambda: phase_spatial(data),
+               # their NCCL parts alone: the call across cards
+               "ddp_nccl": lambda: phase_ddp(data, gloo=False),
+               "spatial_nccl": lambda: phase_spatial(data, gloo=False)}
         for name in only:
             timed(name, run[name])
         emit({"phase": "done", "seconds": time.perf_counter() - t0,
               "phase_seconds": PHASE_SECONDS, "card": smi})
-        write_out(args.out)
         return
     timed("host_io", phase_host_io)
     rows = timed("kernels", phase_kernels, bw, flops)
@@ -4898,7 +5019,6 @@ def main(argv=None):
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
-    write_out(args.out)
 
 
 def write_out(path):

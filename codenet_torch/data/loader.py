@@ -89,6 +89,18 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def global_sizes(self):
+        """The size of each global batch of an epoch, in order: what every
+        rank knows of a batch whose rows it may not all hold (a ragged
+        last batch splits unequally over the ranks)."""
+        if self.shard_ranges is not None:
+            return [self.batch_size] * len(self)
+        n = len(self.dataset)
+        sizes = [self.batch_size] * (n // self.batch_size)
+        if n % self.batch_size and not self.drop_last:
+            sizes.append(n % self.batch_size)
+        return sizes
+
     def _batches(self):
         """This epoch's batches of dataset indices (advances the shuffle
         stream, as iterating does)."""

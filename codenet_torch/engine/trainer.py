@@ -31,22 +31,28 @@ CUDA graph of the whole train step, forward to Adam's update
 (`make_multi_train_step`), over static input buffers that the batch is
 copied into; the stats stay on the card and are read every STATS_EVERY
 steps. On the CPU the engine runs the same step body per batch. A batch
-whose keys, shapes or dtypes differ from the epoch's first (a ragged
-tail) runs the per-step path, as the JAX engine runs a stack that will
-not stack. On a card Adam is torch's fused one, capturable, its learning
-rate a device tensor that `set_lr` fills. With `dp` every step takes the
-per-step path.
+whose keys, shapes, dtypes or global size differ from the epoch's first
+(a ragged tail) runs the per-step path, as the JAX engine runs a stack
+that will not stack. On a card Adam is torch's fused one, capturable, its learning
+rate a device tensor that `set_lr` fills. The engine runs under `dp` as
+in one process, as the JAX engine runs on any mesh: on an NCCL rank on a
+card each step is a replay of the rank's own graph of the whole step,
+its collectives included (the gradient all-reduce, the global-batch
+BN's gathers and sums, the QAT ranges, the loss counts, and on a grid
+the halo exchanges and the neck's gather); gloo ranks, whose collectives
+run on the host, take the step body per batch (`_run_epoch_scan`).
 
 Data parallelism (`dp`, a parallel.DataParallel; the JAX trainer's data
 mesh): the trainer is one rank's replica on its device, fed its rows of
 each global batch. Its BNs and quantizers reduce over the ranks, its
 loss normalisers are the global batch's (parallel/mesh.py), and each
 step sums the gradients over the ranks before Adam, so every rank keeps
-bit-equal state; the step's stats are the all-reduced sums. With
---device_cache_shard the rank's card holds only its rows of the image
-cache, and `check_shard_routing` checks that each batch asks for no
-other rows. Val steps run on one rank alone (the CLI runs them on rank
-0), with this process's batch and no collective.
+bit-equal state; the step's stats are the all-reduced sums, and the
+meters count the global batch. With --device_cache_shard the rank's card
+holds only its rows of the image cache, and `check_shard_routing` checks
+that each batch asks for no other rows, on either path. Val steps run on
+one rank alone (the CLI runs them on rank 0), with this process's batch
+and no collective.
 
 --spatial_shard k (ShuffleNetV2, the JAX trainer's get_mesh_2d): `dp`
 becomes a data x spatial grid (parallel/mesh.py::grid; one process
@@ -462,16 +468,58 @@ class Trainer:
                 group["lr"] = lr
 
     # -- epochs ----------------------------------------------------------
+    def _local_rows(self, batch):
+        """A batch as this rank's cache holds its rows: with
+        --device_cache_shard the routing is checked against this rank's
+        shard (its data row's, rows [rank * rows, (rank + 1) * rows)) and
+        img_idx made relative to it."""
+        rows = self.cache_shard_rows
+        if not rows or "img_idx" not in batch:
+            return batch
+        rank = self.dp.data_rank if self.dp is not None else 0
+        check_shard_routing(batch["img_idx"], 1, rows, first=rank)
+        return dict(batch, img_idx=batch["img_idx"] - rank * rows)
+
+    def _global_sizes(self, loader, phase):
+        """The size of each batch `loader` delivers, as the step's stats
+        count it: a train step's stats are the global batch's, whose size
+        every rank knows from the loader (data/loader.py::global_sizes);
+        a loader that does not say (a list of batches) is taken to hold
+        each rank's equal share. Returns size(it, batch)."""
+        ranks = self.dp.data_world if self.dp is not None \
+            and phase == "train" else 1
+        sizes = loader.global_sizes() if hasattr(loader, "global_sizes") \
+            else None
+        return lambda it, batch: sizes[it] if sizes is not None \
+            else batch_size_of(batch) * ranks
+
     def _run_epoch_scan(self, loader, n_iters, meters):
         """The graphed epoch engine (the JAX trainer's _run_epoch_scan):
         each batch takes its step as the loader delivers it, on a card as
         a replay of the graph of its signature (`make_multi_train_step`),
         on the CPU through the step body; the stats stay on the device
-        and are read every STATS_EVERY steps. A batch whose signature
-        differs from the epoch's first runs the per-step path."""
-        graphs = self.device.type == "cuda"
-        rows = self.cache_shard_rows
-        pending = []  # (keys, stats (K,) on the device, batch size)
+        and are read every STATS_EVERY steps. A batch whose signature or
+        global size differs from the epoch's first runs the per-step
+        path.
+
+        With `dp` every rank takes the same path at every step (a rank
+        that replays while another steps eagerly would issue its
+        collectives in another context): the choice reads only what every
+        rank knows, the global batch's size (`_global_sizes`), which must
+        divide over the data ranks, and the signature of its keys, dtypes
+        and shapes, which are the same on every rank when the size is.
+        The graph then holds the step's collectives (parallel/mesh.py).
+        Only an NCCL rank on a card graphs its steps (`dp.graphable`):
+        gloo collectives run on the host, which no CUDA graph holds, so
+        gloo ranks on a card run the step body per batch, as on the CPU,
+        and rank 0 says so once an epoch."""
+        graphs = self.dp.graphable if self.dp is not None \
+            else self.device.type == "cuda"
+        if not graphs and self.device.type == "cuda" and self.dp.main:
+            print("graphed epoch engine: off ({})".format(self.dp.backend))
+        ranks = self.dp.data_world if self.dp is not None else 1
+        size_of = self._global_sizes(loader, "train")
+        pending = []  # (keys, stats (K,) on the device, global batch size)
         first = None
 
         def flush():
@@ -496,12 +544,12 @@ class Trainer:
         for it, batch in enumerate(loader):
             if it >= n_iters:
                 break
-            batch = {k: v for k, v in batch.items() if k != "meta"}
-            if rows and "img_idx" in batch:
-                check_shard_routing(batch["img_idx"], 1, rows)
+            size = size_of(it, batch)
+            batch = self._local_rows(
+                {k: v for k, v in batch.items() if k != "meta"})
             sig = batch_signature(batch, self.image_cache)
-            first = sig if first is None else first
-            if graphs and sig == first:
+            first = (size, sig) if first is None else first
+            if graphs and (size, sig) == first and size % ranks == 0:
                 run = self._multi_steps.get(sig)
                 if run is None:
                     run = self._multi_steps[sig] = make_multi_train_step(
@@ -510,7 +558,7 @@ class Trainer:
                 keys, stats = run(batch)
             else:
                 keys, stats = per_step(batch)
-            pending.append((keys, stats, batch_size_of(batch)))
+            pending.append((keys, stats, size))
             if len(pending) >= STATS_EVERY:
                 flush()
         flush()
@@ -523,12 +571,12 @@ class Trainer:
         --test and a `results` dict its decoded predictions go there.
         Where none of these watches the steps, a train epoch runs the
         graphed engine (`_run_epoch_scan`) under the JAX trainer's
-        conditions."""
+        conditions, with `dp` or without."""
         meters = {}
         data_time = AverageMeter()
         batch_time = AverageMeter()
         n_iters = len(loader) if num_iters < 0 else num_iters
-        if (phase == "train" and self.dp is None
+        if (phase == "train"
                 and not self.opt.debug > 0
                 and not (results is not None and self.opt.test)
                 and print_iter <= 0
@@ -546,24 +594,15 @@ class Trainer:
             pending.clear()
 
         step = self.train_step if phase == "train" else self.val_step
-        # a train step's stats are the global batch's; a rank's rows of
-        # each batch and its cache shard follow its data row
-        ranks = self.dp.data_world if self.dp is not None \
-            and phase == "train" else 1
-        rank = self.dp.data_rank if self.dp is not None else 0
+        size_of = self._global_sizes(loader, phase)
         show = self.dp is None or self.dp.main
         end = time.time()
         for it, batch in enumerate(loader):
             if it >= n_iters:
                 break
-            bs = batch_size_of(batch) * ranks
+            bs = size_of(it, batch)
             meta = batch.get("meta")
-            rows = self.cache_shard_rows
-            if rows and "img_idx" in batch:
-                # this rank's cache holds rows [rank * rows, ...) alone
-                check_shard_routing(batch["img_idx"], 1, rows, first=rank)
-                batch = dict(batch, img_idx=batch["img_idx"] - rank * rows)
-            batch = batch_to_device(batch, self.device)
+            batch = batch_to_device(self._local_rows(batch), self.device)
             if "img_idx" in batch:
                 batch["cache_images"] = self.image_cache
             data_time.update(time.time() - end)

@@ -103,10 +103,13 @@ def reg_weighted_l1_loss(output, mask, ind, target, dp=None):
 
 
 def _mean(x, dp):
-    """The mean of x over the global batch."""
+    """The mean of x over the global batch. The count is filled on the
+    device, not copied there: a copy from the host is no step that a CUDA
+    graph can capture."""
     if dp is None:
         return x.mean()
-    return x.sum() / batch_count(x.new_tensor(float(x.numel())), dp)
+    count = torch.full((), float(x.numel()), dtype=x.dtype, device=x.device)
+    return x.sum() / batch_count(count, dp)
 
 
 def mse_loss(pred, gt, dp=None):

@@ -24,6 +24,13 @@ So every rank holds bit-equal state after every step, and a run on W
 ranks is the single-process run on the concatenated batch up to the
 order of f32 sums.
 
+Every collective of a train step is capture-safe, so an NCCL rank's
+step is one CUDA graph (`DataParallel.graphable`): each allocates its
+buffer on the device inside the step and reads no value back to the
+host (shapes, ranks and plans are Python numbers), and each is
+synchronous, so the captured stream waits on NCCL's before it reads or
+frees the buffer.
+
 With ``--spatial_shard k`` (the JAX package's get_mesh_2d) the ranks
 form a data x spatial grid: rank d * k + s takes data row d (its rows of
 each global batch) and spatial slot s (its band of rows of each image);
@@ -104,6 +111,13 @@ class DataParallel:
     @property
     def main(self):
         return self.rank == 0
+
+    @property
+    def graphable(self):
+        """Whether this rank's train steps can be captured in a CUDA graph
+        (engine/trainer.py's epoch engine): NCCL on a card, whose
+        collectives are kernels on the card. Gloo's run on the host."""
+        return self.backend == "nccl" and self.device.type == "cuda"
 
     @property
     def data_rank(self):

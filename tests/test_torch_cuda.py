@@ -1127,6 +1127,34 @@ def test_epoch_engine_graphs_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_epoch_engine_graphs_on_an_nccl_rank(cuda_device, tmp_path):
+    """A world-1 NCCL group on cuda:0 (parallel.launch): the epoch engine
+    captures one graph of the whole step, its collectives included
+    (gradient all-reduce, global-batch BN, loss counts), replays
+    GRAPH_EPOCH_STEPS - GRAPH_WARMUP steps and counts 3 + 3 deform
+    launches a step, replays included. Its epoch against the rank's
+    per-step epoch from the same state: chip_smoke.py's graphs gate,
+    weights and loss meters within 5e-3 relative, the parameters' change
+    within 1e-1 relative L2 (the backward's atomics make every run
+    another trajectory)."""
+    import torch_parallel_worker as W
+    from codenet_torch.engine import trainer as T
+    r, = _ranks(W.card_engine_rank, ["cuda:0"], "nccl", tmp_path)
+    n = W.GRAPH_EPOCH_STEPS
+    g, p = r["graphed"], r["per_step"]
+    assert r["graphable"]
+    assert (g["graphs"], g["replays"]) == (1, n - T.GRAPH_WARMUP)
+    assert g["graph_launches"] == [(3, 3)]
+    assert (p["graphs"], p["replays"]) == (0, 0)
+    assert g["launches"] == p["launches"] == (3 * n, 3 * n)
+    assert r["weights_rel_l2"] <= 5e-3, r["weights_rel_l2"]
+    assert r["updates_rel_l2"] <= 1e-1, r["updates_rel_l2"]
+    assert set(g["stats"]) == set(p["stats"])
+    for k, v in p["stats"].items():
+        assert abs(g["stats"][k] - v) <= 5e-3 * max(abs(v), 1e-12), k
+
+
+@pytest.mark.cuda
 def test_kbatch_graph_matches_loop_on_card(cuda_device):
     """process_batches_cached as one captured graph of K = 3 batches of
     2, replayed twice, against the loop of process_batch_cached: equal

@@ -318,6 +318,154 @@ def cache_results(dp):
                       for k, v in trainer.model.state_dict().items()}}
 
 
+# -- the graphed epoch engine under dp (test_torch_dp_engine.py) -----------
+
+def as_float(batch, dtype=np.float64):
+    """A numpy batch with its floating arrays in `dtype`."""
+    return {k: v.astype(dtype) if v.dtype.kind == "f" else v
+            for k, v in batch.items()}
+
+
+def epoch_run(dp, scan, batches, qspec=None, dtype=torch.float64,
+              extra=(), cache=None):
+    """One Trainer.run_epoch from the conditioned init through the graphed
+    epoch engine (scan) or the per-step path (CODENET_SCAN_EPOCH 0).
+    `batches`: a list of global batches, of which this rank takes its
+    data row's rows, or a loader that yields this rank's rows already.
+    `cache`: (image cache, shard rows) of --device_cache_shard. Returns
+    the meters, the final state and the engine's calls."""
+    from codenet_torch.engine import trainer as T
+    os.environ["CODENET_SCAN_EPOCH"] = "1" if scan else "0"
+    trainer = T.Trainer(task_opt(extra=extra), qspec=qspec, device="cpu",
+                        dp=dp)
+    trainer.model.load_state_dict(conditioned_state(task_opt()),
+                                  strict=qspec is None)
+    trainer.model.to(dtype)
+    trainer.init()
+    if cache is not None:
+        trainer.image_cache, trainer.cache_shard_rows = cache
+    if isinstance(batches, list):
+        g = trainer.dp
+        lo, hi = process_batch_slice(GLOBAL_BATCH, g.data_rank,
+                                     g.data_world)
+        batches = [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+    calls = []
+    real = trainer._run_epoch_scan
+    trainer._run_epoch_scan = lambda *a: calls.append(1) or real(*a)
+    stats = trainer.run_epoch("train", 1, batches)
+    return {"stats": stats, "engine_calls": len(calls),
+            "state": {k: v.clone()
+                      for k, v in trainer.model.state_dict().items()}}
+
+
+def engine_cache_batches(n_steps=STEPS, n_ranks=2):
+    """cache_case's batch, each step's slot-block s drawn in its own order
+    from shard s's rows."""
+    _, batch = cache_case(n_ranks)
+    r = np.random.RandomState(17)
+    rps = -(-GLOBAL_BATCH // n_ranks)
+    per = GLOBAL_BATCH // n_ranks
+    return [dict(batch, img_idx=np.concatenate(
+        [s * rps + r.permutation(rps)[:per] for s in range(n_ranks)])
+        .astype(np.int32)) for _ in range(n_steps)]
+
+
+class StepSet:
+    """`n` samples of step_batches' kind, as a dataset of the port's
+    DataLoader (get_sample(j, rng, draw_only))."""
+
+    def __init__(self, n):
+        self.samples = step_batches(1, b=n)[0]
+
+    def __len__(self):
+        return len(self.samples["input"])
+
+    def get_sample(self, j, rng=None, draw_only=False):
+        return None if draw_only else {k: v[j]
+                                       for k, v in self.samples.items()}
+
+
+RAGGED_IMAGES = 11  # global batches of 4, 4 and 3: rank 0 keeps 2 rows
+# of the last, as many as of the others, and rank 1 one
+
+
+def ragged_loader(dp):
+    """The DataLoader of RAGGED_IMAGES with its last batch kept: this
+    rank's rows of each (dp None: the whole batches)."""
+    from codenet_torch.data.loader import DataLoader
+    rows = process_batch_slice(GLOBAL_BATCH, dp.rank, dp.world) \
+        if dp is not None else None
+    return DataLoader(StepSet(RAGGED_IMAGES), GLOBAL_BATCH, shuffle=True,
+                      num_workers=1, seed=3, drop_last=False, rows=rows)
+
+
+def graphed_on_cpu(dp, run):
+    """run() with the engine taking its graph branch on the CPU: the rank
+    reads as graphable and each graph is a stand-in that runs the step
+    body on the batch it is handed, recording the batch's rows. Returns
+    (run's result, the rows of each stand-in step)."""
+    from codenet_torch.engine import trainer as T
+    from codenet_torch.parallel import mesh
+    rows = []
+
+    def stand_in(step_body, example, device, cache_images=None):
+        def replay(batch):
+            rows.append(T.batch_size_of(batch))
+            dev = T.batch_to_device(batch, device)
+            if "img_idx" in dev:
+                dev["cache_images"] = cache_images
+            stats = step_body(dev)
+            return list(stats), torch.stack(list(stats.values()))
+        return replay
+    real = T.make_multi_train_step, mesh.DataParallel.graphable
+    T.make_multi_train_step = stand_in
+    mesh.DataParallel.graphable = property(lambda self: True)
+    try:
+        return run(), rows
+    finally:
+        T.make_multi_train_step, mesh.DataParallel.graphable = real
+
+
+def engine_results(dp):
+    """The engine's epochs and the per-step path's on this rank: FP32 and
+    QAT in f64, FP32 in f32 (for the JAX engine), a --device_cache_shard
+    epoch, a batch asking for another rank's cache rows, and a ragged
+    last global batch (the engine as on the CPU, and taking its graph
+    branch)."""
+    from codenet_torch.data.device_cache import ImageCache
+    from codenet_torch.models.layers import QuantSpec
+    qspec = QuantSpec(wt_percentile=True, act_clamp=True)
+    f64 = [as_float(b) for b in step_batches()]
+    images, _ = cache_case()
+    cache = ImageCache(images, np.full((len(images), 2), RES, np.int32))
+    shard = (cache.to_device("cpu", shard=True, dp=dp), cache.shard_rows)
+    cache_batches = engine_cache_batches()
+    out = {}
+    for scan in (True, False):
+        out["engine" if scan else "per_step"] = {
+            "fp32_f64": epoch_run(dp, scan, f64),
+            "qat_f64": epoch_run(dp, scan, f64, qspec),
+            "cache": epoch_run(dp, scan, cache_batches,
+                               dtype=torch.float32,
+                               extra=["--device_cache_shard"], cache=shard),
+            "ragged": epoch_run(dp, scan, ragged_loader(dp),
+                                dtype=torch.float32)}
+    out["engine"]["fp32_f32"] = epoch_run(dp, True, step_batches(),
+                                          dtype=torch.float32)
+    ragged, rows = graphed_on_cpu(dp, lambda: epoch_run(
+        dp, True, ragged_loader(dp), dtype=torch.float32))
+    out["ragged_graph_branch"] = dict(ragged, graph_rows=rows)
+    foreign = dict(cache_batches[0], img_idx=np.roll(
+        cache_batches[0]["img_idx"], GLOBAL_BATCH // 2))
+    try:
+        epoch_run(dp, True, [foreign], dtype=torch.float32,
+                  extra=["--device_cache_shard"], cache=shard)
+        out["foreign"] = None
+    except ValueError as e:
+        out["foreign"] = str(e)
+    return out
+
+
 # -- card checks (tests/test_torch_cuda.py) --------------------------------
 
 def card_bn_rank(dp, out_dir):
@@ -366,8 +514,62 @@ def card_kernel_rank(dp, out_dir):
                os.path.join(out_dir, "rank{}.pt".format(dp.rank)))
 
 
+GRAPH_EPOCH_STEPS = 5
+
+
+def card_engine_rank(dp, out_dir):
+    """An epoch of GRAPH_EPOCH_STEPS steps at 64^2, global batch 2, on this
+    rank's card through the graphed epoch engine and one through the
+    per-step path (CODENET_SCAN_EPOCH 0), from one conditioned state on
+    the same batches (test_torch_common.qat_batch, shifted each step):
+    the graphs and their replays, each epoch's launches and meters, and
+    the graphed state's distance from the per-step one."""
+    from test_torch_common import qat_batch
+    from codenet_torch.engine import trainer as T
+    from codenet_torch.ops import deform_cuda as DC
+    opt = task_opt(batch=2)
+    lo, hi = process_batch_slice(2, dp.rank, dp.world)
+    batches = []
+    for i in range(GRAPH_EPOCH_STEPS):
+        b = qat_batch()
+        b["input_u8"] = np.roll(b["input_u8"], 7 * i, axis=1)
+        batches.append({k: v[lo:hi] for k, v in b.items()})
+    out, states = {"rank": dp.rank, "graphable": dp.graphable}, {}
+    start = conditioned_state(opt)
+    for engine in ("graphed", "per_step"):
+        os.environ["CODENET_SCAN_EPOCH"] = "1" if engine == "graphed" \
+            else "0"
+        trainer = T.Trainer(opt, dp=dp)
+        trainer.model.load_state_dict(start)
+        trainer.init()
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        stats = trainer.run_epoch("train", 1, batches)
+        torch.cuda.synchronize(dp.device)
+        graphs = list(trainer._multi_steps.values())
+        out[engine] = {
+            "stats": stats,
+            "launches": (DC.LAUNCHES - before[0],
+                         DC.BWD_LAUNCHES - before[1]),
+            "graphs": len(graphs),
+            "replays": sum(g.graph.replays for g in graphs),
+            "graph_launches": [g.graph.launches for g in graphs]}
+        states[engine] = {k: v.detach().cpu().double() for k, v in
+                          trainer.model.state_dict().items()}
+    params = [k for k in start if k.endswith(("weight", "bias"))]
+
+    def rel_l2(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in params)
+        return (num / sum(float((b[k] ** 2).sum()) for k in params)) ** 0.5
+    g, p = states["graphed"], states["per_step"]
+    s0 = {k: v.double() for k, v in start.items()}
+    out["weights_rel_l2"] = rel_l2(g, p)
+    out["updates_rel_l2"] = rel_l2({k: g[k] - s0[k] for k in params},
+                                   {k: p[k] - s0[k] for k in params})
+    torch.save(out, os.path.join(out_dir, "rank{}.pt".format(dp.rank)))
+
+
 SCENARIOS = {"units": unit_results, "steps": step_results,
-             "cache": cache_results}
+             "cache": cache_results, "engine": engine_results}
 
 
 def _rank(dp, scenario, out_dir):

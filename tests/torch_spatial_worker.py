@@ -20,7 +20,9 @@ each global batch (process_batch_slice over the data axis).
   2 FP32 steps in f32 (for the JAX mesh), the colour aug of a band
   and one f32 step of a uint8 batch with colour aug;
 - ``grid3``, three ranks: one step at dp 1 x sp 3 of 64-row images,
-  which do not split (the warning, the batch run whole).
+  which do not split (the warning, the batch run whole);
+- ``engine``, two ranks (test_torch_dp_engine.py): the graphed epoch
+  engine's epoch at dp 1 x sp 2 against the per-step path's.
 """
 
 import os
@@ -268,6 +270,22 @@ def grid3(dp):
     return {"whole": grid_steps(dp, 3, n_steps=1)}
 
 
+def grid_engine(dp):
+    """dp 1 x sp 2 (test_torch_dp_engine.py): an FP32 epoch of 3 f64
+    steps through the graphed epoch engine and through the per-step
+    path, and the engine's epoch again taking its graph branch on the
+    CPU (torch_parallel_worker.graphed_on_cpu)."""
+    from torch_parallel_worker import as_float, epoch_run, graphed_on_cpu
+    batches = [as_float(b) for b in step_batches(3)]
+    flags = ["--spatial_shard", "2"]
+    out = {("engine" if scan else "per_step"): epoch_run(
+        dp, scan, batches, extra=flags) for scan in (True, False)}
+    graphed, rows = graphed_on_cpu(dp, lambda: epoch_run(
+        dp, True, batches, extra=flags))
+    out["graph_branch"] = dict(graphed, graph_rows=rows)
+    return out
+
+
 def references():
     """The one-process runs every scenario is held to."""
     from codenet_torch.models.layers import QuantSpec
@@ -279,7 +297,10 @@ def references():
             "cache": cache_step(None)}
 
 
-SCENARIOS = {"grid4": grid4, "grid2": grid2, "grid3": grid3}
+SCENARIOS = {"grid4": grid4, "grid2": grid2, "grid3": grid3,
+             "engine": grid_engine}
+# launched by test_torch_dp_engine.py alone
+ENGINE_WORLDS = {"engine": 2}
 
 
 def _rank(dp, scenario, out_dir):
@@ -290,4 +311,5 @@ def _rank(dp, scenario, out_dir):
 
 if __name__ == "__main__":
     name = sys.argv[1]
-    launch(_rank, ["cpu"] * WORLDS[name], args=(name, sys.argv[2]))
+    launch(_rank, ["cpu"] * {**WORLDS, **ENGINE_WORLDS}[name],
+           args=(name, sys.argv[2]))

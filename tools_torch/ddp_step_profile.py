@@ -11,7 +11,11 @@ synthetic global batches: FP32, then QAT (--wt-percentile --act_clamp),
 each as the rank (global-batch BN, QAT ranges, loss counts, gradient
 all-reduce) and again in the same process with no group, so that the two
 compare on one card state. Per step: the host's ms to enqueue it and the
-ms until the card finished (host clock, synchronised). Then a
+ms until the card finished (host clock, synchronised), eagerly and then
+as the epoch engine's graph of the step (engine/trainer.py
+make_multi_train_step: GRAPH_WARMUP eager steps, a capture, replays;
+the batch's copy included; not on gloo ranks, whose collectives no
+graph holds), which shows what the graph leaves to the host. Then a
 torch.profiler trace of 3 steps of each (`key_averages` tables by CPU
 and by CUDA time, in --out) and the host ms of one all-reduce call at 2,
 513 and 2.5M floats. Prints one JSON line per rank, with the card's name
@@ -88,15 +92,18 @@ def _collective_ms(dp):
 
 def _rank(dp, batch, res, steps, out_dir):
     from torch.profiler import ProfilerActivity, profile
-    from codenet_torch.engine.trainer import Trainer, batch_to_device
+    from codenet_torch.engine.trainer import (GRAPH_WARMUP, Trainer,
+                                              batch_to_device,
+                                              make_multi_train_step)
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.parallel import process_batch_slice
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     opt = _opt(batch, res)
     lo, hi = process_batch_slice(batch, dp.rank, dp.world)
-    rows = [batch_to_device({k: v[lo:hi] for k, v in b.items()}, dp.device)
-            for b in synthetic_batches(steps, batch, res)]
+    host_rows = [{k: v[lo:hi] for k, v in b.items()}
+                 for b in synthetic_batches(steps, batch, res)]
+    rows = [batch_to_device(b, dp.device) for b in host_rows]
     out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
            "device": str(dp.device), "batch_per_rank": hi - lo,
            "all_reduce": _collective_ms(dp)}
@@ -115,6 +122,26 @@ def _rank(dp, batch, res, steps, out_dir):
                 host.append((time.perf_counter() - t0) * 1e3)
                 torch.cuda.synchronize(dp.device)
                 total.append((time.perf_counter() - t0) * 1e3)
+            graphed = {}
+            if mode == "one_process" or dp.graphable:
+                run = make_multi_train_step(trainer.train_step,
+                                            host_rows[0], dp.device)
+                g_host, g_total = [], []
+                for b in host_rows:
+                    torch.cuda.synchronize(dp.device)
+                    t0 = time.perf_counter()
+                    run(b)
+                    g_host.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize(dp.device)
+                    g_total.append((time.perf_counter() - t0) * 1e3)
+                # the replays after the one that captured
+                replays = slice(GRAPH_WARMUP + 1, None)
+                graphed = {
+                    "graphed_host_ms": g_host, "graphed_total_ms": g_total,
+                    "graphed_host_ms_median": float(np.median(
+                        g_host[replays])) if g_host[replays] else None,
+                    "graphed_total_ms_median": float(np.median(
+                        g_total[replays])) if g_total[replays] else None}
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for b in rows[:3]:
@@ -130,7 +157,8 @@ def _rank(dp, batch, res, steps, out_dir):
                 "host_ms": host, "total_ms": total,
                 "total_ms_median": float(np.median(total[1:])),
                 "profiled_self_cpu_ms_per_step": cpu_us / 3e3,
-                "profiled_self_cuda_ms_per_step": cuda_us / 3e3}
+                "profiled_self_cuda_ms_per_step": cuda_us / 3e3,
+                **graphed}
             with open(os.path.join(out_dir, "rank{}_{}.txt".format(
                     dp.rank, key)), "w") as f:
                 f.write(events.table(sort_by="cpu_time_total",
@@ -150,7 +178,9 @@ def main(argv=None):
     p.add_argument("--backend", default=None)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--res", type=int, default=256)
-    p.add_argument("--steps", type=int, default=6)
+    p.add_argument("--steps", type=int, default=6,
+                   help="steps of each kind (the graphed ones: 2 eager, "
+                   "a capture, then replays)")
     p.add_argument("--out", default="chiprun_out/ddp_profile")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
