@@ -58,6 +58,13 @@ writer and reader. Then it drives the port's paths at full width
   `cli.main --spatial_shard 2`; with two cards visible, the dp 1 x sp 2
   steps over NCCL across them, with four the dp 2 x sp 2 ones (each
   NCCL rank's steps replays of its graph);
+- the other backbones' rows split over ranks (spatial_archs): two gloo
+  ranks sharing one card as dp 1 x sp 2 train 2 FP32 steps of res_18,
+  resdcn_18, dlav0_34, dla_34 and hourglass on COCO ctdet at 512^2 from
+  the conditioned init, held to one process on the card (5e-3) with
+  bit-equal rank states, each rank's ms per step and peak memory beside
+  one process's, then `cli.main --spatial_shard 2` with no --arch; with
+  two and four cards the NCCL grids; no deform kernel launched;
 - batched eval (`cli.test --batch_eval 32`) with the host warp,
   --device_warp and --device_cache;
 - multi-scale flip-test requests merged by soft-NMS, at fix_res with
@@ -142,9 +149,9 @@ a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
 before them gives each phase's wall seconds. `--phases trace,...` runs
 only the named phases that need no other's results (trace,
-dense_targets, ladder_ops, graphs, ddp, spatial; ddp_nccl and
-spatial_nccl: their NCCL parts alone, for a call across cards), after
-the build (no kernel table, no ok line).
+dense_targets, ladder_ops, graphs, ddp, spatial, spatial_archs; ddp_nccl
+and spatial_nccl: their NCCL parts alone, for a call across cards),
+after the build (no kernel table, no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
 random batch and the deform scale predictors are redrawn, so that s is
@@ -376,10 +383,7 @@ def graph_time_ms(fn, iters):
 
 
 def phase_env():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = phase_card()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit(smi)
@@ -389,6 +393,14 @@ def phase_env():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
     return smi
+
+
+def phase_card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def phase_build():
@@ -938,7 +950,9 @@ class CocoSmokeData(SmokeData):
     under exp/ (the layout data/datasets.py::COCO and COCOHP read)."""
     res = COCO_RES
 
-    def __init__(self, task, n_train=64, n_val=8):
+    def __init__(self, task, n_train=64, n_val=8, write=True):
+        """write=False: the frames alone (a rank of the spatial_archs
+        phase, whose parent wrote the annotations)."""
         self.task = task
         self.name = "coco_hp" if task == "multi_pose" else "coco"
         frames, (boxes, keypoints) = coco_frames(n_train + n_val)
@@ -953,11 +967,13 @@ class CocoSmokeData(SmokeData):
                            ("val", range(n_train + 1,
                                          n_train + n_val + 1))):
             keep = set(ids)
-            (ann_dir / "{}_{}2017.json".format(prefix, split)).write_text(
-                json.dumps(dict(gt, images=[i for i in gt["images"]
-                                            if i["id"] in keep],
-                                annotations=[a for a in gt["annotations"]
-                                             if a["image_id"] in keep])))
+            if write:
+                (ann_dir / "{}_{}2017.json".format(prefix, split)) \
+                    .write_text(json.dumps(dict(
+                        gt, images=[i for i in gt["images"]
+                                    if i["id"] in keep],
+                        annotations=[a for a in gt["annotations"]
+                                     if a["image_id"] in keep])))
             img_dir = str(self.data_dir / "coco" / "{}2017".format(split))
             for img, f in zip(gt["images"], frames):
                 if img["id"] in keep:
@@ -3632,13 +3648,15 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
         json.dumps(out))
 
 
-def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None):
+def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None,
+               every_state=False):
     """n train steps from `state` on this rank's rows (dp None: the whole
     batches, in one process; --spatial_shard in opt: on the grid), or on
     `batches`, this rank's rows already, each a Trainer.run_epoch of one
     batch through the epoch engine (graphed in one process and on an
     NCCL rank on a card, the step body on a gloo rank): losses, ms per
-    step, the peak memory on a card, the final state."""
+    step, the peak memory on a card, the final state (with
+    `every_state`, the state after each step as well, `states`)."""
     from codenet_torch.engine.trainer import Trainer
     trainer = Trainer(opt, qspec=qspec, device=device, dp=dp)
     trainer.model.load_state_dict(state, strict=qspec is None)
@@ -3648,15 +3666,21 @@ def _ddp_steps(data, opt, dp, state, qspec, n, device, batches=None):
     if on_card:
         torch.cuda.synchronize(timing.device)
         torch.cuda.reset_peak_memory_stats(timing.device)
-    losses, ms = [], []
+    losses, ms, states = [], [], []
+
+    def host_state():
+        return {k: v.detach().cpu() for k, v in
+                trainer.model.state_dict().items()}
     for b in batches or _rank_batches(data, opt, trainer.dp, n):
         stats, t = _timed(timing, lambda: trainer.run_epoch("train", 1,
                                                             [b]))
         losses.append(stats["loss"])
         ms.append(t)
-    out = {"losses": losses, "ms_per_step": ms,
-           "state": {k: v.detach().cpu() for k, v in
-                     trainer.model.state_dict().items()}}
+        if every_state:
+            states.append(host_state())
+    out = {"losses": losses, "ms_per_step": ms, "state": host_state()}
+    if every_state:
+        out["states"] = states
     if on_card:
         out["peak_mib"] = \
             torch.cuda.max_memory_allocated(timing.device) / 2 ** 20
@@ -4096,6 +4120,178 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0",
         raise SystemExit("spatial check failed: {}".format(fail))
     launches = [r for run in runs.values() for r in run["launches"]]
     return sum(x[0] for x in launches), sum(x[1] for x in launches)
+
+
+# -- --spatial_shard for CenterNet's other backbones ----------------------
+
+SPATIAL_ARCH_STEPS = 2  # FP32 steps of each arch on the gloo grid
+# the global batch of each arch's grids and its one-process reference:
+# its ARCHS batch where two ranks sharing one card fit, else half of it;
+# each rank holds the whole neck, and dla_34's one-process step at 16
+# takes 40.6 GB (PERF.md section 5); hourglass at 4, not 5, so that
+# the NCCL dp 2 x sp 2 grid splits it over its two data rows
+SPATIAL_ARCH_BATCH = dict(ARCHS, dla_34=8, hourglass=4)
+SPATIAL_ARCH_CLI = "chip_smoke_spatial_archs"
+
+
+def _spatial_arch_rank(dp, out_dir, steps, cli):
+    with _rank_log(dp, out_dir):
+        _spatial_arch_body(dp, out_dir, steps, cli)
+
+
+def _spatial_arch_body(dp, out_dir, steps, cli):
+    """One rank of a --spatial_shard 2 grid: `steps` FP32 steps of each
+    arch of ARCHS from conditioned_init at SPATIAL_ARCH_BATCH, on its
+    data row's rows of the parent's global batches (out_dir's parent,
+    batches.pt), each on its band of the images' rows, with its ms per
+    step and peak memory; with `cli`, cli.main --spatial_shard 2 with no
+    --arch (dla_34, the CLIs' default) for one two-step epoch, rank 0
+    ending in the final eval. Writes rank<k>.pt with this process's
+    deform kernel launches and each part's seconds."""
+    from codenet_torch import config as cfg
+    from codenet_torch.cli.main import run_training
+    from codenet_torch.ops import deform_cuda as DC
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = CocoSmokeData("ctdet", write=False)
+    grid = dataclasses.replace(dp, spatial=2)  # its coordinates alone
+    shared = torch.load(Path(out_dir).parent / "batches.pt",
+                        weights_only=False)
+    out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
+           "device": str(dp.device), "seconds": {}}
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # these archs launch neither kernel
+    for arch, _ in ARCHS:
+        t0 = time.perf_counter()
+        batch = SPATIAL_ARCH_BATCH[arch]
+        rows = [_data_rows({k: v[:batch] for k, v in b.items()}, grid)
+                for b in shared[:steps]]
+        out[arch] = _ddp_steps(
+            data, data.opt(batch, "--spatial_shard", "2", arch=arch), dp,
+            conditioned_init(data.opt(batch, arch=arch)), None, steps,
+            dp.device, rows)
+        torch.cuda.empty_cache()
+        out["seconds"][arch] = time.perf_counter() - t0
+    if cli:
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            run_training(cfg.parse(data.args(
+                SPATIAL_ARCH_BATCH["dla_34"], "--num_epochs", "1",
+                "--num_iters", "2", "--val_intervals", "-1",
+                "--print_iter", "1", "--spatial_shard", "2", "--gpus",
+                "-1" if dp.device.type == "cpu" else "0", "--exp_id",
+                SPATIAL_ARCH_CLI, arch=None)), None, dp)
+        text = log.getvalue()
+        out["cli"] = {"losses": [float(ln.split(" loss ")[1].split()[0])
+                                 for ln in _lines_with(text, "train epoch")],
+                      "final_eval_stats": len(_stats_lines(text))}
+        out["seconds"]["cli"] = time.perf_counter() - t0
+    out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    torch.save(out, Path(out_dir) / "rank{}.pt".format(dp.rank))
+
+
+def phase_spatial_archs(data, device="cuda:0"):
+    """--spatial_shard 2 for CenterNet's other backbones (ARCHS: each
+    model's banded backbone, models/layers.py::band_plan) on COCO ctdet at
+    COCO_RES^2, 80 classes, FP32, from conditioned_init at
+    SPATIAL_ARCH_BATCH: (a) two gloo ranks sharing one card as dp 1 x sp
+    2 take SPATIAL_ARCH_STEPS steps of each arch, held to one process on
+    the card (losses, and parameters and BN statistics in relative L2,
+    within STEP_TOL) with bit-equal rank states, each rank's ms per step
+    and peak memory beside one process's; (b) the same ranks train
+    through cli.main --spatial_shard 2 with no --arch (dla_34) for one
+    two-step epoch, rank 0 ending in the final eval (12 bbox stats); (c)
+    where two cards are visible, dp 1 x sp 2 over NCCL across them, and
+    where four are, dp 2 x sp 2, each SPATIAL_STEPS steps, the last a
+    replay of each rank's graph, held the same way; (d) every rank's
+    deform kernel launches, and the one-process runs', stay 0."""
+    from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.parallel import launch
+    work = ROOT / "exp" / "chip_smoke" / "spatial_archs"
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(ROOT / "exp" / "ctdet" / SPATIAL_ARCH_CLI,
+                  ignore_errors=True)
+    work.mkdir(parents=True)
+    grids = [("gloo_dp1xsp2", [device] * 2, "gloo", SPATIAL_ARCH_STEPS,
+              True)]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        grids.append(("nccl_dp1xsp2", ["cuda:0", "cuda:1"], "nccl",
+                      SPATIAL_STEPS, False))
+    if cards >= 4:
+        grids.append(("nccl_dp2xsp2", ["cuda:{}".format(k)
+                                       for k in range(4)], "nccl",
+                      SPATIAL_STEPS, False))
+    steps = max(g[3] for g in grids)
+    fail, runs, refs = [], {}, {}
+    # the global batches, drawn once at the largest batch: each arch and
+    # rank takes its rows of their first rows
+    opt = data.opt(max(SPATIAL_ARCH_BATCH.values()), arch="res_18")
+    batches = [{k: v for k, v in b.items() if k != "meta"}
+               for b in _rank_batches(data, opt, None, steps)]
+    torch.save(batches, work / "batches.pt")
+    DC.LAUNCHES = DC.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for arch, _ in ARCHS:
+        batch = SPATIAL_ARCH_BATCH[arch]
+        aopt = data.opt(batch, arch=arch)
+        ref = _ddp_steps(data, aopt, None, conditioned_init(aopt), None,
+                         steps, device,
+                         [{k: v[:batch] for k, v in b.items()}
+                          for b in batches], every_state=True)
+        torch.cuda.empty_cache()
+        refs[arch] = {n: {"losses": ref["losses"][:n],
+                          "ms_per_step": ref["ms_per_step"][:n],
+                          "peak_mib": ref.get("peak_mib"),
+                          "state": ref["states"][n - 1]}
+                      for n in {g[3] for g in grids}}
+    ref_seconds = time.perf_counter() - t0
+    ref_launches = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    if ref_launches != [0, 0]:
+        fail.append("one process launches {}".format(ref_launches))
+    for name, devices, backend, n, cli in grids:
+        (work / name).mkdir(parents=True)
+        t0 = time.perf_counter()
+        launch(_spatial_arch_rank, devices, backend=backend,
+               args=(str(work / name), n, cli))
+        ranks = [torch.load(work / name / "rank{}.pt".format(k),
+                            weights_only=False)
+                 for k in range(len(devices))]
+        held = _held(ranks, {arch: refs[arch][n] for arch, _ in ARCHS},
+                     [arch for arch, _ in ARCHS])
+        run = {"seconds": time.perf_counter() - t0, "world": len(devices),
+               "backend": backend, "devices": devices, "steps": n,
+               "held": held, "launches": [r["launches"] for r in ranks],
+               "rank_seconds": [r["seconds"] for r in ranks]}
+        for arch, h in held.items():
+            if not h["ranks_bit_equal"] or h["loss_rel"] > STEP_TOL \
+                    or h["state_rel_l2"] > STEP_TOL \
+                    or not np.all(np.isfinite(h["losses"])):
+                fail.append("{} {}".format(name, arch))
+        for r in ranks:
+            if r["launches"] != [0, 0]:
+                fail.append("{} rank {} launches {}".format(
+                    name, r["rank"], r["launches"]))
+        if cli:
+            run["cli"] = [r["cli"] for r in ranks]
+            c = ranks[0]["cli"]
+            if len(c["losses"]) != 2 or not np.all(np.isfinite(
+                    c["losses"])) or c["final_eval_stats"] != 12 \
+                    or ranks[1]["cli"]["final_eval_stats"] != 0:
+                fail.append("{} cli".format(name))
+        runs[name] = run
+    out = {"phase": "spatial_archs", "res": COCO_RES,
+           "batch": SPATIAL_ARCH_BATCH, "tol": STEP_TOL,
+           "card": phase_card(), "one_process_seconds": ref_seconds,
+           "one_process_launches": ref_launches, "runs": runs,
+           "nccl": "ran across {} cards".format(
+               max(len(r["devices"]) for n, r in runs.items()
+                   if n.startswith("nccl"))) if "nccl_dp1xsp2" in runs
+           else "not run: {} card(s) visible".format(cards),
+           "failed": fail}
+    emit(out)
+    if fail:
+        raise SystemExit("spatial_archs check failed: {}".format(fail))
 
 
 # -- the profiler trace, the dense targets, the ladder and the ops ---------
@@ -4845,7 +5041,7 @@ def timed(name, fn, *args):
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
 STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs", "ddp",
-              "spatial", "ddp_nccl", "spatial_nccl")
+              "spatial", "spatial_archs", "ddp_nccl", "spatial_nccl")
 
 
 def main(argv=None):
@@ -4888,6 +5084,8 @@ def run(args):
                "graphs": lambda: phase_graphs(data),
                "ddp": lambda: phase_ddp(data),
                "spatial": lambda: phase_spatial(data),
+               "spatial_archs": lambda: phase_spatial_archs(
+                   CocoSmokeData("ctdet")),
                # their NCCL parts alone: the call across cards
                "ddp_nccl": lambda: phase_ddp(data, gloo=False),
                "spatial_nccl": lambda: phase_spatial(data, gloo=False)}
@@ -4932,6 +5130,7 @@ def run(args):
     int8_tasks = timed("int8_tasks", phase_int8_tasks)
     configs = timed("configs_ae", phase_configs_ae)
     timed("backbones", phase_backbones, CocoSmokeData("ctdet"))
+    timed("spatial_archs", phase_spatial_archs, CocoSmokeData("ctdet"))
     synth = timed("synthreg", phase_synthreg)
 
     pallas = next(ROOT.glob("*/ops/deform_pallas.py"))

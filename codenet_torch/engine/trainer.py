@@ -54,18 +54,22 @@ that each batch asks for no other rows, on either path. Val steps run on
 one rank alone (the CLI runs them on rank 0), with this process's batch
 and no collective.
 
---spatial_shard k (ShuffleNetV2, the JAX trainer's get_mesh_2d): `dp`
+--spatial_shard k (every arch, the JAX trainer's get_mesh_2d): `dp`
 becomes a data x spatial grid (parallel/mesh.py::grid; one process
 raises, as the JAX mesh does on one device). The ranks of one data row
 load the same rows of each global batch; each makes its band of the
 images' rows (data/device_aug.py::model_input) and runs the backbone on
-it, then the whole neck and heads on the gathered map
-(models/shufflenetv2.py). The loss normalisers count the data group's
-images, each rank scales its loss by 1/k before the backward (the k
-ranks of a row compute the same loss), and the gradients are summed over
-the world, so every rank keeps bit-equal state and a step is the
-one-process step. Where an image's rows do not split over k, the batch
-runs whole on every rank of its row, with the JAX mesh's warning.
+it, then the whole neck and heads on the gathered map (each model's
+`forward(..., grid, full_height)`; models/layers.py::band_plan). The
+loss normalisers count the data group's images, each rank scales its
+loss by 1/k before the backward (the k ranks of a row compute the same
+loss), the gradients are summed over the world, and the buffers
+(the neck's BN statistics, which a transposed conv that sums in no
+fixed order leaves a rounding apart on a card) come from the row's first
+rank, so every rank keeps bit-equal state and a step is the one-process
+step. Where an image's
+rows do not split over k, the batch runs whole on every rank of its row,
+with the JAX mesh's warning.
 """
 
 from __future__ import annotations
@@ -87,7 +91,7 @@ from ..models.layers import set_data_parallel
 from ..models.losses import LOSS_FACTORY
 from ..ops.deform_cuda import CountedGraph
 from ..parallel.mesh import (all_reduce_grads, all_sum, band,
-                             broadcast_module, grid)
+                             broadcast_module, grid, sync_spatial_replicas)
 from ..utils.meters import AverageMeter
 from .detector import device_from_opt
 
@@ -156,8 +160,9 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
     step copies nothing from the host to the device: a CUDA graph can
     capture it. On a data x spatial grid (`dp.spatial` k > 1) the model
     runs on this rank's band of rows, the loss is scaled by 1/k for the
-    backward and the summed stats are divided by k (the module
-    docstring)."""
+    backward, the buffers are taken from the first rank of the data row
+    (parallel/mesh.py::sync_spatial_replicas) and the summed stats are
+    divided by k (the module docstring)."""
     fuse = fuse and not quantized and can_fuse_heads(model)
     spatial = dp.spatial if dp is not None else 1
 
@@ -204,6 +209,7 @@ def make_train_step(model, loss_fn, loss_opts, optimizer, quantized, mean,
         (loss / spatial if spatial > 1 else loss).backward()
         all_reduce_grads(model.parameters(), dp)
         optimizer.step()
+        sync_spatial_replicas(model, dp)
         stats = {k: stat(v, loss) for k, v in stats.items()}
         if dp is not None:
             summed = all_sum(torch.stack(list(stats.values())), dp)
@@ -376,10 +382,6 @@ class Trainer:
                  fuse_heads=True):
         spatial = getattr(opt, "spatial_shard", 1)
         if spatial > 1:
-            if opt.arch != "shufflenetv2":
-                raise NotImplementedError(
-                    "--spatial_shard with --arch {} is queued in "
-                    "ROADMAP.md (item 30)".format(opt.arch))
             dp = grid(dp, spatial)
         self.opt = opt
         self.qspec = qspec

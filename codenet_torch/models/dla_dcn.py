@@ -27,7 +27,8 @@ from torch import nn
 
 from .deform_modules import ModulatedDeformConvPack
 from .dlav0 import CHANNELS, DLA, SharedUp, ida_plan, reset_dla
-from .layers import bn, msra_init_, nchw, nhwc, pose_head, reset_pose_head
+from .layers import (band_plan, bn, msra_init_, nchw, nhwc, pose_head,
+                     reset_pose_head)
 
 
 class DeformConvBlock(nn.Module):
@@ -117,8 +118,13 @@ class DLASegDCN(nn.Module):
             reset_pose_head(getattr(self, name), name, generator,
                             msra_init_, msra_init_)
 
-    def forward(self, images, update_stats=False):
-        outs = self.dla_up(self.base(nchw(images))[self.first_level:])
+    def forward(self, images, update_stats=False, grid=None,
+                full_height=None):
+        """With `grid`, the base on bands and the DCN neck on the gathered
+        levels (dlav0.py's DLASeg)."""
+        sp, cut = band_plan(self, self.base.steps(), grid, full_height)
+        outs = self.dla_up(self.base(nchw(images), sp, cut,
+                                     self.first_level))
         feat = self.ida_up(outs[:self.n_final])[-1]
         return {name: nhwc(getattr(self, name)(feat)).float()
                 for name, _ in self.heads}

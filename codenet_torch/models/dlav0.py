@@ -10,6 +10,13 @@ torch_import.py::convert_dlav0 reads): ``base.base_layer.{0,1}``,
 root,project}...``, ``dla_up.ida_{i}.{proj_j.{0,1}, up_j, node_j.{0,1}}``
 and heads ``{head}.0`` / ``{head}.2``.
 
+With `grid` (--spatial_shard; models/shufflenetv2.py says how) the
+`DLA` base levels run on bands of the images' rows (`layers.run_steps`;
+a Tree's `Root` is a 1x1 conv on a concatenation of one band's maps),
+and each level output the neck reads is gathered ahead of `dla_up`; where
+a level's output rows stop splitting, the map is gathered there and the
+later levels run whole.
+
 The IDA upsamplers are the reference's depthwise ConvTranspose2d(C, C,
 2f, stride f, padding f//2, groups=C), bilinear at init. As in the JAX
 package, each holds ONE (2f, 2f) plane shared by all channels
@@ -26,8 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (bn, conv, msra_init_, nchw, nhwc, normal_init_,
-                     pose_head, reset_pose_head)
+from ..parallel.mesh import gather_rows
+from .layers import (band_plan, bn, conv, max_pool_rows, msra_init_, nchw,
+                     nhwc, normal_init_, pose_head, reset_pose_head,
+                     row_window, run_steps)
 
 LEVELS = (1, 1, 1, 2, 2, 1)
 CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -139,7 +148,7 @@ class Tree(nn.Module):
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
-        bottom = F.max_pool2d(x, self.stride, self.stride) \
+        bottom = max_pool_rows(x, self.stride, self.stride) \
             if self.stride > 1 else x
         res = bottom if self.project is None else self.project(bottom)
         if self.level_root:
@@ -165,13 +174,27 @@ class DLA(nn.Module):
                     Tree(LEVELS[lv], c[lv - 1], c[lv], 2,
                          level_root=lv != 2))
 
-    def forward(self, x):
-        y = self.base_layer(x)
-        outs = []
-        for lv in range(6):
-            y = getattr(self, "level{}".format(lv))(y)
-            outs.append(y)
-        return outs
+    def steps(self):
+        """The six levels as steps (layers.gather_point); the first runs
+        the base layer too. A Tree level's windows: its stride-2 block's
+        3x3 (its 2x2 / 2 max pool gives the same rows)."""
+        steps = [(lambda y: self.level0(self.base_layer(y)),
+                  [self.base_layer, self.level0],
+                  (row_window(self.base_layer[0]),
+                   row_window(self.level0[0]))),
+                 (self.level1, [self.level1], (row_window(self.level1[0]),))]
+        for lv in range(2, 6):
+            level = getattr(self, "level{}".format(lv))
+            steps.append((level, [level], ((3, level.stride, 1),)))
+        return steps
+
+    def forward(self, x, sp=None, cut=0, first=0):
+        """The levels' outputs from level `first` on, whole; the first
+        `cut` levels on bands over `sp` (layers.band_plan), each gathered
+        here."""
+        outs = run_steps(self.steps(), x, sp, cut)
+        return [gather_rows(y, sp) if lv + 1 < cut else y
+                for lv, y in enumerate(outs) if lv >= first]
 
 
 def ida_plan(chans):
@@ -261,9 +284,10 @@ class DLASeg(nn.Module):
             reset_pose_head(getattr(self, name), name, generator,
                             msra_init_, out_init)
 
-    def forward(self, images, update_stats=False):
-        outs = self.base(nchw(images))
-        x = self.dla_up(outs[self.first_level:])
+    def forward(self, images, update_stats=False, grid=None,
+                full_height=None):
+        sp, cut = band_plan(self, self.base.steps(), grid, full_height)
+        x = self.dla_up(self.base(nchw(images), sp, cut, self.first_level))
         return {name: nhwc(getattr(self, name)(x)).float()
                 for name, _ in self.heads}
 

@@ -18,6 +18,16 @@ package's engine/torch_import.py::convert_hourglass reads): ``pre.{0,1}``,
 
 `forward(images)` returns a LIST of head dicts, one per stack; the loss
 averages over them and the detectors read the last.
+
+With `grid` (--spatial_shard; models/shufflenetv2.py says how) the stem
+runs on bands of the images' rows, and where the kp modules' deepest
+maps (H/128 rows at n = 5) still split over the ranks, so do the stacks:
+the kp modules (a band's nearest 2x upsample is that band of the whole
+map's), each stack's `cnvs`, and the inter path (`inters_`, `cnvs_`,
+`inters`); each stack's `cnv` is gathered for its heads and its band
+goes on into the inter path. Where those maps do not split, the map is
+gathered after the stem (earlier, where the stem's rows stop splitting)
+and the stacks run whole.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import bn, conv, nchw, nhwc, torch_conv_init_
+from ..parallel.mesh import gather_rows
+from .layers import (band_plan, bn, conv, nchw, nhwc, row_sharded,
+                     row_window, run_steps, torch_conv_init_)
 
 DIMS = (256, 256, 384, 384, 384, 512)
 MODULES = (2, 2, 2, 2, 2, 4)
@@ -89,6 +101,14 @@ class KpModule(nn.Module):
             else residual_chain(next_dim, next_dim, modules[1], "up")
         self.low3 = residual_chain(next_dim, curr_dim, modules[0], "revr")
 
+    def row_windows(self):
+        """The row windows of a forward (layers.gather_point) that change
+        the rows: each level's stride-2 residual down, and its nearest 2x
+        upsample back."""
+        low2 = self.low2.row_windows() if isinstance(self.low2, KpModule) \
+            else ()
+        return ((3, 2, 1),) + low2 + (2,)
+
     def forward(self, x):
         low = self.low3(self.low2(self.low1(x)))
         return self.up1(x) + F.interpolate(low, scale_factor=2,
@@ -96,16 +116,19 @@ class KpModule(nn.Module):
 
 
 class HourglassNet(nn.Module):
-    """exkp (reference :189-283)."""
+    """exkp (reference :189-283). `n`, `dims`, `modules` and `pre_dim` (the
+    stem conv's channels) are the reference's; tests build narrower
+    stand-ins."""
 
-    def __init__(self, heads, num_stacks=2, cnv_dim=256):
+    def __init__(self, heads, num_stacks=2, cnv_dim=256, n=5, dims=DIMS,
+                 modules=MODULES, pre_dim=128):
         super().__init__()
         self.heads = tuple(sorted(dict(heads).items()))
         self.num_stacks = num_stacks
-        curr_dim = DIMS[0]
-        self.pre = nn.Sequential(ConvBlock(7, 3, 128, stride=2),
-                                 Residual(128, curr_dim, stride=2))
-        self.kps = nn.ModuleList(KpModule(5, DIMS, MODULES)
+        curr_dim = dims[0]
+        self.pre = nn.Sequential(ConvBlock(7, 3, pre_dim, stride=2),
+                                 Residual(pre_dim, curr_dim, stride=2))
+        self.kps = nn.ModuleList(KpModule(n, dims, modules)
                                  for _ in range(num_stacks))
         self.cnvs = nn.ModuleList(ConvBlock(3, curr_dim, cnv_dim)
                                   for _ in range(num_stacks))
@@ -138,17 +161,33 @@ class HourglassNet(nn.Module):
             for stack in getattr(self, name):
                 stack[1].bias.fill_(-2.19 if "hm" in name else 0.0)
 
-    def forward(self, images, update_stats=False):
-        inter = self.pre(nchw(images))
+    def _backbone_steps(self):
+        """The stem's two halves and the stacks as steps
+        (layers.gather_point); the stacks' step is run by `forward`, which
+        gathers each stack's cnv for its heads."""
+        return [(self.pre[0], [self.pre[0]], (row_window(self.pre[0].conv),)),
+                (self.pre[1], [self.pre[1]], ((3, 2, 1),)),
+                (None, [self.kps, self.cnvs, self.inters, self.inters_,
+                        self.cnvs_], self.kps[0].row_windows())]
+
+    def forward(self, images, update_stats=False, grid=None,
+                full_height=None):
+        steps = self._backbone_steps()
+        sp, cut = band_plan(self, steps, grid, full_height)
+        inter = run_steps(steps[:2], nchw(images), sp, cut)[-1]
+        banded = sp if cut == len(steps) else None
         outs = []
         for ind in range(self.num_stacks):
-            cnv = self.cnvs[ind](self.kps[ind](inter))
-            outs.append({name: nhwc(getattr(self, name)[ind](cnv)).float()
+            with row_sharded(banded):
+                cnv = self.cnvs[ind](self.kps[ind](inter))
+            whole = cnv if banded is None else gather_rows(cnv, banded)
+            outs.append({name: nhwc(getattr(self, name)[ind](whole)).float()
                          for name, _ in self.heads})
             if ind < self.num_stacks - 1:
-                inter = F.relu(self.inters_[ind](inter)
-                               + self.cnvs_[ind](cnv))
-                inter = self.inters[ind](inter)
+                with row_sharded(banded):
+                    inter = F.relu(self.inters_[ind](inter)
+                                   + self.cnvs_[ind](cnv))
+                    inter = self.inters[ind](inter)
         return outs
 
 

@@ -14,8 +14,11 @@ data parallelism (`set_data_parallel`) each train-mode BatchNorm takes
 the statistics of the global batch, as flax's BN does over a sharded
 batch, and each ``QuantAct`` the global activation range. Inside
 `row_sharded` (--spatial_shard) each map is this rank's band of rows, and
-every conv and max pool that reads across rows takes its halo from its
-neighbours first (parallel/mesh.py::halo_rows).
+every conv (`conv`'s modules and the functional `conv_bn` / `conv_q`)
+and max pool that reads across rows takes its halo from its neighbours
+first (parallel/mesh.py::halo_rows). A backbone is a list of steps that
+`band_plan` and `run_steps` run on bands up to the first step whose rows
+stop splitting, where the map is gathered (`gather_point`).
 
 Quantized (W4A8 fake-quant) execution follows the JAX package's layers.py:
 one module tree for both modes, selected by a ``QuantSpec`` (None = FP32).
@@ -60,7 +63,7 @@ from torch import nn
 from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
-from ..parallel.mesh import all_gather_rows, all_sum, halo_rows
+from ..parallel.mesh import all_gather_rows, all_sum, gather_rows, halo_rows
 
 # int8 eval samples the deform conv in bf16 (the JAX package's
 # layers.py:562-574): its input holds 2^a_bit levels and `deform_act`
@@ -86,8 +89,9 @@ _ROWS = contextvars.ContextVar("row_shard", default=None)
 
 @contextlib.contextmanager
 def row_sharded(sp):
-    """Within the block, the convs (`conv_bn`, `conv_q`) and `pool_rows`
-    read maps split over the spatial group `sp` (None: whole maps)."""
+    """Within the block, the convs (`conv`'s modules, `conv_bn`, `conv_q`),
+    `pool_rows` and `max_pool_rows` read maps split over the spatial group
+    `sp` (None: whole maps)."""
     token = _ROWS.set(sp)
     try:
         yield
@@ -95,16 +99,94 @@ def row_sharded(sp):
         _ROWS.reset(token)
 
 
-def pool_rows(pool, x):
-    """`pool` (an nn.MaxPool2d) on x, a QTensor's values included
-    (`qt_module`); inside `row_sharded`, on this rank's band, its halo
-    filled with -inf beyond the image."""
+def max_pool_rows(x, kernel, stride, padding=0):
+    """``F.max_pool2d(x, kernel, stride, padding)``; inside `row_sharded`,
+    on this rank's band, its halo filled with -inf beyond the image (a
+    band whose output rows do not split over the ranks raises in
+    halo_plan)."""
     sp = _ROWS.get()
     if sp is None:
+        return F.max_pool2d(x, kernel, stride, padding)
+    x = halo_rows(x, sp, kernel, stride, padding, fill=float("-inf"))
+    return F.max_pool2d(x, kernel, stride, (0, padding))
+
+
+def pool_rows(pool, x):
+    """`pool` (an nn.MaxPool2d) on x, a QTensor's values included
+    (`qt_module`); inside `row_sharded`, `max_pool_rows` on this rank's
+    band."""
+    if _ROWS.get() is None:
         return qt_module(pool, x)
-    k, stride, pad = pool.kernel_size, pool.stride, pool.padding
-    x = halo_rows(x, sp, k, stride, pad, fill=float("-inf"))
-    return F.max_pool2d(x, k, stride, (0, pad))
+    return max_pool_rows(x, pool.kernel_size, pool.stride, pool.padding)
+
+
+# -- a backbone on row bands (--spatial_shard) ------------------------------
+# A backbone is a list of steps (fn, modules, windows): fn maps a step's
+# input to its output, `modules` hold its BNs and quantizers, and
+# `windows` are the row windows its ops read, in order: (kernel, stride,
+# padding) or an int f for a nearest f-times upsample (a band's upsample
+# is that band of the whole map's); () for a step that reads no other
+# row, None for one that cannot run on bands (the deform blocks, whose
+# offsets reach past any halo).
+
+def gather_point(steps, height, spatial):
+    """How many of `steps` run on bands of `height` image rows split over
+    `spatial` ranks: up to the first that cannot, or one of whose
+    windows' output rows do not split (all of them when every one does);
+    None when the image's own rows do not split."""
+    if height % spatial:
+        return None
+    for i, (_, _, windows) in enumerate(steps):
+        if windows is None:
+            return i
+        for w in windows:
+            height = height * w if isinstance(w, int) \
+                else (height + 2 * w[2] - w[0]) // w[1] + 1
+            if height % spatial:
+                return i
+    return len(steps)
+
+
+def band_plan(model, steps, grid, full_height):
+    """(sp, cut) of a forward of `model` whose backbone is `steps`: with
+    `grid` (a data x spatial parallel.DataParallel) and images of
+    `full_height` rows, the spatial group and how many steps run on its
+    bands (`gather_point`); (None, 0) without a grid, or where the rows
+    do not split and the caller passed whole images. The BNs and
+    quantizers of the banded steps reduce over the whole grid; the rest of
+    `model`'s over its data group."""
+    if grid is None:
+        return None, 0
+    cut = gather_point(steps, full_height, grid.spatial)
+    set_data_parallel(model, grid.over_data)
+    for _, mods, _ in steps[:cut or 0]:
+        for m in mods:
+            if m is not None:  # an FP32 model's quantizer slots
+                set_data_parallel(m, grid)
+    return (None, 0) if cut is None else (grid.over_spatial, cut)
+
+
+def run_steps(steps, x, sp=None, cut=0):
+    """x through `steps`, the first `cut` on bands over `sp` (`band_plan`;
+    a cut of 0 gathers x first): every step's output, the map gathered at
+    the cut. The outputs of the steps before the cut but the last of them
+    stay this rank's bands (`gather_rows` makes them whole)."""
+    if sp is not None and cut == 0:
+        x = gather_rows(x, sp)
+    outs = []
+    for i, (fn, _, _) in enumerate(steps):
+        with row_sharded(sp if i < cut else None):
+            x = fn(x)
+        if i + 1 == cut:
+            x = gather_rows(x, sp)
+        outs.append(x)
+    return outs
+
+
+def row_window(conv_mod):
+    """(kernel, stride, padding) of a conv over rows."""
+    return (conv_mod.kernel_size[0], conv_mod.stride[0],
+            conv_mod.padding[0])
 
 
 def max_pool(x, window=3, stride=2, padding=1):
@@ -195,10 +277,19 @@ def reset_pose_head(head, name, generator, conv1_init, out_init):
     convs[-1].bias.fill_(-2.19 if "hm" in name else 0.0)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose forward is `_conv` (the same F.conv2d outside
+    `row_sharded`; inside it, of this rank's band widened by its halo).
+    Same parameters, buffers and names."""
+
+    def forward(self, x):
+        return _conv(self, x, self.weight, self.bias, None)
+
+
 def conv(cin, cout, kernel_size=1, stride=1, padding=0, groups=1,
          bias=False):
-    return nn.Conv2d(cin, cout, kernel_size, stride, padding, groups=groups,
-                     bias=bias)
+    return Conv2d(cin, cout, kernel_size, stride, padding, groups=groups,
+                  bias=bias)
 
 
 class _GlobalBatchNorm(torch.autograd.Function):

@@ -15,6 +15,15 @@ transposed conv, BN), and heads ``{head}.0`` / ``{head}.2``.
 `forward(images)` takes (N, H, W, 3) images and returns {head: (N, H/4,
 W/4, C)}, NHWC like the JAX model; inside, activations are channels_last
 NCHW. BN follows the module's train/eval mode.
+
+With `grid` (--spatial_shard; a data x spatial parallel.DataParallel)
+the images are this rank's band of rows (models/shufflenetv2.py says
+how): the stem conv, its max pool and layer1-layer4 run on bands
+(`layers.run_steps`: every conv and pool that reads across rows takes
+its halo first; the blocks' 1x1 stride-2 downsamples read their own
+band's rows), their BNs reducing over the grid, and the map is gathered
+ahead of the upsampling stages (the transposed convs, and resdcn's
+DCNv2s), or ahead of the first stage whose output rows do not split.
 """
 
 from __future__ import annotations
@@ -24,8 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .deform_modules import ModulatedDeformConvPack
-from .layers import (bn, conv, nchw, nhwc, normal_init_, pose_head,
-                     reset_pose_head, torch_conv_init_)
+from .layers import (band_plan, bn, conv, max_pool_rows, nchw, nhwc,
+                     normal_init_, pose_head, reset_pose_head, row_window,
+                     run_steps, torch_conv_init_)
 
 
 class BasicBlock(nn.Module):
@@ -163,11 +173,22 @@ class PoseResNet(nn.Module):
             reset_pose_head(getattr(self, name), name, generator,
                             torch_conv_init_, out_init(name))
 
-    def forward(self, images, update_stats=False):
-        y = F.relu(self.bn1(self.conv1(nchw(images))))
-        y = F.max_pool2d(y, 3, 2, 1)
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            y = stage(y)
+    def _backbone_steps(self):
+        """The stem, its max pool and the four stages as steps
+        (layers.gather_point)."""
+        steps = [(lambda y: F.relu(self.bn1(self.conv1(y))), [self.bn1],
+                  (row_window(self.conv1),)),
+                 (lambda y: max_pool_rows(y, 3, 2, 1), [], ((3, 2, 1),))]
+        for si in range(4):
+            stage = getattr(self, "layer{}".format(si + 1))
+            steps.append((stage, [stage], ((3, 1 if si == 0 else 2, 1),)))
+        return steps
+
+    def forward(self, images, update_stats=False, grid=None,
+                full_height=None):
+        steps = self._backbone_steps()
+        sp, cut = band_plan(self, steps, grid, full_height)
+        y = run_steps(steps, nchw(images), sp, cut)[-1]
         y = self.deconv_layers(y)
         return {name: nhwc(getattr(self, name)(y)).float()
                 for name, _ in self.heads}

@@ -50,7 +50,9 @@ stage, or ahead of the first backbone step whose output rows would not
 split evenly; from there on each rank of the data row runs the same
 whole map, its BNs and quantizers reducing over the data group alone.
 Where the image's rows do not split, the caller passes whole images
-(`full_height` not divisible by k) and every step runs whole.
+(`full_height` not divisible by k) and every step runs whole. With the
+deform backbone the map is gathered after the stem, ahead of layer1's
+first deform block.
 """
 
 from __future__ import annotations
@@ -60,12 +62,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import QTensor
-from ..parallel.mesh import gather_rows
-from .layers import (CodesignDeformBlock, apply_act, bn, channel_shuffle,
-                     conv, conv_bn, conv_q, kaiming_normal_relu_, nchw,
-                     nhwc, pool_rows, qt_concat, qt_module, qt_spatial,
-                     quant_act, row_sharded, set_data_parallel,
-                     torch_conv_init_)
+from .layers import (CodesignDeformBlock, apply_act, band_plan, bn,
+                     channel_shuffle, conv, conv_bn, conv_q, gather_point,
+                     kaiming_normal_relu_, nchw, nhwc, pool_rows,
+                     qt_concat, qt_module, qt_spatial, quant_act,
+                     run_steps, torch_conv_init_)
 
 
 class BaseNode(nn.Module):
@@ -267,8 +268,11 @@ class PoseShuffleNetV2(nn.Module):
                 torch_conv_init_(m.weight, generator)
 
     def _backbone_steps(self, up):
-        """The backbone as steps (fn, the modules whose BNs and quantizers
-        it runs, its (kernel, stride, padding) over rows or None)."""
+        """The backbone as steps (layers.gather_point): (fn, the modules
+        whose BNs and quantizers it runs, its row windows). The deform
+        backbone's stages cannot run on bands: their deform blocks'
+        offsets reach up to 8 rows, past any halo plan (the JAX package's
+        GSPMD re-gathers the map ahead of its batch-only kernels)."""
         q, dt = self.qspec, self.dtype
 
         def stem(y):
@@ -282,30 +286,19 @@ class PoseShuffleNetV2(nn.Module):
             return apply_act(self.layer4_act, y, up)
         c0 = self.layer0[0]
         steps = [(stem, [self.layer0, self.layer0_act],
-                  (3, c0.stride[0], 1))]
+                  ((3, c0.stride[0], 1),))]
         if self.maxpool:
             steps.append((lambda y: pool_rows(self.layer0[3], y), [],
-                          (3, 2, 1)))
+                          ((3, 2, 1),)))
+        stage_rows = None if self.deform_backbone else ((3, 2, 1),)
         for stage in (self.layer1, self.layer2, self.layer3):
             steps.append((lambda y, st=stage: st(y, up), [stage],
-                          (3, 2, 1)))
-        steps.append((last, [self.layer4, self.layer4_act], None))
+                          stage_rows))
+        steps.append((last, [self.layer4, self.layer4_act], ()))
         return steps
 
-    def _gather_point(self, steps, height, spatial):
-        """How many backbone steps run on bands of `height` rows split
-        over `spatial` ranks: up to the first whose output rows do not
-        split (all of them when every one does); None when the image's
-        own rows do not split."""
-        if height % spatial:
-            return None
-        for i, (_, _, window) in enumerate(steps):
-            if window is not None:
-                k, stride, pad = window
-                height = (height + 2 * pad - k) // stride + 1
-                if height % spatial:
-                    return i
-        return len(steps)
+    # the shared walker (layers.gather_point) over `_backbone_steps`
+    _gather_point = staticmethod(gather_point)
 
     def forward(self, images, update_stats=False, return_neck=False,
                 grid=None, full_height=None):
@@ -317,24 +310,8 @@ class PoseShuffleNetV2(nn.Module):
         is whole on every rank (the module docstring)."""
         up = update_stats
         steps = self._backbone_steps(up)
-        y = nchw(images)
-        sp, cut = None, 0  # steps [0, cut) run on bands
-        if grid is not None:
-            if self.deform_backbone:
-                raise NotImplementedError(
-                    "--spatial_shard with the deform backbone is queued in "
-                    "ROADMAP.md (item 30)")
-            sp = grid.over_spatial
-            cut = self._gather_point(steps, full_height, grid.spatial)
-            if cut == 0:
-                y = gather_rows(y, sp)
-            cut = cut or 0
-            self._reduce_over(steps, cut, grid)
-        for i, (fn, _, _) in enumerate(steps):
-            with row_sharded(sp if i < cut else None):
-                y = fn(y)
-            if i + 1 == cut:
-                y = gather_rows(y, sp)
+        sp, cut = band_plan(self, steps, grid, full_height)
+        y = run_steps(steps, nchw(images), sp, cut)[-1]
         for i in range(3):
             block, block_bn = self.deconv_layers[4 * i:4 * i + 2]
             y = F.relu(block(y, block_bn, up))
@@ -344,20 +321,6 @@ class PoseShuffleNetV2(nn.Module):
             return y
         return {name: nhwc(getattr(self, name)(y, up)).float()
                 for name, _ in self.heads}
-
-    def _reduce_over(self, steps, cut, grid):
-        """The BNs and quantizers of the steps before `cut` reduce over the
-        whole grid; the rest, the neck's and the heads', over the data
-        group."""
-        banded = [m for _, mods, _ in steps[:cut] for m in mods]
-        whole = [m for _, mods, _ in steps[cut:] for m in mods]
-        whole += [self.deconv_layers] + [getattr(self, n) for n in (
-            ["deconv{}_act".format(i) for i in range(3)]
-            + [name for name, _ in self.heads])]
-        for mods, over in ((banded, grid), (whole, grid.over_data)):
-            for m in mods:
-                if m is not None:
-                    set_data_parallel(m, over)
 
 
 def get_shufflenetv2_dcn(num_layers, heads, head_conv=64, w2=False,

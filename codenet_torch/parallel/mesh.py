@@ -38,8 +38,12 @@ each global batch) and spatial slot s (its band of rows of each image);
 on the bands: each conv and pool takes the rows it needs from its
 neighbours (`halo_rows`), every backbone BN and quantizer reduces over
 the whole grid, and `gather_rows` puts the map together again ahead of
-the deform stage, which each rank of a row then runs on the same map,
-reducing over its data group alone (models/shufflenetv2.py). The loss is
+the neck (ShuffleNetV2's deform stage, the transposed convs and DCNv2s
+of the other archs, hourglass's heads), which each rank of a row then
+runs on the same map, reducing over its data group alone
+(models/layers.py::band_plan, each model's forward), its statistics
+taken from the row's first rank after each step
+(`sync_spatial_replicas`). The loss is
 counted once: each rank of a row scales it by 1/k, the gather's backward
 sums the rows' gradients (a reduce-scatter), and the gradients are summed
 over the world as with k = 1.
@@ -322,6 +326,29 @@ def all_reduce_grads(params, dp):
         offset += g.numel()
 
 
+def sync_spatial_replicas(module, dp):
+    """On a data x spatial grid, every floating buffer of `module` (BN
+    running statistics, QAT ranges) from the first rank of each spatial
+    group, as one broadcast of a flat buffer made on the device
+    (capture-safe). The k ranks of a data row run the neck on the same
+    map, and a kernel that sums in no fixed order (cuDNN's transposed
+    conv on a card) leaves their statistics a rounding apart; the
+    gradients need nothing, being summed over the world. A no-op off a
+    grid."""
+    if dp is None or dp.spatial == 1:
+        return
+    bufs = [b for b in module.buffers() if b.is_floating_point()]
+    if not bufs:
+        return
+    flat = torch.cat([b.reshape(-1) for b in bufs])
+    dist.broadcast(flat, src=dp.rank - dp.spatial_rank,
+                   group=dp.spatial_group)
+    offset = 0
+    for b in bufs:
+        b.copy_(flat[offset:offset + b.numel()].view_as(b))
+        offset += b.numel()
+
+
 # -- image rows split over the spatial ranks (--spatial_shard) -------------
 # A map split over the `sp` ranks of a spatial group (a DataParallel
 # over_spatial) holds rows [s * h, (s + 1) * h) of its H = sp * h rows on
@@ -399,7 +426,8 @@ class _HaloRows(torch.autograd.Function):
             if part:
                 buf[:, off + part[0] - lo:off + part[1] - lo] = \
                     xh[:, part[0] - s * h:part[1] - s * h]
-        dist.all_reduce(buf, group=sp.group)
+        if length:  # a window inside every band (2x2 / 2, 1x1 / 2) reads
+            dist.all_reduce(buf, group=sp.group)  # no other rank's rows
         height = h * sp.world
         pieces = []
         if a < 0:
@@ -430,7 +458,8 @@ class _HaloRows(torch.autograd.Function):
         for t, lo, hi, off in slots:
             if t == s:
                 buf[:, off:off + hi - lo] = g[:, lo - a:hi - a]
-        dist.all_reduce(buf, group=sp.group)
+        if length:
+            dist.all_reduce(buf, group=sp.group)
         dx = grad.new_zeros((n, h, w, c))
         own = _owned(*plan[s], s, h)
         if own:

@@ -41,7 +41,6 @@ import contextlib
 import os
 import subprocess
 import sys
-import types
 
 import jax
 import jax.numpy as jnp
@@ -248,10 +247,13 @@ def test_grid_refusals_match_get_mesh_2d(n, spatial):
         assert str(one.value) == str(jerr.value)
 
 
-def test_one_process_raises_as_the_jax_trainer():
+def test_one_process_raises_as_the_jax_trainer(ranks):
     """--spatial_shard 2 on one process: the JAX Trainer on one device
-    and the port's Trainer raise the same ValueError; another arch, and
-    the deform backbone, raise naming their ROADMAP item."""
+    and the port's Trainer raise the same ValueError. On two ranks
+    another arch's Trainer builds its grid (rank, world, spatial, data
+    rows), and the deform backbone runs its stem on bands and gathers
+    ahead of layer1's first deform block (tests/
+    test_torch_spatial_archs.py holds both against one process)."""
     from codenet_torch.engine.trainer import Trainer
     from codenet_torch.models import create_model
     jopt = _jax_opt("--spatial_shard", "2")
@@ -261,14 +263,12 @@ def test_one_process_raises_as_the_jax_trainer():
     with pytest.raises(ValueError) as terr:
         Trainer(W.task_opt(extra=["--spatial_shard", "2"]), device="cpu")
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="item 30"):
-        Trainer(W.task_opt(extra=["--spatial_shard", "2", "--arch",
-                                  "res_18"]), device="cpu")
+    got, _ = ranks
+    assert [r["res_18_grid"] for r in got["grid2"]] == [(0, 2, 2, 1),
+                                                        (1, 2, 2, 1)]
     model = create_model("shufflenetv2", {"hm": 20}, 64,
                          deform_backbone=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 30"):
-        model(torch.zeros(1, 64, 64, 3),
-              grid=types.SimpleNamespace(spatial=2), full_height=64)
+    assert model._gather_point(model._backbone_steps(False), 64, 2) == 1
 
 
 @contextlib.contextmanager

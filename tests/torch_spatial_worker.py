@@ -16,9 +16,10 @@ each global batch (process_batch_slice over the data axis).
   is gathered ahead of it; one f32 --device_cache_shard step at dp 2 x
   sp 2 with colour aug (the contrast's grey mean) through
   Trainer.run_epoch;
-- ``grid2``, two ranks: 2 FP32 and 2 QAT steps at dp 1 x sp 2 (f64),
-  2 FP32 steps in f32 (for the JAX mesh), the colour aug of a band
-  and one f32 step of a uint8 batch with colour aug;
+- ``grid2``, two ranks: a res_18 Trainer's grid, 2 FP32 and 2 QAT
+  steps at dp 1 x sp 2 (f64), 2 FP32 steps in f32 (for the JAX mesh),
+  the colour aug of a band and one f32 step of a uint8 batch with colour
+  aug;
 - ``grid3``, three ranks: one step at dp 1 x sp 3 of 64-row images,
   which do not split (the warning, the batch run whole);
 - ``engine``, two ranks (test_torch_dp_engine.py): the graphed epoch
@@ -255,9 +256,19 @@ def color_band(dp, spatial):
         (RES, sp))}
 
 
+def grid_of_trainer(dp, arch):
+    """The grid coordinates (rank, world, spatial, data rows) of a Trainer
+    built for `arch` with --spatial_shard 2."""
+    from codenet_torch.engine.trainer import Trainer
+    g = Trainer(task_opt(extra=["--spatial_shard", "2", "--arch", arch]),
+                device="cpu", dp=dp).dp
+    return g.rank, g.world, g.spatial, g.data_world
+
+
 def grid2(dp):
     from codenet_torch.models.layers import QuantSpec
-    return {"fp32": grid_steps(dp, 2),
+    return {"res_18_grid": grid_of_trainer(dp, "res_18"),
+            "fp32": grid_steps(dp, 2),
             "qat": grid_steps(dp, 2, QuantSpec(wt_percentile=True,
                                                act_clamp=True)),
             "fp32_f32": grid_steps(dp, 2, dtype=torch.float32),
