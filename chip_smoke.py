@@ -137,6 +137,13 @@ writer and reader. Then it drives the port's paths at full width
   per-head ones (eval and a train step, 1e-5); K-batch cached eval as
   one graph against the per-batch loop; the 5-scale merge with the
   native soft-NMS (csrc/nms.cpp) beside the numpy one;
+- the roofline (roofline, tools_torch/roofline.py), cuDNN TF32 allowed
+  as the CLIs run: config a served at batch 128 (f32 and bf16), config
+  d served at 32 and config a's FP32 train step at 32, each whole
+  forward or step one CUDA graph against the tool's step bound, and
+  every row's op built from its shapes and timed alone (its inputs
+  rotated past the L2) against the row's bound; a share (bound / time)
+  above 1.05 or an op that cannot be built fails;
 - the synthetic accuracy regression (synthreg,
   tools_torch/synthetic_regression.py at its --smoke size): FP32, QAT
   and clamp-trained QAT through the CLIs on PNG files it writes, eight
@@ -149,8 +156,9 @@ a non-zero exit. The last three lines are the card (nvidia-smi), the kernel
 table ({"kernels": [...]}) and {"ok": true, "device": {...}}; the line
 before them gives each phase's wall seconds. `--phases trace,...` runs
 only the named phases that need no other's results (trace,
-dense_targets, ladder_ops, graphs, ddp, spatial, spatial_archs; ddp_nccl
-and spatial_nccl: their NCCL parts alone, for a call across cards),
+dense_targets, ladder_ops, graphs, ddp, spatial, spatial_archs,
+roofline; ddp_nccl and spatial_nccl: their NCCL parts alone, for a call
+across cards),
 after the build (no kernel table, no ok line).
 
 Weights are random (seeded): for serving, BN running stats are set from a
@@ -160,7 +168,8 @@ init (s == 1), its card-vs-CPU parity steps (FP32 and QAT) from that init
 with the BN biases raised (conditioned_init). The training and task
 phases' images are synthetic frames held in memory (the dataset's
 `load_image` is overridden); the regression's are PNG files on disk.
-TF32 is off throughout: the parity phases compare FP32 against FP32.
+TF32 is off throughout but in the bf16 phases and the roofline: the
+parity phases compare FP32 against FP32.
 """
 
 from __future__ import annotations
@@ -184,6 +193,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the card's peaks and the deform kernels' counts: one definition, the
+# roofline tool's
+sys.path.insert(0, str(ROOT / "tools_torch"))
+import roofline  # noqa: E402
+from roofline import (BWD_FLOPS_PER_ELEM, FLOPS_PER_OUT,  # noqa: E402
+                      card_peaks, deform_bwd_bytes, deform_fwd_bytes)
+
 SEED = 0
 # (H, W, C) of the three deconv-stage deform calls at 256^2 input, 1x
 MODEL_SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128)]
@@ -301,15 +317,22 @@ INT8_TOL = 2e-2
 DEFORM_PARAMS = tuple("deconv_layers.{}.{}.".format(4 * i, part)
                       for i in range(3)
                       for part in ("conv_scale", "conv", "conv_channel"))
-# memory rate (B/s) and fp32 CUDA-core peak (FLOP/s) by card name
-# (NVIDIA data sheets); the first match wins, SXM is the default
-CARD_PEAKS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-              ("PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
-FLOPS_PER_OUT = 90  # 9 taps x (4 corner mul-adds + 1 tap-weight mul-add)
-# backward, per element of x: 9 taps x (4-corner sample 8, g*w 1, 4 col2im
-# products and adds 8, dw FMA 2) + 8 off-centre taps x (4-corner d/ds 8,
-# ds FMA 2)
-BWD_FLOPS_PER_ELEM = 9 * (8 + 1 + 8 + 2) + 8 * (8 + 2)
+# the roofline phase (tools_torch/roofline.py): its cases (name, input
+# side, --w2, batch, dtype, train step), each with the fused heads as the
+# served paths and the train step run them; no row and no whole may take
+# less than its bound / ROOFLINE_SHARE_MAX
+ROOFLINE_CASES = [("a_served_f32", 256, False, 128, "f32", False),
+                  ("a_served_bf16", 256, False, 128, "bf16", False),
+                  ("d_served_f32", 512, True, 32, "f32", False),
+                  ("a_train_f32", 256, False, TRAIN_BATCH, "f32", True)]
+ROOFLINE_SHARE_MAX = 1.05
+# each row is timed over copies of its inputs that together hold at least
+# ROOFLINE_ROTATE_BYTES (beyond the card's 50 MB L2, so that each launch
+# reads its inputs from HBM), between ROOFLINE_COPIES copies; a whole
+# forward or step is replayed ROOFLINE_REPLAYS times
+ROOFLINE_ROTATE_BYTES = 160e6
+ROOFLINE_COPIES = (8, 64)
+ROOFLINE_REPLAYS = 10
 
 _lines = []
 
@@ -318,13 +341,6 @@ def emit(obj):
     line = obj if isinstance(obj, str) else json.dumps(obj)
     _lines.append(line)
     print(line, flush=True)
-
-
-def card_peaks(name):
-    for key, bw, flops in CARD_PEAKS:
-        if key in name:
-            return bw, flops
-    return CARD_PEAKS[-1][1:]
 
 
 def cuda_time_ms(fn, iters, warmup=3):
@@ -358,28 +374,51 @@ def cudnn_tf32(on):
         torch.backends.cudnn.allow_tf32 = before
 
 
-def graph_time_ms(fn, iters):
-    """Device time per call: `iters` calls captured in one CUDA graph and
-    replayed, so host dispatch drops out (graph launch gaps stay in)."""
-    side = torch.cuda.Stream()
+def graph_time_ms(fns, iters=1, replays=1, keep=False, counted=False,
+                  stream=None):
+    """Device time per call: `iters` rounds of the calls of `fns` (one
+    function, or a list of copies of one op on inputs of their own)
+    captured in one CUDA graph and replayed, so host dispatch drops out
+    (graph launch gaps stay in); one replay untimed, then `replays`
+    between CUDA events. `keep` holds every call's result until the end,
+    so that each call writes memory of its own. Only where `counted` (a
+    main path's whole, replayed) is the graph a deform_cuda.CountedGraph,
+    whose every replay adds its deform launches to the counts. `stream`,
+    where given, is the one the fns' inputs (and the forwards whose
+    backward they run) were made on: warm-up and capture run on it, as
+    autograd runs a backward on its forward's stream."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()  # warm-up off the capture, as CUDA graph capture requires
+        for fn in fns:
+            fn()  # warm-up off the capture, as CUDA graph capture requires
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    if counted:
+        from codenet_torch.ops import deform_cuda as DC
+        graph = DC.CountedGraph()
+        capture = graph.capture(stream=stream)
+    else:
+        graph = torch.cuda.CUDAGraph()
+        capture = torch.cuda.graph(graph, stream=stream)
+    kept = []
+    with capture:
         for _ in range(iters):
-            fn()
+            for fn in fns:
+                out = fn()
+                if keep:
+                    kept.append(out)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    graph.replay()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / iters
+    del graph, kept
+    return start.elapsed_time(end) / (replays * iters * len(fns))
 
 
 def phase_env():
@@ -466,7 +505,7 @@ def _fwd_row(phase, shape, n, dtype, gen, bw, flops, iters=200):
     plain_ms = graph_time_ms(lambda: DC.codesign_deform_conv_plain(x, s, wt),
                              4)
     elems = x.numel()
-    nbytes = 2 * elems * x.element_size() + s.numel() * 4 + 9 * shape[2] * 4
+    nbytes = deform_fwd_bytes(n, *shape, x.element_size())
     t_bytes = nbytes / bw * 1e3
     t_ops = elems * FLOPS_PER_OUT / flops * 1e3
     plan = DC.fwd_plan(n, *shape, dtype)
@@ -594,12 +633,7 @@ def phase_kernel_bwd(bw, flops):
                 lambda: DC.codesign_deform_conv_bwd_plain(x, s, wt, g),
                 2)
             elems = x.numel()
-            npos = s.numel()
-            # what the op must move: x, g, s and w read once, dx (x's
-            # type), ds and dw written once; the zeroing of ds and dw
-            # that the kernel's atomics need counts in `ms` only
-            nbytes = 3 * elems * x.element_size() + 2 * npos * 4 \
-                + 2 * 9 * shape[2] * wt.element_size()
+            nbytes = deform_bwd_bytes(n, *shape, x.element_size())
             t_bytes = nbytes / bw * 1e3
             t_ops = elems * BWD_FLOPS_PER_ELEM / flops * 1e3
             plan = DC.bwd_plan(n, *shape)
@@ -1623,8 +1657,7 @@ def phase_int8(data, qat_model, bw, flops):
             lambda: [DC.codesign_deform_conv_fast(*a) for a in deform_args],
             200)
     # x read and the output written in bf16, s in f32, the bf16 weight
-    nbytes = sum(2 * a[0].numel() * 2 + a[1].numel() * 4
-                 + a[2].numel() * 2 for a in deform_args)
+    nbytes = sum(deform_fwd_bytes(*a[0].shape, 2, 2) for a in deform_args)
     ops = sum(a[0].numel() * FLOPS_PER_OUT for a in deform_args)
     bf16 = {"ms_int8_forward_bf16": bf16_ms,
             "bound_ms_int8_forward_bf16": max(nbytes / bw, ops / flops)
@@ -4992,6 +5025,288 @@ def phase_graphs(data):
     return launches
 
 
+class _Pool:
+    """Views of one seeded random buffer on the card (f32, and its bf16
+    copy), handed out in turn and wrapping around: the roofline rows'
+    inputs, each copy of a row on other data."""
+
+    def __init__(self, numel):
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        self.bufs = {"f32": torch.randn(numel, device="cuda",
+                                        generator=gen)}
+        self.bufs["bf16"] = self.bufs["f32"].to(torch.bfloat16)
+        self.at = 0
+
+    def take(self, shape, dtype="f32"):
+        buf = self.bufs[dtype]
+        numel = int(np.prod(shape))
+        if numel > buf.numel():
+            raise ValueError("{} does not fit the pool".format(shape))
+        if self.at + numel > buf.numel():
+            self.at = 0
+        self.at += numel
+        return buf[self.at - numel:self.at].view(shape)
+
+    def map(self, n, c, h, w, dtype="f32"):
+        """An (n, c, h, w) channels_last map."""
+        return self.take((n, h, w, c), dtype).permute(0, 3, 1, 2)
+
+
+def _grad(fn, wrt, dy):
+    """A launch of the backward of fn (already run once, here) for
+    cotangent dy, the gradients of `wrt` alone."""
+    out = fn()
+    return lambda: torch.autograd.grad(out, wrt, dy, retain_graph=True)
+
+
+def roofline_op(row, pool):
+    """One copy of `row`'s op (tools_torch/roofline.py::Row), built from
+    the row's fields alone on inputs from `pool`: a function that launches
+    it and returns what it writes. Backward rows run torch's own backward
+    of the forward op (autograd, as the port's step does), the gradients
+    of the inputs the row names alone."""
+    import torch.nn.functional as F
+    from codenet_torch.models.layers import channel_shuffle
+    from codenet_torch.ops import deform_cuda as DC
+    kind, n, h, w, c = row.kind, row.n, row.h, row.w, row.cin
+    mp = pool.map
+    if kind in ("conv", "dgrad", "wgrad", "bgrad"):
+        x = mp(n, c, h, w, row.dtype)
+        # OIHW in channels_last, as the model's weights
+        wt = pool.take((row.cout, row.k, row.k, c // row.groups),
+                       row.dtype).permute(0, 3, 1, 2)
+        bias = pool.take((row.cout,), row.dtype) \
+            if row.bias or kind == "bgrad" else None
+        conv = (row.stride, row.k // 2, 1, row.groups)
+        if kind == "conv":
+            return lambda: F.conv2d(x, wt, bias, *conv)
+        dy = mp(n, row.cout, row.ho, row.wo)
+        leaves = [t.detach().requires_grad_(kind == k) if t is not None
+                  else None for t, k in ((x, "dgrad"), (wt, "wgrad"),
+                                          (bias, "bgrad"))]
+        wanted = leaves[("dgrad", "wgrad", "bgrad").index(kind)]
+        return _grad(lambda: F.conv2d(*leaves, *conv), wanted, dy)
+    if kind in ("bn", "bn_train", "bn_bwd"):
+        x = mp(n, c, h, w)
+        stats = [torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")]
+        wb = [pool.take((c,)).detach().requires_grad_(kind == "bn_bwd")
+              for _ in range(2)]
+        if kind == "bn":
+            return lambda: F.batch_norm(x, *stats, *wb, False, 0.1, 1e-5)
+        if kind == "bn_train":
+            return lambda: F.batch_norm(x, *stats, *wb, True, 0.1, 1e-5)
+        x = x.detach().requires_grad_()
+        return _grad(lambda: F.batch_norm(x, *stats, *wb, True, 0.1, 1e-5),
+                     [x, *wb], mp(n, c, h, w))
+    unary = {"relu": F.relu, "hardtanh": lambda t: F.hardtanh(t, -7.0, 8.0),
+             "upsample": lambda t: F.interpolate(t, scale_factor=2,
+                                                 mode="nearest")}
+    if kind in unary:
+        x = mp(n, c, h, w)
+        return lambda: unary[kind](x)
+    if kind.endswith("_bwd") and kind[:-4] in unary:
+        x = mp(n, c, h, w).detach().requires_grad_()
+        scale = 2 if kind == "upsample_bwd" else 1
+        return _grad(lambda: unary[kind[:-4]](x), x,
+                     mp(n, c, h * scale, w * scale))
+    if kind == "cast":
+        dt = {"f32": torch.float32, "bf16": torch.bfloat16}[row.dtype]
+        x = mp(n, c, h, w, "f32" if row.dtype == "bf16" else "bf16")
+        return lambda: x.to(dt)
+    if kind == "bias_add":
+        y, b = mp(n, c, h, w), pool.take((c,))
+        return lambda: y + b[None, :, None, None]
+    if kind == "cat":
+        parts = [pool.take((n, h, w, c)) for _ in range(row.parts)]
+        return lambda: torch.cat(parts, -1)
+    if kind == "pad":
+        v = pool.take((c,))
+        return lambda: F.pad(v, (0, row.cout - c))
+    if kind == "shuffle":
+        x = pool.take((n, h, w, c))
+        return lambda: channel_shuffle(x, 2)
+    if kind == "zeros":
+        return lambda: torch.zeros((n, c, h, w), device="cuda")
+    if kind == "copy":
+        src = mp(n, c, h, w)
+        dst = torch.zeros((n, row.cout, h, w), device="cuda")
+        return lambda: dst[:, :c].copy_(src)
+    if kind == "grad_add":
+        a, b = mp(n, c, h, w), mp(n, c, h, w)
+        return lambda: a + b
+    if kind in ("deform", "deform_bwd"):
+        x = pool.take((n, h, w, c), row.dtype)
+        s = (pool.take((n, h, w, 1)) * 4.0).clamp(-7.0, 8.0)
+        wt = pool.take((3, 3, 1, c), row.dtype) * 0.2
+        if kind == "deform":
+            return lambda: DC.codesign_deform_conv_fast(x, s, wt)
+        g = pool.take((n, h, w, c), row.dtype)
+        return lambda: DC.codesign_deform_conv_bwd(x, s, wt, g)
+    if kind == "adam":
+        p = torch.nn.Parameter(pool.take((c,)).clone())
+        p.grad = pool.take((c,)).clone()
+        adam = torch.optim.Adam([p], capturable=True, fused=True,
+                                lr=torch.tensor(1e-4, device="cuda"))
+        return adam.step
+    raise ValueError("no op for row kind {}".format(kind))
+
+
+def _roofline_rows(rows, peaks, pool, stream, fail):
+    """Each distinct op of `rows` timed alone (graph_time_ms over copies
+    of it that read, at half its bytes each, ROOFLINE_ROTATE_BYTES
+    together; their launches count nowhere); per row (its time, its
+    bound in ms, roof, share)."""
+    times = {}
+    out = []
+    for row in rows:
+        key = row.op()
+        if key not in times:
+            copies = int(np.clip(np.ceil(ROOFLINE_ROTATE_BYTES
+                                         / max(row.bytes / 2, 1.0)),
+                                 *ROOFLINE_COPIES))
+            try:
+                with torch.cuda.stream(stream):
+                    fns = [roofline_op(row, pool) for _ in range(copies)]
+                times[key] = graph_time_ms(fns, keep=True, stream=stream)
+            except Exception as exc:  # a row whose op cannot be built
+                fail.append("{} {}: {!r}".format(row.name, row.kind, exc))
+                times[key] = float("nan")
+        bound, roof = row.bound(peaks)
+        ms = times[key]
+        out.append((row, ms, bound * 1e3, roof, bound * 1e3 / ms))
+    return out
+
+
+def _roofline_model(case):
+    """The tool's rows of a case (ROOFLINE_CASES): its forward's, and a
+    train step's backward and update too."""
+    _, res, w2, batch, dtype, train = case
+    m = roofline.build(res, w2, batch, dtype, fused_heads=True, train=train)
+    return list(m.rows) + (roofline.train_rows(m) if train else [])
+
+
+def _roofline_whole(case, data):
+    """(ms, its deform launches (forward, backward)) of the case's whole
+    served forward (eval_forward, fused heads) or train step (Trainer's
+    step: fused heads, fused Adam), captured in one CountedGraph and
+    replayed ROOFLINE_REPLAYS times: the launches of its runs alone, every
+    replay's, and not those of the model's set-up."""
+    from codenet_torch.engine import trainer as T
+    from codenet_torch.models import create_model
+    from codenet_torch.models.fused_heads import eval_forward
+    from codenet_torch.ops import deform_cuda as DC
+
+    def whole(fn):
+        before = (DC.LAUNCHES, DC.BWD_LAUNCHES)
+        ms = graph_time_ms(fn, replays=ROOFLINE_REPLAYS, counted=True)
+        return ms, (DC.LAUNCHES - before[0], DC.BWD_LAUNCHES - before[1])
+
+    _, res, w2, batch, dtype, train = case
+    if train:
+        opt = data.opt(batch)
+        trainer = T.Trainer(opt, device="cuda")
+        trainer.init()
+        example, _ = loader_batches(data.dataset(opt), batch, 1, 0,
+                                    opt.seed + 1)
+        inputs = T.batch_to_device(example[0], "cuda")
+        return whole(lambda: trainer.train_step(inputs))
+    served = build_served_model(res=res, w2=w2)
+    if dtype == "bf16":
+        model = create_model("shufflenetv2", {"hm": 20, "wh": 2, "reg": 2},
+                             64, w2=w2, dtype=torch.bfloat16,
+                             device="cuda")
+        model.load_state_dict(served.state_dict())
+        served = model.eval()
+    x = torch.randn(batch, res, res, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.no_grad():
+        return whole(lambda: eval_forward(served, x))
+
+
+def _roofline_case(case, rows, data, peaks, pool, stream, card, fail):
+    """One case: its whole and its rows timed, two lines emitted; the
+    whole's deform launches (forward, backward)."""
+    t0 = time.perf_counter()
+    whole_ms, launches = _roofline_whole(case, data)
+    bound_ms = sum(r.bound(peaks)[0] for r in rows) * 1e3
+    timed_rows = _roofline_rows(rows, peaks, pool, stream, fail)
+    kinds = {}
+    for r, ms, b, _, _ in timed_rows:
+        k = kinds.setdefault(r.kind, {"rows": 0, "ms": 0.0, "bound_ms": 0.0})
+        k["rows"] += 1
+        k["ms"] += ms
+        k["bound_ms"] += b
+    share = bound_ms / whole_ms
+    if not share <= ROOFLINE_SHARE_MAX:
+        fail.append("{} whole: share {:.3f}".format(case[0], share))
+    fail += ["{} {} {}: share {:.3f}".format(case[0], r.name, r.kind, s)
+             for r, _, _, _, s in timed_rows
+             if not s <= ROOFLINE_SHARE_MAX]
+    # the ten rows with the most time over their bound
+    top = sorted(timed_rows, key=lambda t: t[2] - t[1])[:10]
+    emit({"phase": "roofline", "case": case[0], "res": case[1],
+          "w2": case[2], "batch": case[3], "dtype": case[4],
+          "train": case[5], "card": card, "peaks": peaks.card,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          "whole_ms": whole_ms, "bound_ms": bound_ms, "share": share,
+          "whole_launches": launches,
+          "rows": len(rows), "rows_ms": sum(t[1] for t in timed_rows),
+          "img_per_s": case[3] / whole_ms * 1e3,
+          "top": [{"row": r.name, "kind": r.kind, "ms": ms, "bound_ms": b,
+                   "roof": roof, "share": s}
+                  for r, ms, b, roof, s in top],
+          "by_kind": kinds,
+          "max_row_share": max(t[4] for t in timed_rows),
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "roofline_rows", "case": case[0],
+          "rows": [[r.name, r.kind, ms, b, roof]
+                   for r, ms, b, roof, _ in timed_rows]})
+    return launches
+
+
+def phase_roofline(data):
+    """tools_torch/roofline.py on the card, cuDNN TF32 allowed as the CLIs
+    run: per case (ROOFLINE_CASES) the whole served forward or train step
+    timed against the tool's step bound, and every row's op built from
+    its shapes and timed alone (inputs rotated past the L2) against its
+    bound; the ten rows with the most time over their bound, the sum of
+    the rows' times beside the whole's, and per kind the time and bound.
+    Fails where an op cannot be built or a row or whole takes less than
+    its bound / ROOFLINE_SHARE_MAX (the model undercounts its work).
+    Returns the (forward, backward) launches of the wholes alone, every
+    replay counted: the rows' are no main path's."""
+    import gc
+    if not torch.cuda.is_available():
+        raise SystemExit("the roofline phase needs a CUDA card")
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    card = phase_card()
+    cases = [(case, _roofline_model(case)) for case in ROOFLINE_CASES]
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        # the rows' inputs: views of one buffer that holds the largest
+        pool = _Pool(max(r.largest_numel() for _, rows in cases
+                         for r in rows))
+    launches = [0, 0]
+    fail = []
+    # each of the hundreds of row graphs' captures runs gc.collect: over
+    # the objects made from here on alone
+    gc.collect()
+    gc.freeze()
+    try:
+        with cudnn_tf32(True):
+            for case, rows in cases:
+                fwd, bwd = _roofline_case(case, rows, data, peaks, pool,
+                                          stream, card, fail)
+                launches[0] += fwd
+                launches[1] += bwd
+    finally:
+        gc.unfreeze()
+    emit({"phase": "roofline_done", "launches": launches, "failed": fail})
+    if fail:
+        raise SystemExit("roofline check failed: {}".format(fail))
+    return launches
+
+
 def kernel_line_entry(name, source, replaces, launches, rows, shapes_of):
     """One entry of the kernels line: times summed over the three
     deconv-stage calls the path gives the kernel (`shapes_of` picks the
@@ -5041,7 +5356,8 @@ def timed(name, fn, *args):
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
 STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs", "ddp",
-              "spatial", "spatial_archs", "ddp_nccl", "spatial_nccl")
+              "spatial", "spatial_archs", "ddp_nccl", "spatial_nccl",
+              "roofline")
 
 
 def main(argv=None):
@@ -5067,7 +5383,8 @@ def run(args):
 
     t0 = time.perf_counter()
     smi = phase_env()
-    bw, flops = card_peaks(torch.cuda.get_device_name(0))
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    bw, flops = peaks.hbm, peaks.f32
     timed("build", phase_build)
     data = SmokeData()
     pose_data, kitti_data = CocoSmokeData("multi_pose"), KittiSmokeData()
@@ -5088,7 +5405,8 @@ def run(args):
                    CocoSmokeData("ctdet")),
                # their NCCL parts alone: the call across cards
                "ddp_nccl": lambda: phase_ddp(data, gloo=False),
-               "spatial_nccl": lambda: phase_spatial(data, gloo=False)}
+               "spatial_nccl": lambda: phase_spatial(data, gloo=False),
+               "roofline": lambda: phase_roofline(data)}
         for name in only:
             timed(name, run[name])
         emit({"phase": "done", "seconds": time.perf_counter() - t0,
@@ -5107,6 +5425,7 @@ def run(args):
                   kitti_data, exdet_data)
     timed("ladder_ops", phase_ladder_ops)
     graphs = timed("graphs", phase_graphs, data)
+    roof = timed("roofline", phase_roofline, data)
     fp32, batches, train_run = timed("train", phase_train, data)
     qat_run, qat_eval_launches, qat_model = timed(
         "qat", phase_qat, data, fp32, batches)
@@ -5153,7 +5472,7 @@ def run(args):
         + multiscale_launches + bf16_launches + bf16_train[0]
         + backbone[0] + cli_bf16[0] + coco[0] + pose[0] + ddd[0]
         + exdet[0] + int8_tasks + configs[0] + synth[0] + ddp[0]
-        + spatial[0] + trace[0] + dense[0] + graphs[0],
+        + spatial[0] + trace[0] + dense[0] + graphs[0] + roof[0],
         rows + keep_res_rows,
         lambda r: r["model_shape"] and r["n"] == 2
         and r["dtype"] == "float32")
@@ -5189,7 +5508,7 @@ def run(args):
         train_run["launches_bwd"] + qat_run["launches_bwd"] + cache_bwd
         + bf16_train[1] + backbone[1] + cli_bf16[1] + coco[1] + pose[1]
         + ddd[1] + exdet[1] + configs[1] + synth[1] + ddp[1] + spatial[1]
-        + trace[1] + dense[1] + graphs[1], bwd_rows,
+        + trace[1] + dense[1] + graphs[1] + roof[1], bwd_rows,
         lambda r: r["model_shape"] and r["n"] == TRAIN_BATCH
         and r["dtype"] == "float32")
     # and of one bf16 train step (3 calls), and of one deform-backbone

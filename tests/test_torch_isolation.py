@@ -72,8 +72,8 @@ def test_deform_route_reads_no_environment():
 
 def test_importing_every_tool_loads_no_jax():
     """Every script of tools_torch/ (the A-E driver, its summary, the int8
-    audit, vis_pred and the re-scoring CLIs among them) imports, and
-    loads nothing of JAX or of the JAX package."""
+    audit, vis_pred, the re-scoring CLIs and the roofline among them)
+    imports, and loads nothing of JAX or of the JAX package."""
     script = (
         "import importlib.util, os, sys\n"
         "tools = sorted(f for f in os.listdir('tools_torch')\n"
@@ -92,5 +92,5 @@ def test_importing_every_tool_loads_no_jax():
     tools = proc.stdout.split()
     for name in ("run_configs_ae.py", "summarize_results.py",
                  "int8_audit.py", "vis_pred.py", "reval.py", "eval_coco.py",
-                 "eval_coco_hp.py"):
+                 "eval_coco_hp.py", "roofline.py"):
         assert name in tools, name
