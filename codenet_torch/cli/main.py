@@ -34,7 +34,8 @@ x spatial grid (the JAX package's get_mesh_2d): k must divide the ranks
 --batch_size, and the k ranks of a data row train on the same rows, each
 on its band of the images' rows (engine/trainer.py).
 ``--trace`` writes a profiler trace of the epochs into
-exp/<task>/<exp_id>/debug/trace/ (one file per rank; utils/profile.py);
+exp/<task>/<exp_id>/debug/trace/ (one file per rank; utils/profile.py:
+the steady window after the first steps);
 ``--test`` only decodes and scores the val split; ``--debug N`` renders
 each batch's first image into exp/<task>/<exp_id>/debug/;
 ``--eval_oracle_*`` replaces heads by their ground truth in the val loss.

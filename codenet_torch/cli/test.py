@@ -19,7 +19,8 @@ per-stage timers, and calls the dataset's in-process evaluator.
 batches single-scale fix_res ctdet eval, its letterbox warp on the host,
 on the device (``--device_warp``) or from a device-resident copy of the
 split (``--device_cache``). ``--trace`` writes a profiler trace of the
-eval loop into exp/<task>/<exp_id>/debug/trace/ (utils/profile.py).
+eval loop into exp/<task>/<exp_id>/debug/trace/ (utils/profile.py: the
+steady window after the first images or batches).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..data.datasets import get_dataset
 from ..engine.detector import detector_factory
 from ..utils.meters import AverageMeter
 from ..utils.profile import maybe_trace
+from ..utils.profile import step as profile_step
 
 _TIMERS = ["tot", "load", "pre", "net", "dec", "post", "merge"]
 
@@ -106,6 +108,7 @@ def prefetch_test(opt):
             if isinstance(item, Exception):
                 raise item
             img_id, pre_processed = item
+            profile_step()
             ret = detector.run(pre_processed)
             results[img_id] = ret["results"]
             for t_ in avg_time_stats:
@@ -126,6 +129,7 @@ def test(opt):
     avg_time_stats = {t_: AverageMeter() for t_ in _TIMERS}
     with maybe_trace(opt, detector.device):
         for ind in range(len(dataset)):
+            profile_step()
             img_id = dataset.images[ind]
             ret = detector.run(dataset.load_image(ind),
                                _request_meta(dataset, opt, ind))
@@ -305,6 +309,7 @@ def batched_test(opt):
             kind = item[0]
             chunks[kind].append(item)
             if len(chunks[kind]) == bs:
+                profile_step()
                 runners[kind](chunks[kind])
                 done += bs
                 chunks[kind] = []
@@ -313,6 +318,7 @@ def batched_test(opt):
                         done, n, done / (time.time() - t_start)))
         for kind, chunk in chunks.items():
             if chunk:
+                profile_step()
                 runners[kind](chunk)
                 done += len(chunk)
         flush_cached(force=True)

@@ -67,6 +67,7 @@ from ..models.layers import qspec_from_opt
 from ..ops.deform_cuda import CountedGraph
 from ..ops.nms import soft_nms, soft_nms_39
 from ..utils.post_process import ddd_post_process, multi_pose_post_process
+from ..utils.profile import span
 from . import checkpoint, w4a8
 
 
@@ -408,11 +409,19 @@ class CtdetDetector(BaseDetector):
         """Device-warp batched eval: raw (B, max_h, max_w, 3) uint8 frames
         (pre_process_raw) -> warp -> normalise -> net -> decode ->
         back-projection. warp_tis: (B, 2, 3) model-input px -> raw px;
-        trans_invs: (B, 2, 3). Returns (B, K, 6) on the device."""
-        images = self._warped_input(self._to_device(raw_u8), warp_tis)
-        hm, wh, reg = self._heads(images)
-        ti = self._to_device(np.asarray(trans_invs, np.float32))
-        return self._decode(hm, wh, reg, ti, 1.0)
+        trans_invs: (B, 2, 3). Returns (B, K, 6) on the device. Spans
+        (utils/profile.py): ``detector.dispatch`` over the call, and in
+        it ``detector.upload``, ``.warp``, ``.net`` and ``.decode``."""
+        with span("detector.dispatch"):
+            with span("detector.upload"):
+                raw = self._to_device(raw_u8)
+            with span("detector.warp"):
+                images = self._warped_input(raw, warp_tis)
+            with span("detector.net"):
+                hm, wh, reg = self._heads(images)
+            with span("detector.decode"):
+                ti = self._to_device(np.asarray(trans_invs, np.float32))
+                return self._decode(hm, wh, reg, ti, 1.0)
 
     def _cached_dets(self, cache_u8, rows, warp_tis, trans_invs):
         """Detections (B, K, 6) of rows `rows` of the image stack, every
@@ -452,13 +461,16 @@ class CtdetDetector(BaseDetector):
                 "trans_invs": np.asarray(trans_invs, np.float32)}
         key = (img_idx.shape, cache_u8.data_ptr(), tuple(cache_u8.shape))
         if key not in self._kbatch_graphs:
-            self._kbatch_graphs[key] = self._capture_kbatch(cache_u8, host)
+            with span("detector.capture"):
+                self._kbatch_graphs[key] = self._capture_kbatch(cache_u8,
+                                                                host)
         graph, static, out = self._kbatch_graphs[key]
-        for name, buf in static.items():
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(host[name]))
-                      .pin_memory(), non_blocking=True)
-        graph.replay()
-        return out.clone()
+        with span("detector.replay"):
+            for name, buf in static.items():
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(host[name]))
+                          .pin_memory(), non_blocking=True)
+            graph.replay()
+            return out.clone()
 
     def _capture_kbatch(self, cache_u8, host):
         """(graph, static inputs, static output) of the K-batch eval: one

@@ -70,6 +70,15 @@ rank, so every rank keeps bit-equal state and a step is the one-process
 step. Where an image's
 rows do not split over k, the batch runs whole on every rank of its row,
 with the JAX mesh's warning.
+
+Under a recording profiler the graphed engine marks its work with spans
+(utils/profile.py::span): ``trainer.wait`` (next() on the loader),
+``trainer.step`` (a batch, delivered to its stats kept), and in it
+``trainer.stage`` (the batch copied into the step's inputs),
+``trainer.eager`` (a step outside a graph), ``trainer.capture`` and
+``trainer.replay`` (the graph's replay and the stats' copy), and
+``trainer.flush`` (the stats read back). Both epoch loops mark each
+batch as a step of the program's own trace (utils/profile.py::step).
 """
 
 from __future__ import annotations
@@ -93,6 +102,8 @@ from ..ops.deform_cuda import CountedGraph
 from ..parallel.mesh import (all_reduce_grads, all_sum, band,
                              broadcast_module, grid, sync_spatial_replicas)
 from ..utils.meters import AverageMeter
+from ..utils.profile import span
+from ..utils.profile import step as profile_step
 from .detector import device_from_opt
 
 _ORACLES = ("eval_oracle_hm", "eval_oracle_wh", "eval_oracle_offset",
@@ -316,6 +327,20 @@ def batch_signature(batch, cache=None):
             cache.data_ptr() if uses_cache else None)
 
 
+_END = object()
+
+
+def _waited(loader):
+    """`loader`'s batches, the wait for each spanned ``trainer.wait``."""
+    it = iter(loader)
+    while True:
+        with span("trainer.wait"):
+            batch = next(it, _END)
+        if batch is _END:
+            return
+        yield batch
+
+
 def make_multi_train_step(step_body, example, device, cache_images=None,
                           warmup=GRAPH_WARMUP):
     """The train step `step_body` replayed as one CUDA graph (the JAX
@@ -351,21 +376,24 @@ def make_multi_train_step(step_body, example, device, cache_images=None,
         return torch.stack(list(stats.values()))
 
     def run(batch):
-        load(batch)
+        with span("trainer.stage"):
+            load(batch)
         if state["warmup"] > 0:
             state["warmup"] -= 1
-            current = torch.cuda.current_stream(device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                out = stacked(step_body(inputs))
-            current.wait_stream(side)
-            out.record_stream(current)
+            with span("trainer.eager"):
+                current = torch.cuda.current_stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    out = stacked(step_body(inputs))
+                current.wait_stream(side)
+                out.record_stream(current)
             return state["keys"], out
         if state["out"] is None:
-            with graph.capture():
+            with span("trainer.capture"), graph.capture():
                 state["out"] = stacked(step_body(inputs))
-        graph.replay()
-        return state["keys"], state["out"].clone()
+        with span("trainer.replay"):
+            graph.replay()
+            return state["keys"], state["out"].clone()
 
     run.graph = graph
     return run
@@ -527,7 +555,9 @@ class Trainer:
         def flush():
             if not pending:
                 return
-            values = torch.cat([st for _, st, _ in pending]).cpu().numpy()
+            with span("trainer.flush"):
+                values = torch.cat([st for _, st, _ in pending]).cpu() \
+                    .numpy()
             i = 0
             for keys, _, bs in pending:
                 for k in keys:
@@ -537,32 +567,37 @@ class Trainer:
             pending.clear()
 
         def per_step(batch):
-            batch = batch_to_device(batch, self.device)
+            with span("trainer.stage"):
+                batch = batch_to_device(batch, self.device)
             if "img_idx" in batch:
                 batch["cache_images"] = self.image_cache
-            stats = self.train_step(batch)
-            return list(stats), torch.stack(list(stats.values()))
+            with span("trainer.eager"):
+                stats = self.train_step(batch)
+                return list(stats), torch.stack(list(stats.values()))
 
-        for it, batch in enumerate(loader):
+        for it, batch in enumerate(_waited(loader)):
             if it >= n_iters:
                 break
-            size = size_of(it, batch)
-            batch = self._local_rows(
-                {k: v for k, v in batch.items() if k != "meta"})
-            sig = batch_signature(batch, self.image_cache)
-            first = (size, sig) if first is None else first
-            if graphs and (size, sig) == first and size % ranks == 0:
-                run = self._multi_steps.get(sig)
-                if run is None:
-                    run = self._multi_steps[sig] = make_multi_train_step(
-                        self.train_step, batch, self.device,
-                        self.image_cache)
-                keys, stats = run(batch)
-            else:
-                keys, stats = per_step(batch)
-            pending.append((keys, stats, size))
-            if len(pending) >= STATS_EVERY:
-                flush()
+            profile_step()
+            with span("trainer.step"):
+                size = size_of(it, batch)
+                batch = self._local_rows(
+                    {k: v for k, v in batch.items() if k != "meta"})
+                sig = batch_signature(batch, self.image_cache)
+                first = (size, sig) if first is None else first
+                if graphs and (size, sig) == first and size % ranks == 0:
+                    run = self._multi_steps.get(sig)
+                    if run is None:
+                        run = self._multi_steps[sig] = \
+                            make_multi_train_step(self.train_step, batch,
+                                                  self.device,
+                                                  self.image_cache)
+                    keys, stats = run(batch)
+                else:
+                    keys, stats = per_step(batch)
+                pending.append((keys, stats, size))
+                if len(pending) >= STATS_EVERY:
+                    flush()
         flush()
         return {k: m.avg for k, m in meters.items()}
 
@@ -602,6 +637,7 @@ class Trainer:
         for it, batch in enumerate(loader):
             if it >= n_iters:
                 break
+            profile_step()
             bs = size_of(it, batch)
             meta = batch.get("meta")
             batch = batch_to_device(self._local_rows(batch), self.device)

@@ -19,19 +19,52 @@ shufflenetv2_dcn.py:368-371).
 - `trace(log_dir)`: a `torch.profiler.profile` over a block (``--trace``
   in `cli.main` and `cli.test`), written as ``<worker>.<ns>.pt.trace.json``
   into log_dir for TensorBoard's profiler plugin or Perfetto
-  (ui.perfetto.dev opens the file). The profiler holds every event in
-  host memory until the block ends: trace short runs.
+  (ui.perfetto.dev opens the file). Its window is the steady state: the
+  program marks each step (`step()`: a train or val batch, an eval image
+  or batch), and the file holds TRACE_STEPS steps after the first
+  TRACE_SKIP (set-up, eager warm-ups, a graph's capture); a run of at
+  most TRACE_SKIP steps writes all it ran.
+- `span(name)`: a host annotation ``codenet.<name>`` in the trace of
+  whatever torch profiler is recording (a `trace`, or a caller's own
+  `torch.profiler.profile`), on the profiler's clock beside the device's
+  events; with no profiler recording, a shared no-op context (no clock
+  read, no allocation). No span sits inside a body a CUDA graph
+  captures: it would not replay.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import warnings
 
 import torch
 
 # one [flops] tally per active count_flops
 _TALLIES = []
+# a `trace`'s window: the first TRACE_SKIP steps are left out, the next
+# TRACE_STEPS written
+TRACE_SKIP = 5
+TRACE_STEPS = 20
+# the `trace`s open in this process, innermost last (`step` advances them)
+_OPEN = []
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """``with span(name):`` marks the block as ``codenet.<name>`` in the
+    trace of a recording torch profiler; otherwise does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("codenet." + name)
+    return _NO_SPAN
+
+
+def step():
+    """Marks the start of a step (a batch, an eval image) for the
+    program's own open `trace`s; a profiler opened by a caller is not
+    advanced."""
+    for t in _OPEN:
+        t.step()
 
 
 def count_params(model):
@@ -89,6 +122,12 @@ class trace:
     named after `worker` (``rank<r>`` under data parallelism; by default
     torch's host_pid).
 
+    The file holds steps TRACE_SKIP + 1 to TRACE_SKIP + TRACE_STEPS of
+    the block (`step()` starts one; what runs before the first is step
+    0), or, where the block ends by step TRACE_SKIP, everything: the
+    profiler records from the start, drops that record at step
+    TRACE_SKIP + 1, then records the window.
+
     Unlike the JAX package's trace, which turns a failure into a no-op,
     a profiler that cannot start raises, and so does a trace of a card
     that holds no CUDA event (no CUPTI): a missing trace is an error, not
@@ -100,6 +139,14 @@ class trace:
             if device is not None else torch.cuda.is_available()
         self.worker = worker
         self.prof = None
+        self.closing = False
+
+    @staticmethod
+    def schedule(n):
+        from torch.profiler import ProfilerAction as A
+        if n in (TRACE_SKIP, TRACE_SKIP + TRACE_STEPS):
+            return A.RECORD_AND_SAVE
+        return A.RECORD if n < TRACE_SKIP + TRACE_STEPS else A.NONE
 
     def __enter__(self):
         from torch.profiler import (ProfilerActivity, profile,
@@ -108,15 +155,30 @@ class trace:
         acts = [ProfilerActivity.CPU]
         if self.cuda:
             acts.append(ProfilerActivity.CUDA)
-        self.prof = profile(activities=acts,
-                            on_trace_ready=tensorboard_trace_handler(
-                                self.log_dir, worker_name=self.worker))
+        write = tensorboard_trace_handler(self.log_dir,
+                                          worker_name=self.worker)
+
+        def ready(prof):
+            # the record of the skipped steps, dropped once the window opens
+            if self.closing or prof.step_num != TRACE_SKIP + 1:
+                write(prof)
+        self.prof = profile(activities=acts, schedule=self.schedule,
+                            on_trace_ready=ready)
         self.prof.__enter__()
+        _OPEN.append(self)
         return self
 
+    def step(self):
+        with warnings.catch_warnings():
+            # "the profiler clears events at the end of each cycle": meant
+            warnings.simplefilter("ignore")
+            self.prof.step()
+
     def __exit__(self, *exc):
+        _OPEN.remove(self)
         if self.cuda:
             torch.cuda.synchronize()
+        self.closing = True
         self.prof.__exit__(*exc)
         if self.cuda and exc[0] is None and not any(
                 e.device_type == torch.autograd.DeviceType.CUDA

@@ -1126,6 +1126,86 @@ def test_epoch_engine_graphs_on_card(cuda_device, monkeypatch):
         == (18, 18)
 
 
+def _span_counts(prof):
+    """{name: count} of a profiler's codenet.* host annotations."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation() and e.name().startswith("codenet.") \
+                and e.device_type() != torch.autograd.DeviceType.CUDA:
+            out[e.name()] = out.get(e.name(), 0) + 1
+    return out
+
+
+@pytest.mark.cuda
+def test_epoch_engine_spans_count_its_graphs_on_card(cuda_device,
+                                                     monkeypatch):
+    """A graphed epoch under a profiler tracing the card: as many
+    trainer.replay spans as the graph's replays, one trainer.capture
+    for the one graph captured, and trainer.eager for the GRAPH_WARMUP
+    steps and the ragged batch's per-step path."""
+    from codenet_torch.engine import trainer as T
+    monkeypatch.delenv("CODENET_SCAN_EPOCH", raising=False)
+    trainer = T.Trainer(_voc_opt(), device=cuda_device)
+    trainer.init()
+    batches = _graph_batches(6)
+    ragged = {k: v[:1] for k, v in batches[0].items()}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.run_epoch("train", 1, batches + [ragged])
+        torch.cuda.synchronize()
+    graphs = [run.graph for run in trainer._multi_steps.values()]
+    counts = _span_counts(prof)
+    assert len(graphs) == 1 and graphs[0].replays == 6 - T.GRAPH_WARMUP
+    assert counts.get("codenet.trainer.replay") == graphs[0].replays
+    assert counts.get("codenet.trainer.capture") == len(graphs)
+    assert counts.get("codenet.trainer.eager") == T.GRAPH_WARMUP + 1
+    assert counts.get("codenet.trainer.step") == 7
+    assert counts.get("codenet.trainer.stage") == 7
+
+
+@pytest.mark.cuda
+def test_detector_spans_on_card(cuda_device):
+    """Under a profiler tracing the card: process_batch_raw's five
+    spans once a call; process_batches_cached's detector.capture once
+    for its one graph and detector.replay once a call, as many as the
+    graph's replays."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.models import create_model
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--flip_test"]),
+        cfg.DATASET_SPECS["pascal"])
+    opt._device_warp_hw = (96, 96)
+    model = create_model("shufflenetv2", HEADS, 64, device="cpu")
+    calibrate_bn(model, np.random.RandomState(27).randn(4, 64, 64, 3)
+                 .astype(np.float32))
+    det = CtdetDetector(opt, state_dict=model.state_dict(),
+                        device=cuda_device)
+    r = np.random.RandomState(28)
+    raw, wti, ti = (np.stack(c) for c in zip(*(
+        det.pre_process_raw(r.randint(0, 256, (80, 90, 3)).astype(np.uint8))
+        for _ in range(2))))
+    stack = torch.from_numpy(raw).to(cuda_device)
+    rows = np.array([[0, 1], [1, 0]])
+    w = np.broadcast_to(wti[:1], rows.shape + wti.shape[1:])
+    t = np.broadcast_to(ti[:1], rows.shape + ti.shape[1:])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            det.process_batch_raw(raw, wti, ti)
+            det.process_batches_cached(stack, rows, w, t)
+        torch.cuda.synchronize()
+    (graph, _, _), = det._kbatch_graphs.values()
+    counts = _span_counts(prof)
+    for part in ("dispatch", "upload", "warp", "net", "decode"):
+        assert counts.get("codenet.detector." + part) == 3, part
+    assert counts.get("codenet.detector.capture") == 1
+    assert counts.get("codenet.detector.replay") == graph.replays == 3
+
+
 @pytest.mark.cuda
 def test_epoch_engine_graphs_on_an_nccl_rank(cuda_device, tmp_path):
     """A world-1 NCCL group on cuda:0 (parallel.launch): the epoch engine

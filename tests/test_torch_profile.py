@@ -19,7 +19,13 @@ against the JAX package's utils/profile.py:
   and a trace of a card that records no CUDA event raises; `cli.main
   --trace` and `cli.test --trace` (per image, serial and --batch_eval)
   write theirs into <debug_dir>/trace, as tests/test_e2e.py checks for
-  the JAX package.
+  the JAX package;
+- `span`: with no profiler recording it enters no record_function and
+  leaves the detector's and the engine's outputs as they are; under a
+  CPU profiler `process_batch_raw` and the graphed engine emit their
+  spans once a call or a batch, nested in order; `trace` writes steps
+  TRACE_SKIP + 1 to TRACE_SKIP + TRACE_STEPS of a longer run, all of a
+  shorter one.
 """
 
 import json
@@ -217,3 +223,165 @@ def test_cli_trace_train_and_eval(tmp_path):
         assert name.endswith(".pt.trace.json")
         assert any(e.get("name") == "aten::convolution"
                    for e in _events(os.path.join(trace_dir, name)))
+
+
+# -- spans and the trace window ------------------------------------------------
+
+def _tiny_detector():
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from test_torch_common import calibrate_bn
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--flip_test"]),
+        cfg.DATASET_SPECS["pascal"])
+    opt._device_warp_hw = (96, 96)
+    model = create_model("shufflenetv2", HEADS, 64, device="cpu")
+    calibrate_bn(model, rng(193).randn(4, 64, 64, 3).astype(np.float32))
+    det = CtdetDetector(opt, state_dict=model.state_dict(), device="cpu")
+    r = rng(194)
+    frames = [r.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in ((90, 72), (64, 96))]
+    request = [np.stack(c) for c in zip(*(det.pre_process_raw(f)
+                                          for f in frames))]
+    return det, request
+
+
+def _tiny_trainer():
+    from codenet_torch import config as cfg
+    from codenet_torch.engine import trainer as T
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--batch_size", "2", "--gpus",
+                   "-1"]), cfg.DATASET_SPECS["pascal"])
+    trainer = T.Trainer(opt, device="cpu")
+    trainer.init()
+    return trainer
+
+
+def _batches(n):
+    from test_torch_common import qat_batch
+    out = []
+    for i in range(n):
+        b = qat_batch()
+        b["input_u8"] = np.roll(b["input_u8"], 5 * i, axis=2)
+        out.append(b)
+    return out
+
+
+def _epoch(n):
+    """A CPU trainer's graphed-engine epoch of n batches: its loss meter
+    and weights."""
+    torch.manual_seed(0)
+    trainer = _tiny_trainer()
+    stats = trainer.run_epoch("train", 1, _batches(n))
+    return stats, {k: v.clone() for k, v in
+                   trainer.model.state_dict().items()}
+
+
+def _annotations(prof):
+    """The codenet.* host annotations of a profiler: [(name, start, end)]
+    by start."""
+    return sorted(((e.name()[len("codenet."):], e.start_ns(),
+                    e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation()
+                   and e.name().startswith("codenet.")),
+                  key=lambda a: a[1])
+
+
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_span_without_a_profiler_enters_nothing(monkeypatch):
+    """With no profiler recording, no span enters record_function, and
+    the tiny detector's detections and an engine epoch's meters and
+    weights equal those of the same calls under a recording profiler."""
+    assert P.span("a") is P.span("b")
+    det, request = _tiny_detector()
+
+    def refuse(name):
+        raise AssertionError("record_function entered: " + name)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    dets = det.process_batch_raw(*request)
+    stats, weights = _epoch(2)
+    monkeypatch.undo()
+    with _cpu_profile() as prof:
+        traced_dets = det.process_batch_raw(*request)
+        traced_stats, traced_weights = _epoch(2)
+    assert _annotations(prof)
+    torch.testing.assert_close(traced_dets, dets, rtol=0, atol=0)
+    assert traced_stats == stats
+    for k, v in weights.items():
+        torch.testing.assert_close(traced_weights[k], v, rtol=0, atol=0,
+                                   msg=k)
+
+
+def test_detector_dispatch_spans_nest_in_order():
+    """process_batch_raw under a CPU profiler: one detector.dispatch a
+    call, holding upload, warp, net and decode once each, in that
+    order."""
+    det, request = _tiny_detector()
+    with _cpu_profile() as prof:
+        for _ in range(2):
+            det.process_batch_raw(*request)
+    spans = _annotations(prof)
+    calls = [s for s in spans if s[0] == "detector.dispatch"]
+    assert len(calls) == 2 and len(spans) == 10
+    for _, lo, hi in calls:
+        inner = [n for n, a, b in spans
+                 if lo <= a and b <= hi and n != "detector.dispatch"]
+        assert inner == ["detector.upload", "detector.warp",
+                         "detector.net", "detector.decode"]
+
+
+def test_engine_spans_once_a_batch():
+    """Trainer.run_epoch's graphed engine on the CPU under a profiler:
+    trainer.step, .stage and .eager once a batch, the stage and the step
+    body inside the step, trainer.wait before each batch and at the
+    loader's end, one trainer.flush after the last step."""
+    n = 3
+    trainer = _tiny_trainer()
+    with _cpu_profile() as prof:
+        trainer.run_epoch("train", 1, _batches(n))
+    spans = _annotations(prof)
+    names = [s[0] for s in spans]
+    steps = [s for s in spans if s[0] == "trainer.step"]
+    assert len(steps) == n
+    assert names.count("trainer.wait") == n + 1
+    assert names.count("trainer.flush") == 1
+    assert not {"trainer.replay", "trainer.capture"} & set(names)
+    for _, lo, hi in steps:
+        inner = [s for s, a, b in spans
+                 if lo <= a and b <= hi and s != "trainer.step"]
+        assert inner == ["trainer.stage", "trainer.eager"]
+    flush, = [s for s in spans if s[0] == "trainer.flush"]
+    assert flush[1] >= steps[-1][2]
+
+
+@pytest.mark.parametrize("n,marks", [(2, [0, 1, 2]), (6, [3, 4])],
+                         ids=["short_run_whole", "steady_window"])
+def test_trace_window_skips_the_first_steps(tmp_path, monkeypatch, n,
+                                            marks):
+    """`trace` over an engine epoch of n batches, TRACE_SKIP 2 and
+    TRACE_STEPS 2 here (each batch starts a profiler step; step 0 is what
+    runs before the first): a run of at most TRACE_SKIP steps writes
+    them all; a longer one writes profiler steps TRACE_SKIP + 1 to
+    TRACE_SKIP + TRACE_STEPS alone, with the engine's spans of those
+    batches."""
+    monkeypatch.setattr(P, "TRACE_SKIP", 2)
+    monkeypatch.setattr(P, "TRACE_STEPS", 2)
+    trainer = _tiny_trainer()
+    with P.trace(str(tmp_path), device="cpu"):
+        trainer.run_epoch("train", 1, _batches(n))
+    (name,) = os.listdir(tmp_path)
+    events = _events(tmp_path / name)
+    assert sorted(int(e["name"].split("#")[1]) for e in events
+                  if e.get("name", "").startswith("ProfilerStep#")) == marks
+    names = [e.get("name") for e in events]
+    assert names.count("codenet.trainer.step") == min(n, 2)
+    assert names.count("codenet.trainer.stage") == min(n, 2)
+    assert names.count("codenet.trainer.eager") == min(n, 2)
+    assert not P._OPEN
