@@ -334,6 +334,16 @@ ROOFLINE_SHARE_MAX = 1.05
 ROOFLINE_ROTATE_BYTES = 160e6
 ROOFLINE_COPIES = (8, 64)
 ROOFLINE_REPLAYS = 10
+# the depthwise 3x3 backward kernel against its plain version
+# (phase_dwconv_bwd): the depthwise convs of a config d train step (512^2,
+# --w2) and of the train phase's (config a at RES), fused heads, batch
+# TRAIN_BATCH. Errors relative to each output's max: dx sums the same 9
+# products a position in another order, dW and db sum N x HO x WO of them
+DW_CASES = (("d", 512, True), ("a", RES, False))
+DW_TOL = {"dx": 1e-5, "dw": 1e-4, "db": 1e-4}
+# a QAT step's depthwise 3x3 convs: the backbone's 19 and, its heads run
+# apart, each head's own
+QAT_DW_CONVS = 22
 
 _lines = []
 
@@ -661,6 +671,114 @@ def phase_kernel_bwd(bw, flops):
                 raise SystemExit("kernel_bwd check failed: {}".format(
                     row))
     return rows
+
+
+def dw_shapes(res, w2):
+    """{(h, w, c, stride): convs} of the depthwise 3x3 convs of a train
+    step at res^2 (w2: the 2x network), fused heads, batch TRAIN_BATCH:
+    tools_torch/roofline.py's `dw_bwd` rows."""
+    m = roofline.build(res, w2, TRAIN_BATCH, "f32", fused_heads=True,
+                       train=True)
+    out = {}
+    for r in roofline.train_rows(m):
+        if r.kind == "dw_bwd":
+            key = (r.h, r.w, r.cin, r.stride)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def phase_dwconv_bwd(bw):
+    """The depthwise 3x3 backward kernel (ops/dwconv_cuda.py) against its
+    plain version on the card, cuDNN TF32 off as the train step runs, at
+    every shape of DW_CASES, without and with a bias: dx, dW and db
+    within DW_TOL of each output's max, one launch a call. Each shape's
+    kernel, plain version (dgrad and wgrad apart) and cuDNN's
+    convolution_backward (the library route, dx and dW) timed without a
+    bias by graph replay over input copies that together pass the L2,
+    beside the bound (roofline.dw_bwd_bytes at the card's HBM rate).
+    Fails where a check fails or the kernel takes less than its bound /
+    ROOFLINE_SHARE_MAX. Returns the rows and, per case, a step's sums
+    (each shape times its convs)."""
+    from codenet_torch.ops import dwconv_cuda as DW
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    rows, steps, fail = [], {}, []
+    n = TRAIN_BATCH
+    for case, res, w2 in DW_CASES:
+        step = steps[case] = {"convs": 0, "ms": 0.0, "plain_ms": 0.0,
+                              "library_ms": 0.0, "bound_ms": 0.0}
+        for (h, w, c, stride), convs in dw_shapes(res, w2).items():
+            ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+            copies = int(min(ROOFLINE_COPIES[1], max(
+                1, -(-ROOFLINE_ROTATE_BYTES // (4 * n * c * (h * w
+                                                             + ho * wo))))))
+            cases = [(torch.randn(n, h, w, c, device="cuda", generator=gen)
+                      .permute(0, 3, 1, 2),
+                      torch.randn(c, 1, 3, 3, device="cuda", generator=gen)
+                      * 0.3,
+                      torch.randn(n, ho, wo, c, device="cuda", generator=gen)
+                      .permute(0, 3, 1, 2)) for _ in range(copies)]
+            row = {"phase": "dwconv_bwd", "case": case, "shape": [h, w, c],
+                   "stride": stride, "n": n, "convs": convs,
+                   **{k: v for k, v in DW.dw_bwd_plan(
+                       n, h, w, c, stride).items()
+                      if k in ("vec", "cb", "rows", "smem_bytes",
+                               "blocks")},
+                   "copies": copies, "tol_rel": DW_TOL}
+            with cudnn_tf32(False):
+                for bias in (False, True):
+                    before = DW.DW_BWD_LAUNCHES
+                    got = DW.dwconv_bwd(*cases[0], stride, bias)
+                    torch.cuda.synchronize()
+                    launched = DW.DW_BWD_LAUNCHES - before
+                    ref = DW.dwconv_bwd_plain(*cases[0], stride, bias)
+                    tag = "_bias" if bias else ""
+                    for name, a, b in zip(("dx", "dw", "db"), got, ref):
+                        if b is None:
+                            continue
+                        err = float((a - b).abs().max())
+                        rel = err / float(b.abs().max())
+                        row[name + tag] = err
+                        row[name + tag + "_rel"] = rel
+                        if not rel <= DW_TOL[name]:
+                            fail.append("{} {} {}".format(row["shape"],
+                                                          stride, name + tag))
+                    row["launches" + tag] = launched
+                    if launched != 1:
+                        fail.append("{} {} launches{}".format(
+                            row["shape"], stride, tag))
+                fns = {
+                    "ms": [(lambda a=a: DW.dwconv_bwd(*a, stride, False))
+                           for a in cases],
+                    "plain_ms": [(lambda a=a: DW.dwconv_bwd_plain(
+                        *a, stride, False)) for a in cases],
+                    "library_ms": [(lambda a=a: torch.ops.aten
+                                    .convolution_backward(
+                                        a[2], a[0], a[1], None,
+                                        [stride] * 2, [1, 1], [1, 1], False,
+                                        [0, 0], c, [True, True, False]))
+                                   for a in cases]}
+                for key, fn in fns.items():
+                    row[key] = graph_time_ms(fn, replays=ROOFLINE_REPLAYS,
+                                             keep=True)
+            row["bound_us"] = roofline.dw_bwd_bytes(n, h, w, c, stride) \
+                / bw * 1e6
+            row["roofline"] = row["bound_us"] / 1e3 / row["ms"]
+            if row["roofline"] > ROOFLINE_SHARE_MAX:
+                fail.append("{} {} under its bound".format(row["shape"],
+                                                           stride))
+            emit(row)
+            rows.append(row)
+            step["convs"] += convs
+            for key in ("ms", "plain_ms", "library_ms"):
+                step[key] += convs * row[key]
+            step["bound_ms"] += convs * row["bound_us"] / 1e3
+            del cases, fns
+            torch.cuda.empty_cache()
+    emit({"phase": "dwconv_bwd_steps", "batch": n, "steps": steps,
+          "failed": fail})
+    if fail or steps["d"]["convs"] != 20 or steps["a"]["convs"] != 20:
+        raise SystemExit("dwconv_bwd check failed: {}".format(fail))
+    return rows, steps
 
 
 def _hw(res):
@@ -1321,10 +1439,28 @@ def timed_steps_in_turns(paths):
     return out
 
 
+def dw_counted(fn, *args):
+    """fn(*args), a dict, with the depthwise backward's counters over the
+    call added: its launches (`dw_bwd_launches`), the routes of the
+    depthwise 3x3 convs with grad (`dw_routes`) and the dy copied to
+    channels_last first (`dy_copies`)."""
+    from codenet_torch.ops import dwconv_cuda as DW
+    before = (DW.DW_BWD_LAUNCHES, dict(DW.DW_ROUTES), DW.DY_COPIES)
+    out = fn(*args)
+    out.update(dw_bwd_launches=DW.DW_BWD_LAUNCHES - before[0],
+               dw_routes={k: v - before[1][k]
+                          for k, v in DW.DW_ROUTES.items()},
+               dy_copies=DW.DY_COPIES - before[2])
+    return out
+
+
 def phase_train(data):
     """FP32 training: one step card vs CPU at batch 4; then
     TRAIN_TIMED_STEPS steps at batch 32 on port-sampler batches, the
-    loader timed separately."""
+    loader timed separately, each step's 20 depthwise 3x3 convs routed to
+    the depthwise backward kernel (dwconv_cuda.DW_ROUTES) and launching
+    it (DW_BWD_LAUNCHES), every dy handed over channels_last (no
+    DY_COPIES)."""
     from codenet_torch.engine.trainer import Trainer
     opt = data.opt(TRAIN_BATCH)
     parity, ok = step_parity(data, conditioned_init(opt))
@@ -1338,11 +1474,15 @@ def phase_train(data):
                                         opt.seed)
     trainer = Trainer(opt, device="cuda")
     trainer.init()
-    run = timed_steps(trainer, batches)
+    run = dw_counted(timed_steps, trainer, batches)
     run.update(loader_ms_per_batch=loader_ms, loader_workers=opt.num_workers)
     emit({"phase": "train", **run})
+    steps = len(run["ms_per_step"])
     if not np.all(np.isfinite(run["losses"])) or any(
-            s != [3, 3] for s in run["launches_per_step"]):
+            s != [3, 3] for s in run["launches_per_step"]) \
+            or run["dw_bwd_launches"] != 20 * steps \
+            or run["dw_routes"] != {"kernel": 20 * steps, "library": 0} \
+            or run["dy_copies"] != 0:
         raise SystemExit("train check failed")
     return trainer, batches, run
 
@@ -1350,8 +1490,10 @@ def phase_train(data):
 def phase_qat(data, fp32_trainer, batches):
     """QAT: one step card vs CPU at batch 4 from the conditioned init;
     then the trained FP32 weights through the port's checkpoint into the
-    quantized model, 6 timed steps at batch 32 (ranges finite and moving),
-    and a fake-quant CtdetDetector eval of the 8 val frames.
+    quantized model, 6 timed steps at batch 32 (ranges finite and moving;
+    QAT_DW_CONVS depthwise 3x3 convs a step on the depthwise backward
+    kernel, no dy copied), and a fake-quant CtdetDetector eval of the 8
+    val frames.
 
     The parity step does not start from the trained weights: the FP32
     steps end at another point in every run (the deform backward sums
@@ -1390,7 +1532,8 @@ def phase_qat(data, fp32_trainer, batches):
 
     before = {k: v.clone() for k, v in trainer.model.state_dict().items()
               if k.endswith(("x_min", "x_max"))}
-    run = timed_steps(trainer, batches[:6])
+    run = dw_counted(timed_steps, trainer, batches[:6])
+    qat_steps = len(run["ms_per_step"])
     after = {k: v for k, v in trainer.model.state_dict().items()
              if k in before}
     finite = all(bool(torch.isfinite(v).all()) for v in after.values())
@@ -1414,6 +1557,10 @@ def phase_qat(data, fp32_trainer, batches):
     if (missing != 110 or not finite or moved != 55
             or not np.all(np.isfinite(run["losses"]))
             or any(s != [3, 3] for s in run["launches_per_step"])
+            or run["dw_bwd_launches"] != QAT_DW_CONVS * qat_steps
+            or run["dw_routes"] != {"kernel": QAT_DW_CONVS * qat_steps,
+                                    "library": 0}
+            or run["dy_copies"] != 0
             or eval_launches != 3 * len(dets) or not dets_finite):
         raise SystemExit("qat check failed")
     return run, eval_launches, trainer.model
@@ -3634,6 +3781,7 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
     from codenet_torch.cli.main import run_training
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import dwconv_cuda as DW
     data = _ddp_setup(dp, res)
     opt = data.opt(batch, "--device_cache_shard")
     cache, rows = _sharded_cache(data, opt, dp)
@@ -3645,6 +3793,7 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
            "cache_rows": int(rows.shape[0]),
            "cache_shard_mib": rows.numel() / 2 ** 20}
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    DW.DW_BWD_LAUNCHES = 0
     state = conditioned_init(data.opt(batch))
     for name, qspec in (("fp32", None),
                         ("qat", QuantSpec(wt_percentile=True,
@@ -3678,6 +3827,7 @@ def _ddp_nccl_body(dp, res, batch, out_dir):
                   "mean_ap": _lines_with(text, "Mean AP"),
                   "cache_lines": _lines_with(text, "device_cache:")}
     out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    out["dw_launches"] = DW.DW_BWD_LAUNCHES
     (Path(out_dir) / "rank{}.json".format(dp.rank)).write_text(
         json.dumps(out))
 
@@ -3763,6 +3913,7 @@ def _ddp_gloo_body(dp, res, batch, out_dir, build_dir):
     step. Writes rank<k>.pt."""
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import dwconv_cuda as DW
     data = _ddp_setup(dp, res)
     out = {"rank": dp.rank, "world": dp.world, "backend": dp.backend,
            "device": str(dp.device)}
@@ -3776,6 +3927,7 @@ def _ddp_gloo_body(dp, res, batch, out_dir, build_dir):
     opt = data.opt(batch)
     state = conditioned_init(opt)
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    DW.DW_BWD_LAUNCHES = 0
     out["fp32"] = _ddp_steps(data, opt, dp, state, None, DDP_STEPS,
                              dp.device)
     out["qat"] = _ddp_steps(data, opt, dp, state,
@@ -3785,6 +3937,7 @@ def _ddp_gloo_body(dp, res, batch, out_dir, build_dir):
         data, data.opt(batch, "--device_cache_shard"), dp, state,
         dp.device)
     out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    out["dw_launches"] = DW.DW_BWD_LAUNCHES
     torch.save(out, Path(out_dir) / "rank{}.pt".format(dp.rank))
 
 
@@ -3869,7 +4022,8 @@ def phase_ddp(data, res=RES, batch=TRAIN_BATCH, nccl_devices=None,
     if fail:
         raise SystemExit("ddp check failed: {}".format(fail))
     return (sum(r["launches"][0] for r in a + b),
-            sum(r["launches"][1] for r in a + b))
+            sum(r["launches"][1] for r in a + b),
+            sum(r["dw_launches"] for r in a + b))
 
 
 def _ddp_gloo_part(data, res, batch, work, gloo_device, out, fail):
@@ -3986,6 +4140,7 @@ def _spatial_body(dp, res, batch, out_dir, full):
     from codenet_torch.cli.main import run_training
     from codenet_torch.models.layers import QuantSpec
     from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import dwconv_cuda as DW
     t0 = time.perf_counter()
     seconds = {}
 
@@ -4002,6 +4157,7 @@ def _spatial_body(dp, res, batch, out_dir, full):
            "device": str(dp.device)}
     lap("setup")
     DC.LAUNCHES = DC.BWD_LAUNCHES = 0  # the main path's launches, this rank
+    DW.DW_BWD_LAUNCHES = 0
     out["fp32"] = _ddp_steps(data, opt, dp, state, None, SPATIAL_STEPS,
                              dp.device, rows)
     lap("fp32")
@@ -4031,6 +4187,7 @@ def _spatial_body(dp, res, batch, out_dir, full):
                                  if ln.startswith("train epoch")],
                       "mean_ap": _lines_with(text, "Mean AP")}
     out["launches"] = [DC.LAUNCHES, DC.BWD_LAUNCHES]
+    out["dw_launches"] = DW.DW_BWD_LAUNCHES
     out["seconds"] = seconds
     torch.save(out, Path(out_dir) / "rank{}.pt".format(dp.rank))
 
@@ -4124,6 +4281,7 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0",
         run = {"seconds": time.perf_counter() - t0, "world": len(devices),
                "backend": backend, "devices": devices, "held": held,
                "launches": [r["launches"] for r in ranks],
+               "dw_launches": [r["dw_launches"] for r in ranks],
                "rank_seconds": [r["seconds"] for r in ranks]}
         for part, h in held.items():
             if not h["ranks_bit_equal"] or h["loss_rel"] > STEP_TOL \
@@ -4153,7 +4311,8 @@ def phase_spatial(data, res=RES, batch=TRAIN_BATCH, device="cuda:0",
     if fail:
         raise SystemExit("spatial check failed: {}".format(fail))
     launches = [r for run in runs.values() for r in run["launches"]]
-    return sum(x[0] for x in launches), sum(x[1] for x in launches)
+    return (sum(x[0] for x in launches), sum(x[1] for x in launches),
+            sum(n for run in runs.values() for n in run["dw_launches"]))
 
 
 # -- --spatial_shard for CenterNet's other backbones ----------------------
@@ -5079,10 +5238,12 @@ def roofline_op(row, pool):
     the row's fields alone on inputs from `pool`: a function that launches
     it and returns what it writes. Backward rows run torch's own backward
     of the forward op (autograd, as the port's step does), the gradients
-    of the inputs the row names alone."""
+    of the inputs the row names alone; a depthwise 3x3 conv's (`dw_bwd`)
+    the port's kernel, dx and dW."""
     import torch.nn.functional as F
     from codenet_torch.models.layers import channel_shuffle
     from codenet_torch.ops import deform_cuda as DC
+    from codenet_torch.ops import dwconv_cuda as DW
     kind, n, h, w, c = row.kind, row.n, row.h, row.w, row.cin
     mp = pool.map
     if kind in ("conv", "dgrad", "wgrad", "bgrad"):
@@ -5157,6 +5318,11 @@ def roofline_op(row, pool):
             return lambda: DC.codesign_deform_conv_fast(x, s, wt)
         g = pool.take((n, h, w, c), row.dtype)
         return lambda: DC.codesign_deform_conv_bwd(x, s, wt, g)
+    if kind == "dw_bwd":
+        x = mp(n, c, h, w)
+        wt = pool.take((c, 3, 3, 1)).permute(0, 3, 1, 2)
+        dy = mp(n, c, row.ho, row.wo)
+        return lambda: DW.dwconv_bwd(x, wt, dy, row.stride, False)
     if kind == "adam":
         p = torch.nn.Parameter(pool.take((c,)).clone())
         p.grad = pool.take((c,)).clone()
@@ -5357,22 +5523,28 @@ def path_ms(rows, name, n, dtype, backbone_calls=None, shapes=MODEL_SHAPES):
 
 
 PHASE_SECONDS = {}
+PHASE_DW_LAUNCHES = {}
 
 
 def timed(name, fn, *args):
-    """fn(*args), its wall seconds kept in PHASE_SECONDS[name]."""
+    """fn(*args), its wall seconds kept in PHASE_SECONDS[name] and the
+    depthwise backward kernel launches it made in this process in
+    PHASE_DW_LAUNCHES[name]."""
+    from codenet_torch.ops import dwconv_cuda as DW
     t0 = time.perf_counter()
+    launches = DW.DW_BWD_LAUNCHES
     try:
         return fn(*args)
     finally:
         PHASE_SECONDS[name] = time.perf_counter() - t0
+        PHASE_DW_LAUNCHES[name] = DW.DW_BWD_LAUNCHES - launches
 
 
 # the phases `--phases` may pick (those that need no earlier phase's
 # results)
 STANDALONE = ("trace", "dense_targets", "ladder_ops", "graphs", "ddp",
               "spatial", "spatial_archs", "ddp_nccl", "spatial_nccl",
-              "roofline")
+              "roofline", "dwconv_bwd")
 
 
 def main(argv=None):
@@ -5421,7 +5593,8 @@ def run(args):
                # their NCCL parts alone: the call across cards
                "ddp_nccl": lambda: phase_ddp(data, gloo=False),
                "spatial_nccl": lambda: phase_spatial(data, gloo=False),
-               "roofline": lambda: phase_roofline(data)}
+               "roofline": lambda: phase_roofline(data),
+               "dwconv_bwd": lambda: phase_dwconv_bwd(bw)}
         for name in only:
             timed(name, run[name])
         emit({"phase": "done", "seconds": time.perf_counter() - t0,
@@ -5430,6 +5603,7 @@ def run(args):
     timed("host_io", phase_host_io)
     rows = timed("kernels", phase_kernels, bw, flops)
     bwd_rows = timed("kernel_bwd", phase_kernel_bwd, bw, flops)
+    dw_rows, dw_steps = timed("dwconv_bwd", phase_dwconv_bwd, bw)
     keep_res_rows, keep_res_requests = timed(
         "kernel_keep_res", phase_kernel_keep_res, bw, flops)
     model = build_served_model()
@@ -5542,13 +5716,34 @@ def run(args):
     # batch 32, f32)
     bwd_entry.update(path_ms(bwd_rows, "train_step_w2_512", TRAIN_BATCH,
                              "float32", shapes=W2_SHAPES))
+    # the depthwise 3x3 convs' backward: one config d train step's 20 convs
+    # (batch 32, f32); launches over the FP32, QAT, graphed,
+    # data-parallel and --spatial_shard training paths (every rank's,
+    # counted in its process)
+    dw_launches = {name: PHASE_DW_LAUNCHES[name]
+                   for name in ("train", "qat", "graphs", "ddp", "spatial")}
+    dw_launches["ddp"] += ddp[2]
+    dw_launches["spatial"] += spatial[2]
+    dw_entry = {"name": "dwconv_bwd", "route": "cuda",
+                "source": "codenet_torch/csrc/dwconv_bwd.cu",
+                "replaces": None, "launches": sum(dw_launches.values()),
+                "launches_by_path": dw_launches,
+                "max_abs_err": max(r[k] for r in dw_rows for k in
+                                   ("dx", "dw", "dx_bias", "dw_bias",
+                                    "db_bias")),
+                **{k: dw_steps["d"][k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms")},
+                "bound_by": "bytes",
+                # and of the train phase's step (config a at 256^2)
+                **{k + "_train_step_a": dw_steps["a"][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
     emit({"kernels": [
         # forward: one served forward (flip-test batch 2, f32); launches
         # over the serving, training, QAT, fake-quant eval, int8 eval,
         # image-cache training, data-parallel (every rank's), batched
         # eval, multi-scale, bf16, deform-backbone, COCO, multi_pose, ddd
         # and exdet paths and CLIs
-        fwd_entry, bwd_entry]})
+        fwd_entry, bwd_entry, dw_entry]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

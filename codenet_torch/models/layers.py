@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import dwconv_cuda as DW
 from ..ops import quant as Q
 from ..ops.deform_conv import codesign_deform_conv
 from ..ops.deform_cuda import codesign_deform_conv_fast
@@ -545,11 +546,13 @@ def conv2d(x, weight, bias, dtype, stride=1, padding=0, dilation=1,
     cores where TF32 is allowed: bf16 operands are exact in TF32); with a
     bias, that result rounded to it and the rounded bias added in f32 (the
     JAX conv2d and Conv, layers.py:176-188, 430-435, as XLA compiles
-    them)."""
+    them). Each conv is F.conv2d; a depthwise 3x3 one with grad on a card
+    takes its backward from ops/dwconv_cuda.py's kernel where
+    `dwconv_cuda.dw_route` says so."""
     if dtype is None:
-        return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
-    y = F.conv2d(x.to(dtype).float(), weight.to(dtype).float(), None,
-                 stride, padding, dilation, groups)
+        return DW.conv2d(x, weight, bias, stride, padding, dilation, groups)
+    y = DW.conv2d(x.to(dtype).float(), weight.to(dtype).float(), None,
+                  stride, padding, dilation, groups)
     if bias is None:
         return y
     return (y.to(dtype).float()

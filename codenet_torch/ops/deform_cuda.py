@@ -16,10 +16,12 @@ take `codesign_deform_conv_plain` forward and
 `codesign_deform_conv_bwd_plain` backward; CUDA tensors launch the kernels
 in `csrc/deform_fwd.cu` and `csrc/deform_bwd.cu`, or raise.
 
-The kernels are compiled with nvcc on first use into `codenet_torch/_build/`
-(both sources at once) and loaded with ctypes. `LAUNCHES` counts forward
-kernel launches, `BWD_LAUNCHES` backward ones; a step captured in a CUDA
-graph (`CountedGraph`) adds the launches it holds on every replay.
+The port's CUDA sources (every `csrc/*.cu`) are compiled with nvcc on
+first use into `codenet_torch/_build/`, all at once (`build`), and loaded
+with ctypes. `LAUNCHES` counts forward kernel launches, `BWD_LAUNCHES`
+backward ones; every op module registers such counters
+(`counts_launches`), and a step captured in a CUDA graph (`CountedGraph`)
+adds the launches it holds to each on every replay.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ TAPS = tuple((int(dy), int(dx)) for dy, dx in ANCHOR_OFFSETS)
 CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"fwd": _PKG / "csrc" / "deform_fwd.cu",
-           "bwd": _PKG / "csrc" / "deform_bwd.cu"}
+# every CUDA source of the port, by file stem, built together
+SOURCES = {p.stem: p for p in sorted((_PKG / "csrc").glob("*.cu"))}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -80,6 +82,9 @@ FWD_MAX_RESTAGE = 8
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# the launch counters CountedGraph keeps true: (a module's globals(),
+# counter name), registered by their modules (counts_launches)
+_COUNTERS = []
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ESIZE = {torch.float32: 4, torch.bfloat16: 2}
 _libs = None
@@ -93,8 +98,8 @@ def _nvcc():
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA deform kernels are built "
-                       "from csrc/deform_{fwd,bwd}.cu on first use")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from csrc/*.cu on first use")
 
 
 def build():
@@ -109,7 +114,7 @@ def build():
         digest = hashlib.sha256(source.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
-        lib_path = BUILD_DIR / "libdeform_{}_{}.so".format(name, digest)
+        lib_path = BUILD_DIR / "lib{}_{}.so".format(source.stem, digest)
         if lib_path.exists():
             out[name] = {"path": str(lib_path), "seconds": 0.0, "log": "",
                          "cached": True}
@@ -138,17 +143,26 @@ def build():
     return out
 
 
+def counts_launches(namespace, *names):
+    """Register module-level launch counters (`names` in `namespace`, the
+    module's globals()) for CountedGraph to keep true."""
+    _COUNTERS.extend((namespace, name) for name in names)
+
+
+counts_launches(globals(), "LAUNCHES", "BWD_LAUNCHES")
+
+
 def _load():
     global _libs
     with _lib_lock:
         if _libs is None:
             paths = build()
-            fwd = ctypes.CDLL(paths["fwd"]["path"])
+            fwd = ctypes.CDLL(paths["deform_fwd"]["path"])
             fwd.codesign_deform_fwd.argtypes = \
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
                 + [ctypes.c_void_p]
             fwd.codesign_deform_fwd.restype = ctypes.c_int
-            bwd = ctypes.CDLL(paths["bwd"]["path"])
+            bwd = ctypes.CDLL(paths["deform_bwd"]["path"])
             bwd.codesign_deform_bwd.argtypes = \
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             bwd.codesign_deform_bwd.restype = ctypes.c_int
@@ -501,32 +515,37 @@ def _launch_bwd(x, s, weight, g):
 class CountedGraph:
     """A torch.cuda.CUDAGraph that keeps the launch counters true: its
     capture launches nothing, so the kernel launches recorded while it
-    captures are taken back off LAUNCHES and BWD_LAUNCHES and kept
-    (`launches`), and every `replay` adds them again. The counters then
-    equal the deform kernel events a profiler trace records."""
+    captures are taken back off every registered counter
+    (counts_launches) and kept (`captured`, by counter name), and every
+    `replay` adds them again. The counters then equal the kernel events a
+    profiler trace records."""
 
     def __init__(self):
         self.graph = torch.cuda.CUDAGraph()
-        self.launches = (0, 0)
+        self.captured = {name: 0 for _, name in _COUNTERS}
         self.replays = 0
+
+    @property
+    def launches(self):
+        """(forward, backward) deform kernel launches the graph holds."""
+        return self.captured["LAUNCHES"], self.captured["BWD_LAUNCHES"]
 
     @contextlib.contextmanager
     def capture(self, **kwargs):
         """`torch.cuda.graph(self.graph, **kwargs)`, counting the
         launches captured."""
-        global LAUNCHES, BWD_LAUNCHES
-        before = (LAUNCHES, BWD_LAUNCHES)
+        before = [ns[name] for ns, name in _COUNTERS]
         with torch.cuda.graph(self.graph, **kwargs):
             yield
-        self.launches = (LAUNCHES - before[0], BWD_LAUNCHES - before[1])
-        LAUNCHES, BWD_LAUNCHES = before
+        for (ns, name), n in zip(_COUNTERS, before):
+            self.captured[name] = ns[name] - n
+            ns[name] = n
 
     def replay(self):
-        global LAUNCHES, BWD_LAUNCHES
         self.graph.replay()
         self.replays += 1
-        LAUNCHES += self.launches[0]
-        BWD_LAUNCHES += self.launches[1]
+        for ns, name in _COUNTERS:
+            ns[name] += self.captured.get(name, 0)
 
 
 def _route(x):

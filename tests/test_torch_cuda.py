@@ -19,6 +19,7 @@ from test_torch_common import (HEADS, calibrate_bn,  # noqa: F401
                                cuda_device, deform_case)
 
 from codenet_torch.ops import deform_cuda as DC
+from codenet_torch.ops import dwconv_cuda as DW
 
 SHAPES = [(8, 8, 1024), (16, 16, 256), (32, 32, 128), (12, 12, 58),
           (16, 16, 2153), (24, 24, 32)]
@@ -1267,6 +1268,172 @@ def test_kbatch_graph_matches_loop_on_card(cuda_device):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
     (graph, _, _), = det._kbatch_graphs.values()
     assert graph.launches == (9, 0) and graph.replays == 2
+
+
+# config d's depthwise 3x3 convs (h, w, c, stride): layer1.0's b1 and b2,
+# layer1, layer2.0's two, layer2, layer3.0's two, layer3, the fused heads
+DW_SHAPES = [(128, 128, 24, 2), (128, 128, 122, 2), (64, 64, 122, 1),
+             (64, 64, 244, 2), (32, 32, 244, 1), (32, 32, 488, 2),
+             (16, 16, 488, 1), (128, 128, 192, 1)]
+# (n, h, w, c, stride): odd maps and channel counts (one- and two-channel
+# vectors, masked slices, a last band shorter than the others)
+DW_ODD = [(2, 7, 9, 5, 1), (3, 9, 7, 6, 2), (1, 33, 17, 3, 2),
+          (2, 5, 5, 1, 1), (4, 45, 30, 40, 1)]
+
+
+def _dw_case(n, h, w, c, stride, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = torch.randn(n, h, w, c, generator=gen).to(device).permute(0, 3, 1, 2)
+    wt = (torch.randn(c, 1, 3, 3, generator=gen) * 0.3).to(device)
+    dy = torch.randn(n, ho, wo, c, generator=gen).to(device) \
+        .permute(0, 3, 1, 2)
+    return x, wt, dy
+
+
+def _dw_check(x, wt, dy, stride, bias):
+    """The kernel (one launch) against the plain version on the card, TF32
+    off: dx within 1e-5 of its max (a sum of at most 9 products, another
+    order), dW and db within 1e-4 of theirs (sums of up to 524,288
+    products over the batch and map, summed in another order)."""
+    before = DW.DW_BWD_LAUNCHES
+    dx, dw, db = DW.dwconv_bwd(x, wt, dy, stride, bias)
+    torch.cuda.synchronize()
+    assert DW.DW_BWD_LAUNCHES == before + 1
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    rdx, rdw, rdb = DW.dwconv_bwd_plain(x, wt, dy, stride, bias)
+    for got, ref, tol in ((dx, rdx, 1e-5), (dw, rdw, 1e-4), (db, rdb, 1e-4)):
+        if ref is None:
+            assert got is None
+            continue
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        err = float((got - ref).abs().max())
+        assert err <= tol * float(ref.abs().max()), (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("shape", DW_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dwconv_bwd_matches_plain_at_config_d(shape, bias, cuda_device,
+                                              monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    h, w, c, stride = shape
+    _dw_check(*_dw_case(32, h, w, c, stride, cuda_device, seed=h + c),
+              stride, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_ODD, ids=lambda s: "x".join(map(str, s)))
+def test_dwconv_bwd_odd_shapes_on_card(case, cuda_device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    n, h, w, c, stride = case
+    _dw_check(*_dw_case(n, h, w, c, stride, cuda_device, seed=c), stride,
+              True)
+
+
+@pytest.mark.cuda
+def test_dwconv_bwd_misaligned_and_nchw_dy_on_card(cuda_device,
+                                                   monkeypatch):
+    """x a view 4 bytes past a 16-byte boundary: the plan narrows to
+    one-channel vectors; dy in NCHW: copied to channels_last first (one
+    copy counted); both against the plain version."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, wt, dy = _dw_case(2, 16, 16, 64, 1, cuda_device, seed=3)
+    buf = torch.zeros(x.numel() + 1, device=cuda_device)
+    xv = buf[1:].view(2, 16, 16, 64).permute(0, 3, 1, 2)
+    xv.copy_(x)
+    assert DW.dw_bwd_plan(2, 16, 16, 64, 1,
+                          align=DC._alignment(xv))["vec"] == 1
+    _dw_check(xv, wt, dy, 1, False)
+    copies = DW.DY_COPIES
+    _dw_check(x, wt, dy.contiguous(), 1, True)
+    assert DW.DY_COPIES == copies + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 64, 122, 1), (128, 128, 24, 2)],
+                         ids=["s1", "s2"])
+def test_dwconv_bwd_two_runs_bit_equal_on_card(shape, cuda_device):
+    """No atomics: dx, dW and db equal bit for bit from run to run."""
+    h, w, c, stride = shape
+    x, wt, dy = _dw_case(32, h, w, c, stride, cuda_device, seed=7)
+    a = DW.dwconv_bwd(x, wt, dy, stride, True)
+    b = DW.dwconv_bwd(x, wt, dy, stride, True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_dwconv_graphed_w2_step_matches_eager_on_card(cuda_device):
+    """Config d's model (--w2, 64^2): every depthwise conv of an eager
+    step takes the kernel (20 routes, none to the library, 20 launches);
+    the captured step holds 20 and each replay counts them; three graphed
+    steps against three eager steps of a twin from the same conditioned
+    state, as test_graphed_step_matches_eager_step_on_card holds them
+    (first stats 1e-5, later 5e-3, the change 1e-1 relative L2)."""
+    from test_torch_common import raise_bn_biases
+    from codenet_torch.engine import trainer as T
+    opt = _voc_opt(["--w2"])
+    graphed, eager = (T.Trainer(opt, device=cuda_device) for _ in range(2))
+    raise_bn_biases(graphed.model, HEADS)
+    eager.model.load_state_dict(graphed.model.state_dict())
+    graphed.init()
+    eager.init()
+    params = [k for k, _ in graphed.model.named_parameters()]
+    start = {k: v.clone() for k, v in graphed.model.state_dict().items()}
+    batches = _graph_batches(3)
+    run = T.make_multi_train_step(graphed.train_step, batches[0],
+                                  cuda_device, warmup=1)
+    for i, batch in enumerate(batches):
+        before = DW.DW_BWD_LAUNCHES
+        keys, got = run(batch)
+        torch.cuda.synchronize()
+        assert DW.DW_BWD_LAUNCHES - before == 20
+        routes = dict(DW.DW_ROUTES)
+        before = DW.DW_BWD_LAUNCHES
+        ref = eager.train_step(T.batch_to_device(batch, cuda_device))
+        torch.cuda.synchronize()
+        assert DW.DW_BWD_LAUNCHES - before == 20
+        assert DW.DW_ROUTES == {"kernel": routes["kernel"] + 20,
+                                "library": routes["library"]}
+        torch.testing.assert_close(got, torch.stack(list(ref.values())),
+                                   rtol=1e-5 if i == 0 else 5e-3,
+                                   atol=1e-6)
+    assert run.graph.replays == 2 \
+        and run.graph.captured["DW_BWD_LAUNCHES"] == 20
+    got, ref = graphed.model.state_dict(), eager.model.state_dict()
+    num = sum(float(((got[k] - ref[k]).double() ** 2).sum())
+              for k in params)
+    den = sum(float(((ref[k] - start[k]).double() ** 2).sum())
+              for k in params)
+    assert den > 0 and (num / den) ** 0.5 <= 1e-1, (num / den) ** 0.5
+
+
+@pytest.mark.cuda
+def test_dwconv_served_flip_batch_launches_nothing_on_card(cuda_device):
+    """A served flip-test batch of config d's model runs no backward: it
+    routes no depthwise conv and launches no backward kernel."""
+    from codenet_torch import config as cfg
+    from codenet_torch.engine.detector import CtdetDetector
+    from codenet_torch.models import create_model
+    opt = cfg.update_dataset_info_and_set_heads(
+        cfg.parse(["ctdet", "--dataset", "pascal", "--arch", "shufflenetv2",
+                   "--input_res", "64", "--flip_test", "--w2"]),
+        cfg.DATASET_SPECS["pascal"])
+    model = create_model("shufflenetv2", HEADS, 64, w2=True, device="cpu")
+    calibrate_bn(model, np.random.RandomState(29).randn(4, 64, 64, 3)
+                 .astype(np.float32))
+    det = CtdetDetector(opt, state_dict=model.state_dict(),
+                        device=cuda_device)
+    r = np.random.RandomState(30)
+    raw, wti, ti = (np.stack(c) for c in zip(*(
+        det.pre_process_raw(r.randint(0, 256, (80, 90, 3)).astype(np.uint8))
+        for _ in range(2))))
+    before = (DW.DW_BWD_LAUNCHES, dict(DW.DW_ROUTES))
+    det.process_batch_raw(raw, wti, ti)
+    torch.cuda.synchronize()
+    assert (DW.DW_BWD_LAUNCHES, DW.DW_ROUTES) == before
 
 
 @pytest.mark.cuda

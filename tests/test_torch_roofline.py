@@ -237,7 +237,8 @@ def test_tail_counts_equal_the_dispatched_ops(name, deform_as_one_op):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_train_rows_are_the_dispatched_backward(dtype, deform_as_one_op):
     """A train step's backward (fused heads): each conv's dgrad, wgrad and
-    bias gradient, every tail's backward, the deform backward, the
+    bias gradient (a depthwise 3x3 conv's dgrad and wgrad one `dw_bwd`
+    row), every tail's backward, the deform backward, the
     channel splits' zero-filled gradients and copies, the gradient sums,
     the shuffles' copies and the casts, count for count."""
     model = create_model("shufflenetv2", HEADS, 64, device="cpu",
@@ -251,6 +252,13 @@ def test_train_rows_are_the_dispatched_backward(dtype, deform_as_one_op):
     got = collections.Counter()
     for op, args, _ in log.ops:
         if op == "aten.convolution_backward.default":
+            # a depthwise 3x3 conv's dx and dW: one kernel on a card
+            # (ops/dwconv_cuda.py; the CPU's backward runs the library's)
+            if tuple(args[2].shape[1:]) == (1, 3, 3) \
+                    and args[9] == args[2].shape[0]:
+                assert list(args[-1][:2]) == [True, True]
+                got["dw_bwd"] += 1
+                continue
             got.update(k for k, on in zip(("dgrad", "wgrad", "bgrad"),
                                           args[-1]) if on)
         else:
@@ -258,8 +266,9 @@ def test_train_rows_are_the_dispatched_backward(dtype, deform_as_one_op):
     m = R.build(64, False, 1, dtype, fused_heads=True, train=True)
     want = collections.Counter(r.kind for r in R.train_rows(m))
     bias_grads = got["bgrad"] + got["aten.sum.dim_IntList"]
-    assert (got["dgrad"], got["wgrad"], bias_grads) \
-        == (want["dgrad"], want["wgrad"], want["bgrad"])
+    assert (got["dgrad"], got["wgrad"], bias_grads, got["dw_bwd"]) \
+        == (want["dgrad"], want["wgrad"], want["bgrad"], want["dw_bwd"])
+    assert want["dw_bwd"] == 20
     assert got["aten.native_batch_norm_backward.default"] == want["bn_bwd"]
     assert got["aten.threshold_backward.default"] == want["relu_bwd"]
     assert got["aten.hardtanh_backward.default"] == want["hardtanh_bwd"]

@@ -40,7 +40,9 @@ gradient, each tail's backward, the deform backward, the gradient sums
 where a map feeds two convs, the zero-filled gradients and copies that
 the backward of each channel split and of each head's slice of the
 fused output makes, and the fused Adam update (parameters, gradients
-and both f32 moments read; parameters and moments written).
+and both f32 moments read; parameters and moments written). A depthwise
+3x3 conv's dgrad and wgrad are one kernel (ops/dwconv_cuda.py): one
+`dw_bwd` row, x and dy read and dx written once.
 
 A row's bound is the largest of its three times; the step's bound is the
 sum of the rows' (kernels on one stream serialize). The bounds come from
@@ -102,6 +104,14 @@ def deform_bwd_bytes(n, h, w, c, itemsize):
         + 2 * 9 * c * itemsize
 
 
+def dw_bwd_bytes(n, h, w, c, stride):
+    """What the depthwise 3x3 backward must move in f32 (ops/dwconv_cuda.py,
+    dx and dW in one pass): x and dy read, dx written, the weight read
+    and dW written."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return 4 * (2 * n * h * w * c + n * ho * wo * c + 2 * 9 * c)
+
+
 @dataclasses.dataclass
 class Row:
     """One kernel: the module it models, its op and shapes (enough for
@@ -145,7 +155,8 @@ class Row:
         if self.kind.startswith("upsample"):  # its output at 2h x 2w
             out = 4 * self.n * self.h * self.w * self.cin
         weight = self.k * self.k * self.cin // self.groups * self.cout \
-            if self.kind in ("conv", "dgrad", "wgrad", "bgrad") else 0
+            if self.kind in ("conv", "dgrad", "wgrad", "bgrad", "dw_bwd") \
+            else 0
         return max(self.n * self.h * self.w * self.cin, out, weight)
 
     @property
@@ -231,8 +242,10 @@ class Model:
         result's casts and the bias add; dense and grouped convs on the
         tensor cores, depthwise ones (one input channel a group) on the
         CUDA cores. Backward: dgrad (unless `dx` is False: the images),
-        wgrad, and with a bias its gradient. `params` and `useful`
-        override the counts of a fused conv (padded outputs)."""
+        wgrad, and with a bias its gradient; for a depthwise 3x3 conv one
+        `dw_bwd` row (ops/dwconv_cuda.py's kernel) in their place.
+        `params` and `useful` override the counts of a fused conv (padded
+        outputs)."""
         h, w = hw
         bf16 = self.dtype == "bf16"
         wel = k * k * cin // groups * cout
@@ -252,10 +265,17 @@ class Model:
         self.add(row, fl if useful is None else useful)
         self.params += wel + (cout if bias else 0) if params is None \
             else params
-        for kind in ("dgrad", "wgrad") if dx else ("wgrad",):
-            self.add(dataclasses.replace(row, kind=kind, bias=False,
-                                         bytes=io + wel * 4),
-                     backward=True)
+        if k == 3 and groups == cin == cout:
+            # the depthwise backward kernel: dx and dW in one pass
+            self.add(dataclasses.replace(
+                row, kind="dw_bwd", bias=False, cc_ops=2 * fl,
+                bytes=dw_bwd_bytes(self.b, h, w, cin, stride)),
+                backward=True)
+        else:
+            for kind in ("dgrad", "wgrad") if dx else ("wgrad",):
+                self.add(dataclasses.replace(row, kind=kind, bias=False,
+                                             bytes=io + wel * 4),
+                         backward=True)
         out = (row.ho, row.wo)
         if bias:
             if bf16:
