@@ -6,8 +6,12 @@ files are `benchmark/configs/<config>.json` (the path the entry gives),
 its parameters and sets its own over them: mixes that differ in their
 rate alone share one file of frames), and the cell's correctness limits
 `benchmark/workloads/<cell>.json`. Each per-layer metric is the reader
-`benchmark/metrics/<metric>.py`. A cell, mix, configuration or metric is
-added by adding files and entries; no code names one.
+`benchmark/metrics/<metric>.py`. The configuration's architecture is the
+reference module `benchmark/reference/arch/<family>.py`, its family the
+part of its `arch` before the first `_` (reference/arch/__init__.py: the
+module names the state, seeds it, and holds the plain network and its
+own faults). A cell, mix, configuration, architecture or metric is added
+by adding files and entries; no code names one.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import importlib.util
 import json
 import statistics
 from pathlib import Path
+
+from ..reference import arch
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -39,6 +45,7 @@ class Cell:
         self.config = json.loads((root / conf["file"]).read_text())
         res = self.config["input_res"]
         self.config.setdefault("input_hw", [res, res])
+        self.arch = arch.load(self.config["arch"], root)
         self.workload = traffic_mix(bench, entry["traffic"])
         self.workload.update(json.loads(
             (bench / "workloads" / (name + ".json")).read_text()))

@@ -27,20 +27,17 @@ import torch
 
 from ..reference.serve import dense_detections
 from . import compare, probe, traffic, weights
-from .train import free, peak_memory, reset_peak_memory, sync
+from .train import free, model_args, peak_memory, reset_peak_memory, sync
 
 WARM_REQUESTS = 3
 TRACED_REQUESTS = 24
 CALIBRATION_FRAMES = 8
 
 
-def program_opt(cfg, wl):
+def program_opt(cell):
     from codenet_torch import config as C
-    args = ["ctdet", "--dataset", cfg["dataset"], "--arch", cfg["arch"],
-            "--head_conv", str(cfg["head_conv"]),
-            "--input_res", str(cfg["input_res"]), "--K", str(wl["K"])]
-    if cfg["w2"]:
-        args.append("--w2")
+    cfg, wl = cell.config, cell.workload
+    args = model_args(cell) + ["--K", str(wl["K"])]
     if wl["flip_test"]:
         args.append("--flip_test")
     opt = C.parse(args)
@@ -162,13 +159,13 @@ def run(cell, seed, seconds, spans, traced, device, faults=()):
     rng = np.random.RandomState(data_seed)
     dims = traffic.frame_sizes(wl["frames"], rng)
     pool = traffic.host_pool(dims, data_seed, device)
-    params, buffers = weights.make(cfg, weight_seed, device)
+    params, buffers = weights.make(cell.arch, cfg, weight_seed, device)
     calib = torch.as_tensor(pool[:CALIBRATION_FRAMES], device=device)
-    buffers = weights.calibrated(cfg, params, buffers, calib,
+    buffers = weights.calibrated(cell.arch, cfg, params, buffers, calib,
                                  dims[:CALIBRATION_FRAMES])
     del calib
     reset_peak_memory(device)
-    opt = program_opt(cfg, wl)
+    opt = program_opt(cell)
     detector = CtdetDetector(opt, state_dict=weights.state_dict(
         params, buffers), device=device)
     for fault in faults:
@@ -228,8 +225,8 @@ def judge(cell, frames, served, params, buffers, limits, chunk=32):
     worst = None
     k = cell.workload["K"]
     for lo in range(0, len(frames), chunk):
-        dense = dense_detections(frames[lo:lo + chunk], cell.config, params,
-                                 buffers, k)
+        dense = dense_detections(cell.arch, frames[lo:lo + chunk],
+                                 cell.config, params, buffers, k)
         got = compare.serving(served[lo:lo + chunk], dense, limits, k)
         worst = got if worst is None else {
             n: compare.check(max(worst[n]["value"], v["value"]), v["limit"])

@@ -84,18 +84,26 @@ class Feed:
             self._engine = None
 
 
-def program_opt(cfg, wl, seed):
-    """The program's options for a training cell, as its CLIs parse them."""
-    from codenet_torch import config as C
-    args = ["ctdet", "--dataset", cfg["dataset"], "--arch", cfg["arch"],
+def model_args(cell):
+    """The program's options for the cell's configuration: its model,
+    input and output stride, as its CLIs parse them."""
+    cfg = cell.config
+    return ["ctdet", "--dataset", cfg["dataset"], "--arch", cfg["arch"],
             "--head_conv", str(cfg["head_conv"]),
             "--input_res", str(cfg["input_res"]),
-            "--batch_size", str(wl["batch"]),
-            "--num_workers", str(wl["loader_threads"]),
-            "--lr", repr(wl["lr"]), "--seed", str(seed), "--device_cache",
-            "--data_dir", "unused"]
-    if cfg["w2"]:
-        args.append("--w2")
+            "--down_ratio", str(cfg["down_ratio"]),
+            *cell.arch.program_args(cfg)]
+
+
+def program_opt(cell, seed):
+    """The program's options for a training cell, as its CLIs parse them."""
+    from codenet_torch import config as C
+    cfg, wl = cell.config, cell.workload
+    args = model_args(cell) + [
+        "--batch_size", str(wl["batch"]),
+        "--num_workers", str(wl["loader_threads"]),
+        "--lr", repr(wl["lr"]), "--seed", str(seed), "--device_cache",
+        "--data_dir", "unused"]
     if wl.get("quant"):
         args += ["--resume-quantize", "--w-bit", str(wl["quant"]["w_bit"]),
                  "--a-bit", str(wl["quant"]["a_bit"])]
@@ -145,7 +153,7 @@ def run(cell, seed, seconds, spans, traced, device, faults=()):
 
     cfg, wl = cell.config, cell.workload
     data_seed, weight_seed, loader_seed = traffic.seeds(seed, 3)
-    opt = program_opt(cfg, wl, loader_seed)
+    opt = program_opt(cell, loader_seed)
     rng = np.random.RandomState(data_seed)
     dims = traffic.frame_sizes(wl["frames"], rng)
     gt = traffic.annotations(wl["frames"], dims, rng, cfg["num_classes"])
@@ -154,8 +162,9 @@ def run(cell, seed, seconds, spans, traced, device, faults=()):
     dataset._image_cache_dims = dims
 
     quant = wl.get("quant")
-    params, buffers = weights.make(cfg, weight_seed, device, bool(quant))
-    buffers = weights.calibrated(cfg, params, buffers,
+    params, buffers = weights.make(cell.arch, cfg, weight_seed, device,
+                                   bool(quant))
+    buffers = weights.calibrated(cell.arch, cfg, params, buffers,
                                  cache[:CALIBRATION_FRAMES],
                                  dims[:CALIBRATION_FRAMES], quant)
     reset_peak_memory(device)
@@ -216,13 +225,14 @@ def run(cell, seed, seconds, spans, traced, device, faults=()):
 
 
 def reference_steps(cell, params, buffers, rows, batches, precision="f32",
-                    keep=None, unit_relu=True):
+                    keep=None, fault=None):
     """The reference's first steps on the rows and batches the program
-    took: {losses, first_grads, after}. `keep` and `unit_relu=False` plant
-    the readings' faults (reference.train.Trainer)."""
+    took: {losses, first_grads, after}. `keep` and `fault` (one of the
+    architecture's FAULTS) plant the readings' faults
+    (reference.train.Trainer)."""
     cfg, wl = cell.config, cell.workload
-    ref = RefTrainer(cfg, params, buffers, wl["lr"], precision,
-                     wl.get("quant"), unit_relu)
+    ref = RefTrainer(cell.arch, cfg, params, buffers, wl["lr"], precision,
+                     wl.get("quant"), fault)
     losses = [ref.step(r, b, keep) for r, b in zip(rows, batches)]
     return {"losses": losses, "first_grads": ref.first_grads,
             "after": ref.params}

@@ -3,10 +3,10 @@ seed, the numbers of a sound run of the program, of the control (the
 reference in TF32, the precision below the configurations' float32 with
 TF32 off, put in the program's place) and of the faults a cell can have
 (training: half of the batch left out, the mean taken over the rest, and
-the ReLUs of the backbone's units left out; serving, each planted in the
-served detections as a decode would produce them: one detection's class
-altered, only the best K/2 detections of a frame, its best detection
-repeated K times).
+each fault of the architecture's own, its module's FAULTS, in the
+reference's place; serving, each planted in the served detections as a
+decode would produce them: one detection's class altered, only the best
+K/2 detections of a frame, its best detection repeated K times).
 A state left unchanged reads 1 by the change's measure and needs no run.
 
     python3 -m benchmark.readings --workload <name> --seeds 1,2,3 \\
@@ -35,7 +35,7 @@ def training_readings(cell, rec):
     out = {}
     for name, kw in (("control", {"precision": "tf32"}),
                      ("half_batch", {"keep": slice(0, len(rows[0]) // 2)}),
-                     ("relu_off", {"unit_relu": False})):
+                     *((f, {"fault": f}) for f in cell.arch.FAULTS)):
         got = train.reference_steps(cell, params, buffers, rows, batches,
                                     **kw)
         out[name] = dict(zip(("loss_gap", "grad_gap", "change_gap"),
@@ -69,9 +69,10 @@ def serving_readings(cell, rec):
              for name in ("control", *SERVING_FAULTS)}
     for lo in range(0, len(frames), 32):
         chunk = frames[lo:lo + 32]
-        ref = dense_detections(chunk, cell.config, params, buffers, k)
+        ref = dense_detections(cell.arch, chunk, cell.config, params,
+                               buffers, k)
         sides = {"control": top_detections(dense_detections(
-            chunk, cell.config, params, buffers, k, "tf32"), k)}
+            cell.arch, chunk, cell.config, params, buffers, k, "tf32"), k)}
         for name, fault in SERVING_FAULTS.items():
             sides[name] = [fault(d, k, classes) for d in served[lo:lo + 32]]
         for name, dets in sides.items():

@@ -1,5 +1,7 @@
-"""The plain reference of the benchmark: ctdet with ShuffleNetV2-DCN 1x or
-2x (CoDeNet), written out in plain PyTorch and NumPy, float32.
+"""The plain reference of the benchmark: ctdet (CenterNet's letterbox,
+warp and augmentation, targets, loss, Adam and decode) over one network
+module per architecture (`arch/`), written out in plain PyTorch and
+NumPy, float32.
 
 It imports nothing of the program under test (`codenet_torch`, its tools)
 and nothing of JAX or the JAX package. Where it needs the program's plain

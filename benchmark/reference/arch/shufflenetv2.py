@@ -1,57 +1,80 @@
-"""CoDeNet's ctdet network, plain: ShuffleNetV2 1x or 2x (stride-4 stem,
-stages of 4 / 8 / 4 units, a 1x1 expansion), three co-designed deform
-blocks each with a BN, a ReLU and a 2x nearest upsample, and the CenterNet
-heads (1x1 + BN + ReLU, depthwise 3x3 + BN + ReLU, 1x1 to the classes),
-as CoDeNet's shufflenetv2_dcn.py lays it out, with the same state_dict
-names. W4A8 fake-quant (`quant`) places its quantizers where CoDeNet's
-quantize_model.py does and folds every BN from its running statistics.
+"""CoDeNet's ctdet network, plain: ShuffleNetV2 1x or 2x (`w2`; stride-4
+stem, stages of 4 / 8 / 4 units, a 1x1 expansion), three co-designed
+deform blocks each with a BN, a ReLU and a 2x nearest upsample, and the
+CenterNet heads (1x1 + BN + ReLU, depthwise 3x3 + BN + ReLU, 1x1 to the
+classes), as CoDeNet's shufflenetv2_dcn.py lays it out, with the same
+state_dict names. W4A8 fake-quant (`quant`) places its quantizers where
+CoDeNet's quantize_model.py does and folds every BN from its running
+statistics.
 
 `forward(x, params, buffers, ...)` is functional: parameters and buffers
 are dicts of tensors named as the state_dict names them, and the
 quantizers' EMA ranges, when `update` is set, are written back into
 `buffers`; train-mode BN updates no running statistics (the reference
-compares the training step, not its statistics) but in `calibrate`.
+compares the training step, not its statistics) but in `ops.calibrate`.
+
+The seeded state (`init`): convolutions He-normal over their fan-in, the
+deform kernels CoDeNet's U(+-1/sqrt(9 C)) spread, the deform blocks'
+scale predictors small (so s = 1 + a few tenths: fractional sampling
+positions), the heatmap's last conv torch's default spread with bias
+-2.19. BN scales are 1 and BN shifts +3 (but the heads' last BNs, 0): at
+zero shifts a random network this deep with train-mode BN is chaotic in
+float32, and two correct devices disagree as much as float32 does from
+float64 (the program's own tools measured 5% against 8e-5 of gradient
+L2).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from . import ops
+from benchmark.reference import ops
 
 STAGE_REPEATS = (3, 7, 3)
+BN_SHIFT = 3.0
+SCALE_SPREAD = 0.2
+FAULTS = {"relu_off": "the ReLUs of the backbone's units left out"}
 
 
 def channels(w2):
     return [24, 244, 488, 976, 2153] if w2 else [24, 116, 232, 464, 1024]
 
 
+def program_args(cfg):
+    """The program's options for the configuration's variant."""
+    return ["--w2"] if cfg["w2"] else []
+
+
+def _no_maxpool(cfg):
+    if cfg.get("maxpool"):
+        raise ValueError("the reference has no max-pool stem variant")
+
+
 class Net:
     """One configuration of the network. quant: None, or a dict with
     w_bit, a_bit, wt_percentile, act_clamp."""
 
-    def __init__(self, heads, w2, head_conv=64, quant=None,
-                 precision="f32", unit_relu=True):
-        self.heads = tuple(sorted(dict(heads).items()))
-        # False leaves out the ReLUs of the backbone's units: a fault that
-        # the harness's readings plant in the reference's place
-        self.unit_relu = F.relu if unit_relu else (lambda y: y)
-        self.ch = channels(w2)
-        self.head_conv = head_conv
+    def __init__(self, cfg, quant=None, precision="f32", fault=None):
+        _no_maxpool(cfg)
+        self.heads = tuple(sorted(dict(cfg["heads"]).items()))
+        # "relu_off" leaves out the ReLUs of the backbone's units: a fault
+        # that the harness's readings plant in the reference's place
+        self.unit_relu = (lambda y: y) if fault == "relu_off" else F.relu
+        self.ch = channels(cfg["w2"])
+        self.head_conv = cfg["head_conv"]
         self.quant = quant
         self.precision = precision
         # train-mode BN writes momentum x the batch's statistics into the
-        # running ones: 0 leaves them as they are, 1 (`calibrate`) takes
-        # the batch's
+        # running ones: 0 leaves them as they are, 1 (`ops.calibrate`)
+        # takes the batch's
         self.bn_momentum = 0.0
 
     # -- pieces -----------------------------------------------------------
     def _bn(self, y, name, p, b, train):
-        return F.batch_norm(y, b[name + ".running_mean"],
-                            b[name + ".running_var"], p[name + ".weight"],
-                            p[name + ".bias"], train, self.bn_momentum,
-                            1e-5)
+        return ops.batch_norm(y, name, p, b, train, self.bn_momentum)
 
     def _conv_bn(self, x, conv, bn, p, b, train, stride=1, padding=0,
                  groups=1, w_bit=None):
@@ -104,7 +127,7 @@ class Net:
         if stride == 2:
             x1 = self._act(x1, share, b, up)
         x2 = self._act(x2, share, b, up)
-        return ops.channel_shuffle(torch.cat([x1, x2], 1))
+        return channel_shuffle(torch.cat([x1, x2], 1))
 
     def _deform_block(self, x, i, p, b, train, up):
         pre = "deconv_layers.{}.".format(4 * i)
@@ -155,24 +178,19 @@ class Net:
                 for name, _ in self.heads}
 
 
-@torch.no_grad()
-def calibrate(net, x, params, buffers):
-    """`buffers` with every BN's running statistics set to those of the
-    batch x (one train-mode forward): a seeded state whose eval-mode and
-    folded forwards see the activations of training."""
-    out = {k: v.clone() for k, v in buffers.items()}
-    net.bn_momentum = 1.0
-    try:
-        net.forward(x, params, out, train=True)
-    finally:
-        net.bn_momentum = 0.0
-    return out
+def channel_shuffle(x, groups=2):
+    """ShuffleNet's channel shuffle of (N, C, H, W)."""
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)
 
 
-def state_shapes(heads, w2, head_conv=64, quant=False):
+def state_shapes(cfg, quant=False):
     """{state_dict name: shape} of the network: weights, BN parameters
     and statistics and, quantized, the quantizers' ranges."""
-    ch = channels(w2)
+    _no_maxpool(cfg)
+    heads, head_conv = cfg["heads"], cfg["head_conv"]
+    ch = channels(cfg["w2"])
     out = {}
 
     def bn(name, c):
@@ -233,3 +251,30 @@ def state_shapes(heads, w2, head_conv=64, quant=False):
         act(name + ".act1")
         act(name + ".act2")
     return out
+
+
+def init(cfg, name, shape):
+    """The std of a 4-D weight's draw, or the constant of any other
+    tensor (the module's docstring)."""
+    base, leaf = name.rsplit(".", 1)
+    if len(shape) == 4:
+        fan_in = math.prod(shape[1:])
+        if name.endswith("conv_scale.weight"):
+            return SCALE_SPREAD / math.sqrt(fan_in)
+        if name.endswith("conv.weight"):  # the deform kernel
+            return 1.0 / math.sqrt(3 * 9 * shape[0])
+        if name.startswith("hm.") and name.endswith(".6.weight"):
+            return 1.0 / math.sqrt(3 * fan_in)
+        return math.sqrt(2.0 / fan_in)
+    if leaf == "weight":
+        return 1.0
+    if leaf == "bias" and base.endswith("conv_scale"):
+        return 1.0
+    if leaf == "bias" and base.endswith(".6"):
+        return -2.19 if base == "hm.6" else 0.0
+    if leaf == "bias":
+        heads_last_bn = {h + ".4" for h in cfg["heads"]}
+        return 0.0 if base in heads_last_bn else BN_SHIFT
+    if leaf == "running_var":
+        return 1.0
+    return 0.0  # running_mean, num_batches_tracked, x_min, x_max

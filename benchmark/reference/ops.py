@@ -3,8 +3,8 @@ as gathers (CoDeNet's DeformConvWithOffsetScaleBoundPositive sampling,
 tap t at p + a_t * s, s clamped to [-7, 8], each bilinear corner zeroed
 outside the map), W4A8 fake-quant (symmetric per-channel weights,
 asymmetric EMA-ranged activations, straight-through gradients, the
-reference quantizer's rounding), BN folding, and convolutions in the
-reference's precision."""
+reference quantizer's rounding), BN and its folding, and convolutions in
+the reference's precision."""
 
 from __future__ import annotations
 
@@ -126,14 +126,30 @@ def ema_range(x_min, x_max, x, momentum=0.99):
                         momentum * x_max + (1 - momentum) * bmax))
 
 
+def batch_norm(y, name, p, b, train, momentum):
+    """BN `name` of (N, C, H, W) y: params p, buffers b; train-mode BN
+    writes `momentum` x the batch's statistics into the running ones."""
+    return F.batch_norm(y, b[name + ".running_mean"],
+                        b[name + ".running_var"], p[name + ".weight"],
+                        p[name + ".bias"], train, momentum, 1e-5)
+
+
+@torch.no_grad()
+def calibrate(net, x, params, buffers):
+    """`buffers` with every BN's running statistics set to those of the
+    batch x (one train-mode forward of `net`, an architecture's `Net`): a
+    seeded state whose eval-mode and folded forwards see the activations
+    of training."""
+    out = {k: v.clone() for k, v in buffers.items()}
+    net.bn_momentum = 1.0
+    try:
+        net.forward(x, params, out, train=True)
+    finally:
+        net.bn_momentum = 0.0
+    return out
+
+
 def fold_bn(w, gamma, beta, mean, var, eps=1e-5):
     """Conv weight and bias with a frozen BN folded in."""
     factor = gamma / torch.sqrt(var + eps)
     return w * factor[:, None, None, None], (-mean) * factor + beta
-
-
-def channel_shuffle(x, groups=2):
-    """ShuffleNet's channel shuffle of (N, C, H, W)."""
-    n, c, h, w = x.shape
-    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
-        n, c, h, w)

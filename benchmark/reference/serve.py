@@ -15,7 +15,6 @@ import torch
 import torch.nn.functional as F
 
 from . import geometry
-from .model import Net
 
 
 class Dense(NamedTuple):
@@ -54,13 +53,16 @@ def block_peaks(dense, i):
 
 
 @torch.no_grad()
-def dense_detections(frames, cfg, params, buffers, k, precision="f32"):
+def dense_detections(arch, frames, cfg, params, buffers, k,
+                     precision="f32"):
     """The reference's `Dense` maps of a list of (h, w, 3) uint8 BGR
-    frames, on the device of `params`."""
+    frames, on the device of `params`, through configuration `cfg` of
+    architecture module `arch`."""
     dev = next(iter(params.values())).device
     ih, iw = cfg["input_hw"]
     warp_ti, back = zip(*(geometry.letterbox(f.shape[0], f.shape[1],
-                                             (ih, iw)) for f in frames))
+                                             (ih, iw), cfg["down_ratio"])
+                          for f in frames))
     hmax = max(f.shape[0] for f in frames)
     wmax = max(f.shape[1] for f in frames)
     stack = np.zeros((len(frames), hmax, wmax, 3), np.uint8)
@@ -73,7 +75,7 @@ def dense_detections(frames, cfg, params, buffers, k, precision="f32"):
     std = torch.as_tensor(np.asarray(cfg["std"], np.float32), device=dev)
     img = ((img / 255.0 - mean) / std).permute(0, 3, 1, 2)
     x = torch.cat([img, torch.flip(img, dims=[3])]).contiguous()
-    net = Net(cfg["heads"], cfg["w2"], cfg["head_conv"], None, precision)
+    net = arch.Net(cfg, None, precision)
     out = net.forward(x, params, dict(buffers), train=False)
     n = len(frames)
     hm = out["hm"].sigmoid()

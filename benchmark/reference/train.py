@@ -9,7 +9,6 @@ from __future__ import annotations
 import torch
 
 from . import geometry
-from .model import Net
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
@@ -58,16 +57,16 @@ def ctdet_loss(out, hm, batch):
 
 
 class Trainer:
-    """The reference's training of one configuration, from `params` and
-    `buffers` (dicts of tensors; copied). step(rows, batch) takes one step
-    and returns its loss; `first_grads` holds the first step's gradients,
-    `params` the current weights."""
+    """The reference's training of configuration `cfg` of architecture
+    module `arch` (`arch/`), from `params` and `buffers` (dicts of
+    tensors; copied). step(rows, batch) takes one step and returns its
+    loss; `first_grads` holds the first step's gradients, `params` the
+    current weights. `fault` is one of the module's FAULTS, or None."""
 
-    def __init__(self, cfg, params, buffers, lr, precision="f32",
-                 quant=None, unit_relu=True):
+    def __init__(self, arch, cfg, params, buffers, lr, precision="f32",
+                 quant=None, fault=None):
         self.cfg = cfg
-        self.net = Net(cfg["heads"], cfg["w2"], cfg["head_conv"], quant,
-                       precision, unit_relu)
+        self.net = arch.Net(cfg, quant, precision, fault)
         self.params = {k: v.detach().clone().float()
                        for k, v in params.items()}
         self.buffers = {k: v.detach().clone() for k, v in buffers.items()}
@@ -86,7 +85,7 @@ class Trainer:
             rows = rows[keep]
         x = model_input(rows, batch, cfg["input_hw"], cfg["mean"],
                         cfg["std"])
-        oh, ow = cfg["input_hw"][0] // 4, cfg["input_hw"][1] // 4
+        oh, ow = (side // cfg["down_ratio"] for side in cfg["input_hw"])
         hm = geometry.heatmaps(batch["hm_ct"], batch["hm_radius"],
                                batch["hm_cls"], batch["reg_mask"], oh, ow,
                                cfg["num_classes"])

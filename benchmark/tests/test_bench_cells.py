@@ -1,5 +1,6 @@
 """Whole runs of the harness on the CPU at a tiny size, past its look for
-a card: cells added as fixture files in a temporary copy are found and
+a card: cells added as fixture files in a temporary copy, on ShuffleNetV2
+and on an architecture added by its module alone (res_18), are found and
 run without an edit to any file; a sound run comes out correct; the
 control and each fault the cells can have come out not correct against
 the limits the real cells hold."""
@@ -27,9 +28,25 @@ def run(root, name, faults=()):
     return cell, rec, spans
 
 
-@pytest.mark.parametrize("name", ["tiny_train", "tiny_serve"])
-def test_fixture_cell_is_found_and_a_sound_run_is_correct(root, name):
-    cell, rec, spans = run(root, name)
+@pytest.fixture(scope="module")
+def sound(root):
+    """The sound run of a fixture cell, made once for the module's tests
+    that read it: (cell, record, spans)."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            runs[name] = run(root, name)
+        return runs[name]
+    return get
+
+
+CELLS = ["tiny_train", "tiny_serve", "tiny_res_train", "tiny_res_serve"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_fixture_cell_is_found_and_a_sound_run_is_correct(sound, name):
+    cell, rec, spans = sound(name)
     values = C.end_to_end(cell, rec, 1.0)
     assert set(values) == {m["name"] for m in cell.end_to_end}
     assert compare.passed(rec["checks"]), rec["checks"]
@@ -99,31 +116,36 @@ def _altered(dets, detector):
     ("tiny_serve", _decode_fault(_altered)),
     ("tiny_serve", _decode_fault(lambda d, _: d[:, :d.shape[1] // 2])),
     ("tiny_serve", _decode_fault(lambda d, _: d[:, :1].expand_as(d))),
-    ("tiny_serve", _decode_fault(lambda d, _: d[:-1]))],
+    ("tiny_serve", _decode_fault(lambda d, _: d[:-1])),
+    ("tiny_res_train", _state_unchanged), ("tiny_res_train", _half_batch),
+    ("tiny_res_serve", _decode_fault(_altered))],
     ids=["unchanged", "half", "relu_removed", "altered", "half_k",
-         "duplicated_peak", "frame_dropped"])
+         "duplicated_peak", "frame_dropped", "res_unchanged", "res_half",
+         "res_altered"])
 def test_a_fault_in_the_timed_path_is_not_correct(root, name, fault):
     _, rec, _ = run(root, name, [fault])
     assert not compare.passed(rec["checks"]), rec["checks"]
 
 
-@pytest.mark.parametrize("name", ["tiny_train", "tiny_serve"])
-def test_each_fault_of_the_readings_is_not_correct(root, name):
+@pytest.mark.parametrize("name", CELLS)
+def test_each_fault_of_the_readings_is_not_correct(sound, name):
     """The faults that benchmark.readings plants on the card, planted here
-    in the same way, fail the cell's limits."""
-    cell, rec, _ = run(root, name)
+    in the same way, fail the cell's limits: training's half batch and
+    the architecture's own, serving's three."""
+    cell, rec, _ = sound(name)
     got = (readings.training_readings if cell.workload["kind"] == "train"
            else readings.serving_readings)(cell, rec)
     limits = cell.workload["limits"]
     faults = [f for f in got if f != "control"]
-    assert len(faults) == (2 if cell.workload["kind"] == "train" else 3)
+    assert len(faults) == (1 + len(cell.arch.FAULTS)
+                           if cell.workload["kind"] == "train" else 3)
     for fault in faults:
         assert any(got[fault][k] > limits[k] for k in limits), (fault, got)
 
 
-@pytest.mark.parametrize("name", ["tiny_train", "tiny_serve"])
-def test_the_control_is_not_correct(root, name):
-    cell, rec, _ = run(root, name)
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_is_not_correct(sound, name):
+    cell, rec, _ = sound(name)
     got = (readings.training_readings if cell.workload["kind"] == "train"
            else readings.serving_readings)(cell, rec)["control"]
     limits = cell.workload["limits"]

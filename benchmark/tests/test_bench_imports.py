@@ -1,9 +1,12 @@
 """What the benchmark loads: nothing of JAX or the JAX package anywhere,
 and in the reference nothing of the program either. Module names are
 compared by their whole top-level name (the part before the first dot),
-since the program's name begins with the JAX package's."""
+since the program's name begins with the JAX package's. And what its
+sources name: ShuffleNetV2's layers and settings only in its own
+architecture module."""
 
 import ast
+import re
 import subprocess
 import sys
 
@@ -11,6 +14,14 @@ from benchmark.harness import cell as C
 
 JAX = ("jax", "jaxlib", "flax", "codenet_tpu", "tools_tpu")
 PROGRAM = ("codenet_torch", "tools_torch")
+ARCH = C.BENCH / "reference" / "arch"
+# the architecture modules, the benchmark's and the fixture's
+ARCH_MODULES = sorted(p for d in (ARCH, C.BENCH / "tests" / "arch")
+                      for p in d.glob("*.py") if p.name != "__init__.py")
+# ShuffleNetV2's setting, layers, stages and op, by their names
+SHUFFLENET = re.compile(r"\bw2\b|conv_scale|deconv_layers|\blayer[0-4]\b|"
+                        r"STAGE_REPEATS|share_act|channel_shuffle|shufflenet",
+                        re.IGNORECASE)
 
 
 def _loaded_after(code):
@@ -39,8 +50,13 @@ def test_harness_and_every_reader_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = _loaded_after("import benchmark.reference.train, "
-                           "benchmark.reference.serve, benchmark.counts")
+    loaded = _loaded_after(
+        "import benchmark.reference.train, benchmark.reference.serve, "
+        "benchmark.counts\nimport importlib.util\n"
+        "for i, p in enumerate({!r}):\n"
+        "    spec = importlib.util.spec_from_file_location('m%d' % i, p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        .format([str(p) for p in ARCH_MODULES]))
     assert not loaded & set(JAX + PROGRAM), loaded & set(JAX + PROGRAM)
 
 
@@ -54,8 +70,25 @@ def test_no_source_of_the_benchmark_names_jax_and_the_reference_no_program():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names.add(node.module.split(".")[0])
         assert not names & set(JAX), (path, names & set(JAX))
-        if "reference" in path.parts or path.name == "counts.py":
+        if "reference" in path.parts or path in ARCH_MODULES \
+                or path.name == "counts.py":
             assert not names & set(PROGRAM), (path, names & set(PROGRAM))
+
+
+def test_only_shufflenets_module_names_its_layers():
+    """The harness, the shared reference and the runners name no layer or
+    setting of ShuffleNetV2: a configuration of another architecture runs
+    through them by its own module. Each architecture module names its
+    own; counts.py and metrics/ hold config d's deform counts."""
+    paths = [p for d in ("harness", "reference") for p in
+             (C.BENCH / d).rglob("*.py") if p not in ARCH_MODULES]
+    paths += [C.BENCH / n for n in ("__init__.py", "run.py", "readings.py",
+                                    "program_spans.py")]
+    assert len(paths) >= 12
+    for path in paths:
+        hits = SHUFFLENET.findall(path.read_text())
+        assert not hits, (path, hits)
+    assert SHUFFLENET.search((ARCH / "shufflenetv2.py").read_text())
 
 
 def test_without_the_program_a_run_fails_and_prints_no_result(tmp_path):

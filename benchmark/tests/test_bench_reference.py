@@ -1,46 +1,68 @@
 """The plain reference agrees with the program at a tiny size on the CPU:
-the deform op and its gradient, the network's forward in eval and train
-mode and quantized, and the letterbox geometry."""
+the deform op and its gradient, every architecture module's state and
+its forward in eval and train mode, ShuffleNetV2's quantized, and the
+letterbox geometry."""
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark.harness import compare, weights
-from benchmark.reference import geometry, ops
-from benchmark.reference.model import Net, state_shapes
+from benchmark.reference import arch, geometry, ops
 
-CFG = {"heads": {"hm": 20, "reg": 2, "wh": 2}, "w2": False, "head_conv": 64,
-       "input_hw": [64, 64], "mean": [0.485, 0.456, 0.406],
-       "std": [0.229, 0.224, 0.225]}
+from . import tiny
+
 QUANT = {"w_bit": 4, "a_bit": 8, "wt_percentile": True, "act_clamp": True}
+# every architecture module present: the benchmark's and the fixture's
+FAMILIES = sorted({p.stem for p in (tiny.BENCH / "reference" / "arch")
+                   .glob("*.py") if p.stem != "__init__"}
+                  | {p.stem for p in tiny.fixture_archs()})
+SHUFFLENET = arch.load("shufflenetv2")
+CFG = dict(tiny.configs()["tiny_a"], input_hw=[64, 64])
 
 
-def _state(quant=False, seed=3):
-    params, buffers = weights.make(CFG, seed, "cpu", quant)
+@pytest.fixture(scope="module")
+def archs(tmp_path_factory):
+    return tiny.arch_configs(tiny.make(tmp_path_factory.mktemp("bench")))
+
+
+def _state(mod=SHUFFLENET, cfg=CFG, quant=False, seed=3):
+    params, buffers = weights.make(mod, cfg, seed, "cpu", quant)
     frames = torch.randint(0, 256, (4, 60, 64, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(seed))
-    buffers = weights.calibrated(CFG, params, buffers, frames,
+    buffers = weights.calibrated(mod, cfg, params, buffers, frames,
                                  np.array([[60, 64]] * 4),
                                  QUANT if quant else None)
     return params, buffers
 
 
-def _program(quant, params, buffers):
+def _program(quant, params, buffers, mod=SHUFFLENET, cfg=CFG):
+    """The program's model of the configuration, as its CLIs build it."""
+    from codenet_torch import config as C
     from codenet_torch.models import create_model
     from codenet_torch.models.layers import QuantSpec
-    q = QuantSpec(**quant) if quant else None
-    model = create_model("shufflenetv2", CFG["heads"], 64, qspec=q,
+    opt = C.parse(["ctdet", "--arch", cfg["arch"], "--head_conv",
+                   str(cfg["head_conv"]), *mod.program_args(cfg)])
+    model = create_model(opt.arch, cfg["heads"], opt.head_conv, w2=opt.w2,
+                         maxpool=opt.maxpool,
+                         qspec=QuantSpec(**quant) if quant else None,
                          device="cpu")
     compare.load_state(model, weights.state_dict(params, buffers))
     return model
 
 
-def test_state_names_and_shapes_are_the_programs():
-    for quant in (False, True):
-        model = _program(QUANT if quant else None, *_state(quant))
-        got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-        assert got == state_shapes(CFG["heads"], False, 64, quant)
+def test_every_architecture_module_has_a_tiny_configuration(archs):
+    assert sorted(archs) == FAMILIES
+
+
+@pytest.mark.parametrize("family,quant", [(f, False) for f in FAMILIES]
+                         + [("shufflenetv2", True)])
+def test_state_names_and_shapes_are_the_programs(archs, family, quant):
+    mod, cfg = archs[family]
+    model = _program(QUANT if quant else None,
+                     *_state(mod, cfg, quant), mod, cfg)
+    got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert got == mod.state_shapes(cfg, quant)
 
 
 def test_deform_op_and_gradient():
@@ -61,16 +83,18 @@ def test_deform_op_and_gradient():
         torch.testing.assert_close(v, u, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("train", [False, True])
-def test_fp32_forward(train):
-    params, buffers = _state()
-    model = _program(None, params, buffers).train(train)
+def test_fp32_forward(archs, family, train):
+    mod, cfg = archs[family]
+    params, buffers = _state(mod, cfg)
+    model = _program(None, params, buffers, mod, cfg).train(train)
     x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         prog = model(x)
-        ref = Net(CFG["heads"], False).forward(
-            x.permute(0, 3, 1, 2).contiguous(), params, dict(buffers),
-            train=train)
+        ref = mod.Net(cfg).forward(x.permute(0, 3, 1, 2).contiguous(),
+                                   params, dict(buffers), train=train)
+    assert set(prog) == set(ref)
     for k in ref:
         torch.testing.assert_close(prog[k].permute(0, 3, 1, 2), ref[k],
                                    rtol=1e-4, atol=1e-4)
@@ -90,7 +114,7 @@ def test_quantized_forward_and_ranges(a_bit):
     ref_buffers = dict(buffers)
     with torch.no_grad():
         prog = model(x, update_stats=True)
-        ref = Net(CFG["heads"], False, quant=quant).forward(
+        ref = SHUFFLENET.Net(CFG, quant=quant).forward(
             x.permute(0, 3, 1, 2).contiguous(), params, ref_buffers,
             update=True)
     state = model.state_dict()
